@@ -1,0 +1,333 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Drives the DMC main path of ``phd_qmclib_torch`` at the bench
+configuration (v0=20, r=1, gn=1, N=128 bosons, L=128, rm=0.4, dt=1e-3,
+16,384 target walkers in a 17,408-slot buffer, f32) through its two
+hand-written CUDA kernels, and checks the kernels and the physics:
+
+A. the card's name and power limit; the kernels' build (``-Xptxas -v``);
+B. the pair energy/drift kernel (K1) against its plain torch version,
+   f32 at the main path's shape and f64;
+C. the Philox normals kernel (K2) against its plain torch version: equal
+   integer words, normals equal to f32 rounding, and their moments;
+D. a small f64 replay on the card against the same replay on the CPU,
+   then the DMC run: 6 burn blocks and 2 timed blocks of 512 steps;
+   E/N must land within 0.02 of the stored 8.41614 and inside the
+   physical bracket (8.0107, 8.5089), and both kernels must have been
+   launched on every step;
+E. each kernel's time against its plain version at the main path's
+   shapes, alternating plain, kernel, kernel, plain.
+
+The second-to-last line is the per-kernel JSON summary and the last line
+``{"ok": true, "device": {...}}``.  Any failure raises: the script
+exits non-zero and prints no result.  It needs a CUDA device and the
+repository's ``phd_qmclib_torch`` package next to it.
+"""
+import json
+import math
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from phd_qmclib_torch.models import mrbp
+from phd_qmclib_torch.ops import _build, pairwise, prng
+from phd_qmclib_torch.samplers import dmc
+
+NOP = 128
+TARGET_WALKERS = 16384
+MAX_WALKERS = 17408
+TIME_STEP = 1e-3
+NTS = 512
+BURN_BLOCKS = 6
+TIMED_BLOCKS = 2
+#: The stored E/N band of the bench configuration and its physical
+#: bracket (ideal band bottom, VMC variational energy): ``bench.py``.
+ENERGY_REF, ENERGY_TOL = 8.41614, 0.02
+ENERGY_BRACKET = (8.0107, 8.5089)
+
+BENCH_SPEC = dict(lattice_depth=20.0, lattice_ratio=1.0,
+                  interaction_strength=1.0, boson_number=NOP,
+                  supercell_size=float(NOP), tbf_contact_cutoff=0.4)
+DEFECTED_SPEC = dict(BENCH_SPEC, num_defects=8, defect_magnitude=10.0)
+
+#: Kernel-vs-plain tolerances.  f32: per-particle sums of 128 terms in
+#: another order plus fma contraction in the kernel (E_L ~ 1e3);
+#: f64: the same at f64 round-off.
+K1_F32_TOL = dict(energy_rtol=2e-5, drift_rtol=1e-3, drift_atol=1e-4)
+K1_F64_RTOL = 1e-10
+#: Normals equal to f32 rounding: logf/sqrtf and fma contraction may
+#: differ by an ulp or two of |z| <= 6.
+K2_TOL = dict(rtol=1e-6, atol=2e-6)
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls (CUDA events),
+    after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pair_inputs(spec_kwargs, num_walkers, dtype, device, seed=0):
+    spec = mrbp.Spec(**spec_kwargs)
+    static = spec.static_spec
+    pos = np.random.default_rng(seed).uniform(
+        0, spec.supercell_size, (num_walkers, spec.boson_number))
+    kw = dict(nop=static.boson_number, is_free=static.is_free,
+              is_ideal=static.is_ideal, defects_sep=static.defects_sep)
+    return (torch.as_tensor(pos, dtype=dtype, device=device),
+            pairwise.pack_params(spec.cfc_params, dtype, device), kw)
+
+
+def check_k1(device) -> float:
+    """Phase B; returns the largest f32 abs error at the main path's
+    shape."""
+    max_err = 0.0
+    for label, spec_kwargs, walkers, dtype in (
+            ("bench f32", BENCH_SPEC, MAX_WALKERS, torch.float32),
+            ("defected f32", DEFECTED_SPEC, MAX_WALKERS, torch.float32),
+            ("bench f64", BENCH_SPEC, 256, torch.float64),
+            ("defected f64", DEFECTED_SPEC, 256, torch.float64)):
+        pos, params, kw = pair_inputs(spec_kwargs, walkers, dtype, device)
+        energy, drift = pairwise.energy_and_drift(pos, params, **kw)
+        torch.cuda.synchronize()
+        energy_p, drift_p = pairwise.energy_and_drift_plain(pos, params,
+                                                            **kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(energy).all()
+                     and torch.isfinite(drift).all()),
+                f"K1 {label} finite")
+        if dtype == torch.float32:
+            tol = K1_F32_TOL
+            torch.testing.assert_close(energy, energy_p,
+                                       rtol=tol["energy_rtol"], atol=0.0)
+            torch.testing.assert_close(drift, drift_p,
+                                       rtol=tol["drift_rtol"],
+                                       atol=tol["drift_atol"])
+        else:
+            torch.testing.assert_close(energy, energy_p, rtol=K1_F64_RTOL,
+                                       atol=K1_F64_RTOL)
+            torch.testing.assert_close(drift, drift_p, rtol=K1_F64_RTOL,
+                                       atol=K1_F64_RTOL)
+        e_err = float((energy - energy_p).abs().max())
+        d_err = float((drift - drift_p).abs().max())
+        e_rel = float(((energy - energy_p).abs()
+                       / energy_p.abs()).max())
+        if label == "bench f32":
+            max_err = max(e_err, d_err)
+        phase("B", check=f"K1 {label}", shape=list(pos.shape),
+              energy_max_abs_err=e_err, energy_max_rel_err=e_rel,
+              drift_max_abs_err=d_err, ok=True)
+    return max_err
+
+
+def check_k2(device) -> float:
+    """Phase C; returns the largest abs error of the normals."""
+    key, step = 1, 12345
+    shape = (MAX_WALKERS, NOP)
+    num_quads = math.prod(shape) // 4
+    words = prng.philox_words(key, step, num_quads, device)
+    words_p = prng.philox_words_plain(key, step, num_quads, device)
+    torch.cuda.synchronize()
+    require(torch.equal(words, words_p), "K2 Philox words equal")
+    z = prng.normal(key, step, shape, torch.float32, device)
+    torch.cuda.synchronize()
+    z_p = prng.normal_plain(key, step, shape, torch.float32, device)
+    torch.testing.assert_close(z, z_p, **K2_TOL)
+    zd = z.double()
+    mean, std = float(zd.mean()), float(zd.std())
+    centred = (zd - mean) / std
+    skew = float((centred ** 3).mean())
+    kurt = float((centred ** 4).mean()) - 3.0
+    n = z.numel()
+    require(abs(mean) < 5 / math.sqrt(n) and abs(std - 1) < 5 / math.sqrt(
+        2 * n), "K2 normals: mean 0, std 1")
+    err = float((z - z_p).abs().max())
+    phase("C", check="K2 vs plain", shape=list(shape), words_equal=True,
+          max_abs_err=err, mean=mean, std=std, skew=skew,
+          excess_kurtosis=kurt, ok=True)
+    return err
+
+
+def check_replay(device) -> None:
+    """Phase D, first part: the sampler's step on the card (both
+    kernels) against the same injected-noise replay on the CPU (plain
+    versions), f64, N=16."""
+    spec = mrbp.Spec(**dict(BENCH_SPEC, boson_number=16,
+                            supercell_size=16.0))
+    sampling = dmc.Sampling(spec, time_step=1e-2, max_num_walkers=64,
+                            target_num_walkers=48, rng_seed=3)
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
+    comb_u = rng.random((10, 64))
+    xi = sampling.sigma_spread * rng.standard_normal((10, 64, 16))
+    on_cpu = sampling.replay_states(sampling.build_state(confs), comb_u, xi)
+    on_card = sampling.replay_states(
+        sampling.build_state(confs, device=device), comb_u, xi)
+    require(torch.equal(on_card["parent"].cpu(), on_cpu["parent"]),
+            "replay branching tables equal")
+    errs = {}
+    for name in ("pos", "energies", "weights", "ref_energy"):
+        torch.testing.assert_close(on_card[name].cpu(), on_cpu[name],
+                                   rtol=1e-9, atol=1e-9)
+        errs[name] = float((on_card[name].cpu() - on_cpu[name]).abs().max())
+    phase("D", check="f64 replay card vs CPU", steps=10, max_abs_err=errs,
+          ok=True)
+
+
+def run_dmc(device, card: str) -> dict:
+    """Phase D: the main path at the bench configuration."""
+    spec = mrbp.Spec(**BENCH_SPEC)
+    sampling = dmc.Sampling(spec, time_step=TIME_STEP,
+                            max_num_walkers=MAX_WALKERS,
+                            target_num_walkers=TARGET_WALKERS, rng_seed=1)
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng)
+                      for _ in range(TARGET_WALKERS)]).astype(np.float32)
+
+    pairwise.energy_and_drift.launch_count = 0
+    prng.normal.launch_count = 0
+    t_start = time.perf_counter()
+    state = sampling.build_state(confs, dtype=np.float32, device=device)
+    blocks = sampling.blocks(state, num_time_steps_block=NTS,
+                             burn_in_blocks=BURN_BLOCKS)
+    for _ in range(BURN_BLOCKS):
+        block = next(blocks)
+    burn_s = time.perf_counter() - t_start
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    e_over_w, walker_steps = [], 0
+    for _ in range(TIMED_BLOCKS):
+        block = next(blocks)  # ends in a fetch of the block's props
+        props = block.iter_props
+        e_over_w.append(float(props.energy.double().sum()
+                              / props.weight.double().sum()))
+        walker_steps += int(props.num_walkers.sum())
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": pairwise.energy_and_drift.launch_count,
+                "K2": prng.normal.launch_count}
+
+    steps_run = (BURN_BLOCKS + TIMED_BLOCKS) * NTS
+    last = block.last_state
+    e_per_boson = float(np.mean(e_over_w)) / NOP
+    require(last.pos.shape == (MAX_WALKERS, NOP)
+            and bool(torch.isfinite(last.pos).all())
+            and bool(torch.isfinite(last.energies).all()),
+            "final state finite, of the buffer's shape")
+    require(0 < int(last.num_walkers) <= MAX_WALKERS, "walkers alive")
+    lo, hi = ENERGY_BRACKET
+    require(abs(e_per_boson - ENERGY_REF) < ENERGY_TOL
+            and lo < e_per_boson < hi,
+            f"E/N {e_per_boson} within {ENERGY_TOL} of {ENERGY_REF} "
+            f"and inside {ENERGY_BRACKET}")
+    require(launches["K1"] >= steps_run and launches["K2"] >= steps_run,
+            f"kernel launches {launches} cover {steps_run} steps")
+    step_ms = start.elapsed_time(end) / (TIMED_BLOCKS * NTS)
+    phase("D", check="DMC bench config", card=card, steps_run=steps_run,
+          burn_s=burn_s, timed_wall_s=wall_s,
+          walker_steps_per_s=walker_steps / wall_s,
+          step_ms_cuda_events=step_ms,
+          mean_num_walkers=walker_steps / (TIMED_BLOCKS * NTS),
+          energy_per_boson=e_per_boson,
+          energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
+    return launches
+
+
+def time_kernels(device, card: str) -> dict:
+    """Phase E: kernel vs plain at the main path's shapes, in turns."""
+    pos, params, kw = pair_inputs(BENCH_SPEC, MAX_WALKERS, torch.float32,
+                                  device)
+    shape = (MAX_WALKERS, NOP)
+    cases = {
+        "K1": (lambda: pairwise.energy_and_drift_plain(pos, params, **kw),
+               lambda: pairwise.energy_and_drift(pos, params, **kw),
+               5, 50),
+        "K2": (lambda: prng.normal_plain(1, 7, shape, torch.float32,
+                                         device),
+               lambda: prng.normal(1, 7, shape, torch.float32, device),
+               20, 500),
+    }
+    times = {}
+    for name, (plain, kernel, plain_reps, kernel_reps) in cases.items():
+        p1 = cuda_ms(plain, plain_reps)
+        k1 = cuda_ms(kernel, kernel_reps)
+        k2 = cuda_ms(kernel, kernel_reps)
+        p2 = cuda_ms(plain, plain_reps)
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+        phase("E", kernel=name, card=card, shape=list(shape),
+              plain_ms=[p1, p2], kernel_ms=[k1, k2],
+              speedup=(p1 + p2) / (k1 + k2), ok=True)
+    return times
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
+                           "only")
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+
+    # A. The card and the kernels' build.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    log = _build.build()
+    _build.library()
+    phase("A", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+          build_s=time.perf_counter() - t0, built=bool(log), ok=True)
+    print(log if log else "kernel library up to date", flush=True)
+
+    err_k1 = check_k1(device)  # B
+    err_k2 = check_k2(device)  # C
+    check_replay(device)  # D
+    launches = run_dmc(device, smi)  # D
+    times = time_kernels(device, smi)  # E
+
+    kernels = [
+        {"name": "pair_energy_drift", "route": "cuda",
+         "source": "phd_qmclib_torch/csrc/pairwise.cu",
+         "replaces": "phd_qmclib_tpu/ops/pairwise.py:84",
+         "launches": launches["K1"], "max_abs_err": err_k1,
+         **times["K1"]},
+        {"name": "philox_normals", "route": "cuda",
+         "source": "phd_qmclib_torch/csrc/prng.cu",
+         "replaces": "phd_qmclib_tpu/ops/prng.py:64",
+         "launches": launches["K2"], "max_abs_err": err_k2,
+         **times["K2"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,19 @@
+"""phd-qmclib-torch: the DMC main path of ``phd_qmclib_tpu`` in PyTorch.
+
+A port of the JAX package to PyTorch and CUDA on an NVIDIA H100.  The
+JAX package stays the reference: every module here has a counterpart
+of the same name there, and the tests hold each one against it.
+
+* Plain tensor code is PyTorch, on an explicit ``device``.
+* The two Pallas kernels on the DMC path are hand-written CUDA C++
+  (``csrc/``), built with ``nvcc`` at first use: the fused pair energy
+  and drift (``ops.pairwise``) and the diffusion normals
+  (``ops.prng``).  On a CPU tensor each wrapper runs its plain PyTorch
+  version instead.
+
+Importing the package needs neither a GPU, nor ``nvcc``, nor ``triton``,
+and it never imports ``jax`` or ``phd_qmclib_tpu``.
+"""
+from . import constants, ideal, models, ops, samplers, utils  # noqa: F401
+
+__version__ = "0.1.0"

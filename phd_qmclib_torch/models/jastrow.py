@@ -1,0 +1,168 @@
+"""Generic Bijl-Jastrow pair-product wavefunction functions.
+
+Counterpart of ``phd_qmclib_tpu.models.jastrow``.  The trial
+wavefunction is ``psi(z) = prod_i f1(z_i) * prod_{i<j} f2(|z_ij|)`` for
+model-supplied one-body (``f1``) and two-body (``f2``) functions; every
+function here is a batched torch function over positions of shape
+``(..., N)``, with the pair loops written as ``(..., N, N)`` tensors.
+
+Naming carried over from the JAX package: the ``*_log_dz`` callables
+return the log-derivative ``f'/f`` while the ``*_log_dz2`` callables
+return the bare second-derivative ratio ``f''/f``.  With that
+convention the local energy is::
+
+    E_L = sum_t (-f_t''/f_t + (f_t'/f_t)^2) - sum_i drift_i^2 + V
+        = -(laplacian psi)/psi + V
+"""
+import typing as t
+from types import SimpleNamespace
+
+import torch
+
+from ..ops.pbc import min_image_bounded, sign
+
+__all__ = ["CFCParams", "build_core_funcs", "SysConfSlot"]
+
+
+class SysConfSlot:
+    """Slots of a packed ``(2, N)`` system configuration."""
+    pos: int = 0
+    drift: int = 1
+
+
+class CFCParams(t.NamedTuple):
+    """Continuous core-function parameters.
+
+    Concrete models define the ``model_params`` / ``obf_params`` /
+    ``tbf_params`` groups; their leaves are Python floats or 0-d
+    tensors.
+    """
+    model_params: t.Any
+    obf_params: t.Any
+    tbf_params: t.Any
+
+
+def build_core_funcs(*,
+                     one_body,
+                     one_body_log_dz,
+                     one_body_log_dz2,
+                     two_body_pair_terms,
+                     potential,
+                     is_free: bool,
+                     is_ideal: bool,
+                     boson_number: int) -> SimpleNamespace:
+    """Build the Jastrow function namespace for a concrete model.
+
+    Every model callable has signature ``(x, cfc: CFCParams) -> value``
+    and is vectorized over ``x``.  ``two_body_pair_terms(r, cfc,
+    need_log, need_derivs, need_kin)`` returns the fused
+    ``(log|f2|, f2'/f2, third)`` pair terms, where ``third`` is the
+    per-pair kinetic term ``-f2''/f2 + (f2'/f2)^2`` with ``need_kin``
+    and ``f2''/f2`` otherwise.  ``is_free`` / ``is_ideal`` drop the
+    corresponding terms when the functions are built.
+
+    Returns a namespace with ``log_psi``, ``drift``, ``energy``,
+    ``energy_and_drift`` and ``log_psi_and_energy``.
+    """
+    nop = boson_number
+
+    def _pair_geometry(pos, cfc):
+        """Minimum-image pair displacements, distances and the
+        off-diagonal mask.
+
+        Diagonal distances are replaced by a safe value (L/4) before the
+        two-body functions see them, so masked-out entries never produce
+        inf/NaN values.
+        """
+        sc = cfc.model_params.supercell_size
+        d = pos[..., :, None] - pos[..., None, :]
+        # Positions live in [0, L): differences are bounded by (-L, L),
+        # so the cheap round-based minimum image applies.
+        d = min_image_bounded(d, sc)
+        off_diag = ~torch.eye(nop, dtype=torch.bool, device=pos.device)
+        r = torch.where(off_diag, d.abs(), 0.25 * sc)
+        return d, r, off_diag
+
+    def _masked_sum(x, mask, dim):
+        return torch.where(mask, x, 0.0).sum(dim=dim)
+
+    def log_psi(pos, cfc: CFCParams):
+        """log|psi| for configurations ``pos`` of shape ``(..., N)``."""
+        total = torch.zeros(pos.shape[:-1], dtype=pos.dtype,
+                            device=pos.device)
+        if not is_free:
+            total = total + one_body(pos, cfc).abs().log().sum(dim=-1)
+        if not is_ideal:
+            _, r, off_diag = _pair_geometry(pos, cfc)
+            log_tb, _, _ = two_body_pair_terms(r, cfc, need_log=True,
+                                               need_derivs=False)
+            total = total + 0.5 * _masked_sum(log_tb, off_diag, (-1, -2))
+        return total
+
+    def drift(pos, cfc: CFCParams):
+        """Drift force ``F_i = d(log|psi|)/dz_i``, shape ``(..., N)``."""
+        out = torch.zeros_like(pos)
+        if not is_free:
+            out = out + one_body_log_dz(pos, cfc)
+        if not is_ideal:
+            d, r, off_diag = _pair_geometry(pos, cfc)
+            _, tb_ldz, _ = two_body_pair_terms(r, cfc, need_log=False,
+                                               need_derivs=True)
+            out = out + _masked_sum(tb_ldz * sign(d), off_diag, -1)
+        return out
+
+    def _one_body_terms(pos, cfc):
+        ob_ldz = one_body_log_dz(pos, cfc)
+        ob_ldz2 = one_body_log_dz2(pos, cfc)
+        kin = (-ob_ldz2 + ob_ldz ** 2).sum(dim=-1)
+        pot = potential(pos, cfc).sum(dim=-1)
+        return ob_ldz, kin, pot
+
+    def energy_and_drift(pos, cfc: CFCParams):
+        """Fused local energy and drift - the DMC hot function.
+
+        Returns ``(energy (...,), drift (..., N))``.
+        """
+        batch_shape = pos.shape[:-1]
+        zeros = torch.zeros(batch_shape, dtype=pos.dtype,
+                            device=pos.device)
+        kin, pot, drift_v = zeros, zeros, torch.zeros_like(pos)
+        if not is_free:
+            drift_v, kin, pot = _one_body_terms(pos, cfc)
+        if not is_ideal:
+            d, r, off_diag = _pair_geometry(pos, cfc)
+            _, tb_ldz, tb_kin = two_body_pair_terms(
+                r, cfc, need_log=False, need_derivs=True, need_kin=True)
+            kin = kin + _masked_sum(tb_kin, off_diag, (-1, -2))
+            drift_v = drift_v + _masked_sum(tb_ldz * sign(d), off_diag,
+                                            -1)
+        energy_v = kin - (drift_v ** 2).sum(dim=-1) + pot
+        return energy_v, drift_v
+
+    def energy(pos, cfc: CFCParams):
+        """Local energy ``E_L``."""
+        return energy_and_drift(pos, cfc)[0]
+
+    def log_psi_and_energy(pos, cfc: CFCParams):
+        """Fused ``(log|psi|, E_L)`` - the VMC hot function."""
+        batch_shape = pos.shape[:-1]
+        zeros = torch.zeros(batch_shape, dtype=pos.dtype,
+                            device=pos.device)
+        lp, kin, pot, drift_v = zeros, zeros, zeros, torch.zeros_like(pos)
+        if not is_free:
+            lp = one_body(pos, cfc).abs().log().sum(dim=-1)
+            drift_v, kin, pot = _one_body_terms(pos, cfc)
+        if not is_ideal:
+            d, r, off_diag = _pair_geometry(pos, cfc)
+            log_tb, tb_ldz, tb_kin = two_body_pair_terms(
+                r, cfc, need_log=True, need_derivs=True, need_kin=True)
+            lp = lp + 0.5 * _masked_sum(log_tb, off_diag, (-1, -2))
+            kin = kin + _masked_sum(tb_kin, off_diag, (-1, -2))
+            drift_v = drift_v + _masked_sum(tb_ldz * sign(d), off_diag,
+                                            -1)
+        energy_v = kin - (drift_v ** 2).sum(dim=-1) + pot
+        return lp, energy_v
+
+    return SimpleNamespace(log_psi=log_psi, drift=drift, energy=energy,
+                           energy_and_drift=energy_and_drift,
+                           log_psi_and_energy=log_psi_and_energy)

@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels.
+
+``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain
+C interface, ``build/libqmc_kernels.so`` at the root of the checkout,
+the first time a kernel is launched (or again when a source is newer
+than the library).  The library is loaded with ``ctypes``: every
+pointer and the stream pass as ``c_void_p``, every integer as ``c_int``,
+and every launch function returns its ``cudaGetLastError()``.
+
+Nothing here runs at import time: the CPU tests import every module on
+a host without ``nvcc`` or a GPU.
+"""
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["build", "check", "library", "BUILD_DIR", "SOURCES"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+LIBRARY = BUILD_DIR / "libqmc_kernels.so"
+
+#: Hopper only (``sm_90a``); no ``--use_fast_math``: the one-body terms
+#: need the accurate ``tanf``/``tanhf`` and the Box-Muller radius the
+#: accurate ``logf``.  ``-Xptxas -v`` reports registers, shared memory
+#: and spills per kernel.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: Signatures of the exported launch functions (all return an int).
+SIGNATURES = {
+    # pos, params, energy, drift, num_walkers, nop, is_free, is_ideal,
+    # defects_sep, stream
+    "qmc_pair_energy_drift_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "qmc_pair_energy_drift_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, num_elements, key_lo, key_hi, step_lo, step_hi, stream
+    "qmc_philox_normals_f32": (_P, _I, _I, _I, _I, _I, _P),
+    "qmc_philox_normals_f64": (_P, _I, _I, _I, _I, _I, _P),
+    # out (uint32 words), num_quads, key_lo, key_hi, step_lo, step_hi,
+    # stream
+    "qmc_philox_words": (_P, _I, _I, _I, _I, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if not candidate.exists():
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "of phd_qmclib_torch cannot be built")
+    return str(candidate)
+
+
+def build() -> str:
+    """Compile the library if it is missing or older than a source.
+
+    Returns what ``nvcc`` printed (the ``-Xptxas -v`` report), or an
+    empty string when the library was up to date.  The library is
+    written under a temporary name and renamed, so concurrent builds
+    never load a half-written file.
+    """
+    newest_source = max(src.stat().st_mtime for src in SOURCES)
+    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest_source:
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on the first call)."""
+    build()
+    lib = ctypes.CDLL(str(LIBRARY))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

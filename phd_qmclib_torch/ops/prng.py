@@ -1,0 +1,198 @@
+"""Counter-based Gaussian noise for the DMC diffusion step.
+
+Counterpart of ``phd_qmclib_tpu.ops.prng.normal_pallas``.  The TPU
+kernel draws its bits from the chip's hardware generator; here the bits
+are Philox4x32-10, counter-based, so any element of any step can be
+drawn independently and the CUDA kernel (``csrc/prng.cu``) and its
+plain torch version give the same integer words:
+
+* key ``(seed mod 2^32, seed >> 32)``;
+* counter ``(q mod 2^32, q >> 32, step mod 2^32, step >> 32)`` for the
+  quad ``q`` of output elements ``4q .. 4q+3``.
+
+The four words ``(w0, w1, w2, w3)`` of a quad become two pairs of 24-bit
+uniforms, ``u1 = (w >> 8) 2^-24 + 2^-24`` in (0, 1] and
+``u2 = (w >> 8) 2^-24`` in [0, 1), and full Box-Muller with quarter-wave
+polynomial cos/sin turns each pair into ``r cos`` and ``r sin``:
+elements ``4q, 4q+1`` from ``(w0, w1)`` and ``4q+2, 4q+3`` from
+``(w2, w3)``.  The transform runs in f32 whatever the output dtype.
+"""
+import math
+
+import torch
+
+from . import _build, trig
+
+__all__ = ["box_muller", "normal", "normal_plain", "philox_words",
+           "philox_words_plain"]
+
+_MASK32 = 0xFFFFFFFF
+#: Philox4x32 round multipliers and Weyl key increments (Salmon et al.,
+#: "Parallel random numbers: as easy as 1, 2, 3", SC11).
+PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+PHILOX_W0, PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+PHILOX_ROUNDS = 10
+
+
+def _split64(value: int):
+    """(low, high) 32-bit words of a non-negative integer below 2^64."""
+    if not 0 <= value < 1 << 64:
+        raise ValueError(f"{value} is not a 64-bit unsigned integer")
+    return value & _MASK32, value >> 32
+
+
+def _as_c_int(word: int) -> int:
+    """A 32-bit word as the signed int the C interface takes."""
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+# -- plain torch version ----------------------------------------------------
+
+def _mulhilo(m: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of ``m * b`` in int64 arithmetic.
+
+    ``b`` splits into 16-bit halves so that no partial product reaches
+    2^63: ``m*b = uh 2^32 + (ul 2^16 + t)`` with ``t = m*(b & 0xFFFF)``
+    and ``u = m*(b >> 16) = uh 2^16 + ul``.
+    """
+    t = m * (b & 0xFFFF)
+    u = m * (b >> 16)
+    s = ((u & 0xFFFF) << 16) + t
+    return (u >> 16) + (s >> 32), s & _MASK32
+
+
+def _philox(c0, c1, c2, c3, k0: int, k1: int) -> torch.Tensor:
+    """Philox4x32-10 of int64 counter words ``c0..c3`` (tensors of one
+    shape, values in [0, 2^32)) under the key ``(k0, k1)``; returns the
+    words stacked on a last axis of 4."""
+    for _ in range(PHILOX_ROUNDS):
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & _MASK32
+        k1 = (k1 + PHILOX_W1) & _MASK32
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def philox_words_plain(key: int, step: int, num_quads: int,
+                       device="cpu") -> torch.Tensor:
+    """Philox4x32-10 words ``(num_quads, 4)`` as int64 in [0, 2^32)."""
+    k0, k1 = _split64(key)
+    s0, s1 = _split64(step)
+    q = torch.arange(num_quads, dtype=torch.int64, device=device)
+    return _philox(q & _MASK32, q >> 32, torch.full_like(q, s0),
+                   torch.full_like(q, s1), k0, k1)
+
+
+def _cos_poly(arg: torch.Tensor) -> torch.Tensor:
+    """cos(arg) for arg in [0, pi/2] (quarter-wave polynomial)."""
+    return trig._horner(trig.COS_COEFFS, arg * arg)
+
+
+def _sin_poly(arg: torch.Tensor) -> torch.Tensor:
+    """sin(arg) for arg in [0, pi/2]."""
+    return arg * trig._horner(trig.SIN_COEFFS, arg * arg)
+
+
+def _fold(u2: torch.Tensor):
+    """Quarter-wave folding of ``2 pi u2``: ``(b, flip, arg)`` with
+    ``b`` in [-1, 1], ``cos(pi b) = cos(2 pi u2)`` and ``arg`` in
+    [0, pi/2]."""
+    a = 2.0 * u2
+    b = a - 2.0 * torch.round(0.5 * a)
+    c = b.abs()
+    flip = c > 0.5
+    arg = math.pi * torch.where(flip, 1.0 - c, c)
+    return b, flip, arg
+
+
+def _cos2pi(u: torch.Tensor) -> torch.Tensor:
+    """cos(2 pi u) for u in [0, 1) via quarter-wave folding."""
+    _, flip, arg = _fold(u)
+    val = _cos_poly(arg)
+    return torch.where(flip, -val, val)
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor):
+    """Full Box-Muller: ``(r cos(2 pi u2), r sin(2 pi u2))`` with
+    ``r = sqrt(-2 log u1)``, for ``u1`` in (0, 1] and ``u2`` in [0, 1)."""
+    radius = torch.sqrt(-2.0 * torch.log(u1))
+    b, flip, arg = _fold(u2)
+    cosv = torch.where(flip, -1.0, 1.0) * _cos_poly(arg)
+    sinv = torch.where(b >= 0, 1.0, -1.0) * _sin_poly(arg)
+    return radius * cosv, radius * sinv
+
+
+def normal_plain(key: int, step: int, shape, dtype=torch.float32,
+                 device="cpu") -> torch.Tensor:
+    """Plain torch version of the kernel: standard normals of ``shape``."""
+    numel = math.prod(shape)
+    words = philox_words_plain(key, step, -(-numel // 4), device)
+    bits24 = (words >> 8).to(torch.float32)
+    u1 = bits24[:, 0::2] * 2.0 ** -24 + 2.0 ** -24
+    u2 = bits24[:, 1::2] * 2.0 ** -24
+    zc, zs = box_muller(u1, u2)
+    out = torch.stack([zc, zs], dim=-1).reshape(-1)[:numel]
+    return out.reshape(shape).to(dtype)
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+def _launch_args(key: int, step: int):
+    return [_as_c_int(w) for w in (*_split64(key), *_split64(step))]
+
+
+def normal(key: int, step: int, shape, dtype=torch.float32,
+           device="cpu") -> torch.Tensor:
+    """Standard normals of ``shape`` for ``(key, step)``.
+
+    On a CUDA device this launches the kernel of ``csrc/prng.cu``; on
+    the CPU it runs :func:`normal_plain`.  ``dtype`` is float32 or
+    float64 (the values are f32 normals either way).
+    """
+    device = torch.device(device)
+    if device.type == "cpu":
+        return normal_plain(key, step, shape, dtype, device)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    numel = math.prod(shape)
+    if numel >= 1 << 31:
+        raise ValueError(f"{numel} elements exceed the kernel's int range")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if numel == 0:
+        return out
+    lib = _build.library()
+    launch = (lib.qmc_philox_normals_f32 if dtype == torch.float32
+              else lib.qmc_philox_normals_f64)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(launch(out.data_ptr(), numel,
+                            *_launch_args(key, step), stream),
+                     "Philox normals kernel")
+    normal.launch_count += 1
+    return out
+
+
+#: Kernel launches since the last reset (set it to 0 to reset).
+normal.launch_count = 0
+
+
+def philox_words(key: int, step: int, num_quads: int,
+                 device="cpu") -> torch.Tensor:
+    """Philox4x32-10 words ``(num_quads, 4)`` as int64 in [0, 2^32): the
+    kernel's own bits on a CUDA device, for holding them against
+    :func:`philox_words_plain`; :func:`philox_words_plain` on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return philox_words_plain(key, step, num_quads, device)
+    if not 0 < num_quads < 1 << 29:
+        raise ValueError(f"num_quads out of range: {num_quads}")
+    out = torch.empty((num_quads, 4), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(_build.library().qmc_philox_words(
+            out.data_ptr(), num_quads, *_launch_args(key, step), stream),
+            "Philox words kernel")
+    return out.to(torch.int64) & _MASK32
