@@ -4,8 +4,9 @@
 
 Drives the DMC main path of ``phd_qmclib_torch`` at the bench
 configuration (v0=20, r=1, gn=1, N=128 bosons, L=128, rm=0.4, dt=1e-3,
-16,384 target walkers in a 17,408-slot buffer, f32) through its two
-hand-written CUDA kernels, and checks the kernels and the physics:
+16,384 target walkers in a 17,408-slot buffer, f32) through its
+hand-written CUDA kernels, without and with the estimators, and checks
+the kernels and the physics:
 
 A. the card's name and power limit; the kernels' build (``-Xptxas -v``);
 B. the pair energy/drift kernel (K1) against its plain torch version,
@@ -17,6 +18,18 @@ D. a small f64 replay on the card against the same replay on the CPU,
    E/N must land within 0.02 of the stored 8.41614 and inside the
    physical bracket (8.0107, 8.5089), and both kernels must have been
    launched on every step;
+F. the histogram kernel (K4) against its plain torch version, bit for
+   bit: the density shape (17408 x 128, 128 bins, f32 and f64), the g2
+   shape (the 17408 x 128 rows of 128 pair distances, 128 bins of L/256)
+   and the bin edges;
+G. DMC with estimators from phase D's last state: a small f64 estimator
+   replay on the card against the CPU, then G1, the bench estimator load
+   (pure 128-bin density and pure 64-mode S(k) every step), and G2, the
+   production example without ITC (``est_every`` 8; pure density, S(k)
+   with a 512-step window, 32-point OBDM and 128-bin g2 every 64th
+   step; CM diffusion with an 8-block window), 2 timed blocks of 512
+   steps each: the E/N band, the sum rules at every measured step, and
+   the kernels' launch counts;
 E. each kernel's time against its plain version at the main path's
    shapes, alternating plain, kernel, kernel, plain.
 
@@ -34,7 +47,7 @@ import numpy as np
 import torch
 
 from phd_qmclib_torch.models import mrbp
-from phd_qmclib_torch.ops import _build, pairwise, prng
+from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
 from phd_qmclib_torch.samplers import dmc
 
 NOP = 128
@@ -62,6 +75,28 @@ K1_F64_RTOL = 1e-10
 #: Normals equal to f32 rounding: logf/sqrtf and fma contraction may
 #: differ by an ulp or two of |z| <= 6.
 K2_TOL = dict(rtol=1e-6, atol=2e-6)
+#: Estimator sum rules in f32: the per-walker rows are exact integers
+#: (or N^2), but their walker sums pass 2^24 and round, and the pure
+#: estimators divide by their contribution counts: 1e-5 relative.  The
+#: OBDM at offset 0 is exp(0) per walker only up to the f32 round-off of
+#: two pair-log sums of 127 terms each (minimum image before and after
+#: the zero shift): 1e-4 relative.
+SUM_RULE_RTOL, OBDM_RTOL = 1e-5, 1e-4
+
+#: Phase G's estimator loads.
+G1_ESTIMATORS = dict(
+    density_est_spec=dmc.DensityEstSpec(num_bins=128, as_pure_est=True),
+    ssf_est_spec=dmc.SSFEstSpec(num_modes=64, as_pure_est=True))
+G2_ESTIMATORS = dict(
+    est_every=8,
+    density_est_spec=dmc.DensityEstSpec(num_bins=128, as_pure_est=True),
+    ssf_est_spec=dmc.SSFEstSpec(num_modes=64, as_pure_est=True,
+                                pfw_num_time_steps=512),
+    obd_est_spec=dmc.OBDEstSpec(num_pos=32, as_pure_est=True,
+                                est_every_mult=8),
+    pair_corr_est_spec=dmc.PairCorrEstSpec(num_bins=128, as_pure_est=True,
+                                           est_every_mult=8),
+    cm_diffusion_est=True, cm_window_blocks=8)
 
 
 def phase(name: str, **fields) -> None:
@@ -194,12 +229,31 @@ def check_replay(device) -> None:
           ok=True)
 
 
-def run_dmc(device, card: str) -> dict:
-    """Phase D: the main path at the bench configuration."""
+def bench_sampling(**estimators) -> dmc.Sampling:
+    return dmc.Sampling(mrbp.Spec(**BENCH_SPEC), time_step=TIME_STEP,
+                        max_num_walkers=MAX_WALKERS,
+                        target_num_walkers=TARGET_WALKERS, rng_seed=1,
+                        **estimators)
+
+
+def check_energy(props_list, label: str) -> float:
+    """E/N of the timed blocks, held to the stored band."""
+    e_per_boson = float(np.mean([
+        float(p.energy.double().sum() / p.weight.double().sum())
+        for p in props_list])) / NOP
+    lo, hi = ENERGY_BRACKET
+    require(abs(e_per_boson - ENERGY_REF) < ENERGY_TOL
+            and lo < e_per_boson < hi,
+            f"{label}: E/N {e_per_boson} within {ENERGY_TOL} of "
+            f"{ENERGY_REF} and inside {ENERGY_BRACKET}")
+    return e_per_boson
+
+
+def run_dmc(device, card: str):
+    """Phase D: the main path at the bench configuration.  Returns the
+    launch counts, the last state and the timings."""
     spec = mrbp.Spec(**BENCH_SPEC)
-    sampling = dmc.Sampling(spec, time_step=TIME_STEP,
-                            max_num_walkers=MAX_WALKERS,
-                            target_num_walkers=TARGET_WALKERS, rng_seed=1)
+    sampling = bench_sampling()
     rng = np.random.default_rng(0)
     confs = np.stack([spec.init_get_sys_conf(rng=rng)
                       for _ in range(TARGET_WALKERS)]).astype(np.float32)
@@ -217,13 +271,11 @@ def run_dmc(device, card: str) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    e_over_w, walker_steps = [], 0
+    props_list, walker_steps = [], 0
     for _ in range(TIMED_BLOCKS):
         block = next(blocks)  # ends in a fetch of the block's props
-        props = block.iter_props
-        e_over_w.append(float(props.energy.double().sum()
-                              / props.weight.double().sum()))
-        walker_steps += int(props.num_walkers.sum())
+        props_list.append(block.iter_props)
+        walker_steps += int(block.iter_props.num_walkers.sum())
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -232,17 +284,12 @@ def run_dmc(device, card: str) -> dict:
 
     steps_run = (BURN_BLOCKS + TIMED_BLOCKS) * NTS
     last = block.last_state
-    e_per_boson = float(np.mean(e_over_w)) / NOP
     require(last.pos.shape == (MAX_WALKERS, NOP)
             and bool(torch.isfinite(last.pos).all())
             and bool(torch.isfinite(last.energies).all()),
             "final state finite, of the buffer's shape")
     require(0 < int(last.num_walkers) <= MAX_WALKERS, "walkers alive")
-    lo, hi = ENERGY_BRACKET
-    require(abs(e_per_boson - ENERGY_REF) < ENERGY_TOL
-            and lo < e_per_boson < hi,
-            f"E/N {e_per_boson} within {ENERGY_TOL} of {ENERGY_REF} "
-            f"and inside {ENERGY_BRACKET}")
+    e_per_boson = check_energy(props_list, "D")
     require(launches["K1"] >= steps_run and launches["K2"] >= steps_run,
             f"kernel launches {launches} cover {steps_run} steps")
     step_ms = start.elapsed_time(end) / (TIMED_BLOCKS * NTS)
@@ -253,7 +300,185 @@ def run_dmc(device, card: str) -> dict:
           mean_num_walkers=walker_steps / (TIMED_BLOCKS * NTS),
           energy_per_boson=e_per_boson,
           energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
-    return launches
+    return launches, last, {"walker_steps_per_s": walker_steps / wall_s,
+                            "step_ms_cuda_events": step_ms}
+
+
+def check_k4(device) -> float:
+    """Phase F: K4 equals its plain version bit for bit; returns the
+    largest abs difference (0)."""
+    rng = np.random.default_rng(4)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        pos = torch.as_tensor(rng.uniform(0, NOP, (MAX_WALKERS, NOP)),
+                              dtype=dtype, device=device)
+        cases.append((f"density {dtype}", pos,
+                      torch.tensor(1.0, dtype=dtype, device=device), NOP))
+    cases.append(("g2 rows f32", pair_distances(device),
+                  torch.tensor(NOP / 256, device=device), NOP))
+    edges = np.concatenate([np.arange(16.0), [16 - 1e-6, 0.0, 15.9999990,
+                                              -0.5, 16.0, 1e30]])
+    for dtype in (torch.float32, torch.float64):
+        cases.append((f"edges {dtype}",
+                      torch.as_tensor(np.tile(edges, (4, 1)), dtype=dtype,
+                                      device=device),
+                      torch.tensor(1.0, dtype=dtype, device=device), 16))
+    err = 0.0
+    for label, pos, bin_size, num_bins in cases:
+        count = histogram.walker_histogram.launch_count
+        hist = histogram.walker_histogram(pos, bin_size, num_bins)
+        torch.cuda.synchronize()
+        require(histogram.walker_histogram.launch_count == count + 1,
+                f"K4 {label} launched")
+        plain = histogram.walker_histogram_plain(pos, bin_size, num_bins)
+        equal = torch.equal(hist, plain)
+        diff = float((hist - plain).abs().max())
+        require(equal, f"K4 {label} equal to its plain version")
+        require(bool((hist.sum(-1) == pos.shape[-1]).all()),
+                f"K4 {label} counts every element")
+        err = max(err, diff)
+        phase("F", check=f"K4 {label}", shape=list(pos.shape),
+              num_bins=num_bins, equal=equal, max_abs_err=diff, ok=True)
+    return err
+
+
+def pair_distances(device) -> torch.Tensor:
+    """The g2 estimator's K4 input at full width: the (17408, 128, 128)
+    minimum-image distances of uniform f32 positions in [0, L)."""
+    pos = torch.as_tensor(np.random.default_rng(5).uniform(
+        0, NOP, (MAX_WALKERS, NOP)), dtype=torch.float32, device=device)
+    d = pos[:, :, None] - pos[:, None, :]
+    return (d - NOP * torch.round(d / NOP)).abs()
+
+
+def check_estimator_replay(device) -> None:
+    """Phase G, first part: the estimators on the card (K1, K2, K4)
+    against the same injected-noise replay on the CPU, f64, N=16."""
+    spec = mrbp.Spec(**dict(BENCH_SPEC, boson_number=16,
+                            supercell_size=16.0))
+    estimators = dict(G2_ESTIMATORS, est_every=2)
+    estimators.update(
+        density_est_spec=dmc.DensityEstSpec(num_bins=16),
+        ssf_est_spec=dmc.SSFEstSpec(num_modes=8),
+        obd_est_spec=dmc.OBDEstSpec(num_pos=5, est_every_mult=2),
+        pair_corr_est_spec=dmc.PairCorrEstSpec(num_bins=12,
+                                               est_every_mult=2))
+    sampling = dmc.Sampling(spec, time_step=1e-2, max_num_walkers=64,
+                            target_num_walkers=48, rng_seed=3, **estimators)
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
+    comb_u = rng.random((12, 64))
+    xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
+    on_cpu, _ = sampling.replay_estimators(sampling.build_state(confs),
+                                           comb_u, xi)
+    on_card, _ = sampling.replay_estimators(
+        sampling.build_state(confs, device=device), comb_u, xi)
+    errs = {}
+    for name, rows in on_cpu.items():
+        card = on_card[name].cpu()
+        if name in ("density", "g2"):
+            require(torch.equal(card, rows), f"replay {name} counts equal")
+        else:
+            torch.testing.assert_close(card, rows, rtol=1e-9, atol=1e-9)
+        errs[name] = float((card - rows).abs().max())
+    phase("G", check="f64 estimator replay card vs CPU", steps=12,
+          max_abs_err=errs, ok=True)
+
+
+def check_sum_rules(sampling: dmc.Sampling, block) -> dict:
+    """Every measured step of a block against its walker count: density
+    N nw, S(0) N^2 nw, g2 N(N-1)/2 nw, OBDM(0) nw.  Returns the largest
+    relative deviation of each."""
+    nw = block.iter_props.num_walkers.double()
+    every = sampling.est_every
+    mult = {"obd": sampling.obd_est_spec,
+            "g2": sampling.pair_corr_est_spec}
+    rules = {"density": (lambda x: x.sum(-1), NOP, SUM_RULE_RTOL),
+             "ssf": (lambda x: x[:, 0, 0], NOP ** 2, SUM_RULE_RTOL),
+             "g2": (lambda x: x.sum(-1), NOP * (NOP - 1) / 2,
+                    SUM_RULE_RTOL),
+             "obd": (lambda x: x[:, 0], 1, OBDM_RTOL)}
+    devs = {}
+    for name, (reduce, per_walker, rtol) in rules.items():
+        rows = getattr(block, f"iter_{name}")
+        if rows is None:
+            continue
+        period = every * getattr(mult.get(name), "est_every_mult", 1)
+        want = per_walker * nw[period - 1::period]
+        got = reduce(rows.double())
+        require(got.shape == want.shape and bool(torch.isfinite(
+            rows).all()), f"{name}: one finite row per measured step")
+        dev = float(((got - want).abs() / want).max())
+        require(dev < rtol, f"{name} sum rule within {rtol}: {dev}")
+        devs[name] = dev
+    return devs
+
+
+def run_estimators(device, card: str, state, label: str, estimators: dict,
+                   block_offset: int, baseline: dict) -> int:
+    """Phase G1/G2: 2 timed blocks with estimators from ``state``.
+    Returns the K4 launches of the run."""
+    sampling = bench_sampling(**estimators)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pairwise.energy_and_drift.launch_count = 0
+    prng.normal.launch_count = 0
+    histogram.walker_histogram.launch_count = 0
+    blocks = sampling.blocks(state, num_time_steps_block=NTS,
+                             block_offset=block_offset)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    done, walker_steps = [], 0
+    for _ in range(TIMED_BLOCKS):
+        block = next(blocks)
+        done.append(block)
+        walker_steps += int(block.iter_props.num_walkers.sum())
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"K1": pairwise.energy_and_drift.launch_count,
+                "K2": prng.normal.launch_count,
+                "K4": histogram.walker_histogram.launch_count}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    steps_run = TIMED_BLOCKS * NTS
+    e_per_boson = check_energy([b.iter_props for b in done], label)
+    sum_rules = [check_sum_rules(sampling, b) for b in done]
+    hist_steps = sum(
+        len(getattr(b, f"iter_{name}"))
+        for b in done for name in ("density", "g2")
+        if getattr(b, f"iter_{name}") is not None)
+    require(launches["K4"] >= hist_steps,
+            f"K4 launches {launches['K4']} cover the {hist_steps} density "
+            f"and g2 measurements")
+    require(launches["K1"] >= steps_run and launches["K2"] >= steps_run,
+            f"kernel launches {launches} cover {steps_run} steps")
+    last = done[-1].last_state
+    require(bool(torch.isfinite(last.pos).all()), "final state finite")
+    if sampling.cm_diffusion_est:
+        cmd = torch.cat([b.iter_cmd for b in done])
+        require(bool(torch.isfinite(cmd).all() and (cmd[:, 0] > 0).all()),
+                "CM diffusion rows finite and positive")
+    step_ms = start.elapsed_time(end) / steps_run
+    phase(label, check="DMC with estimators", card=card,
+          estimators=sorted(k for k, v in estimators.items()
+                            if k.endswith("_spec") and v is not None)
+          + (["cm_diffusion"] if sampling.cm_diffusion_est else []),
+          est_every=sampling.est_every, steps_run=steps_run,
+          timed_wall_s=wall_s, walker_steps_per_s=walker_steps / wall_s,
+          step_ms_cuda_events=step_ms,
+          estimators_off_D=baseline, peak_device_memory_gb=peak_gb,
+          energy_per_boson=e_per_boson,
+          energy_dev=e_per_boson - ENERGY_REF,
+          measured_rows={name: sum(len(getattr(b, f"iter_{name}"))
+                                   for b in done)
+                         for name in ("density", "ssf", "obd", "g2", "cmd")
+                         if getattr(done[0], f"iter_{name}") is not None},
+          sum_rule_max_rel_dev={k: max(r[k] for r in sum_rules)
+                                for k in sum_rules[0]},
+          launches=launches, ok=True)
+    return launches["K4"]
 
 
 def time_kernels(device, card: str) -> dict:
@@ -261,6 +486,10 @@ def time_kernels(device, card: str) -> dict:
     pos, params, kw = pair_inputs(BENCH_SPEC, MAX_WALKERS, torch.float32,
                                   device)
     shape = (MAX_WALKERS, NOP)
+    density = torch.as_tensor(np.random.default_rng(6).uniform(
+        0, NOP, shape), dtype=torch.float32, device=device)
+    distances = pair_distances(device)
+    unit, half = (torch.tensor(x, device=device) for x in (1.0, 0.5))
     cases = {
         "K1": (lambda: pairwise.energy_and_drift_plain(pos, params, **kw),
                lambda: pairwise.energy_and_drift(pos, params, **kw),
@@ -269,6 +498,13 @@ def time_kernels(device, card: str) -> dict:
                                          device),
                lambda: prng.normal(1, 7, shape, torch.float32, device),
                20, 500),
+        "K4": (lambda: histogram.walker_histogram_plain(density, unit, NOP),
+               lambda: histogram.walker_histogram(density, unit, NOP),
+               20, 500),
+        "K4 g2": (lambda: histogram.walker_histogram_plain(distances, half,
+                                                           NOP),
+                  lambda: histogram.walker_histogram(distances, half, NOP),
+                  5, 50),
     }
     times = {}
     for name, (plain, kernel, plain_reps, kernel_reps) in cases.items():
@@ -277,7 +513,8 @@ def time_kernels(device, card: str) -> dict:
         k2 = cuda_ms(kernel, kernel_reps)
         p2 = cuda_ms(plain, plain_reps)
         times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-        phase("E", kernel=name, card=card, shape=list(shape),
+        phase("E", kernel=name, card=card,
+              shape=list(distances.shape if name == "K4 g2" else shape),
               plain_ms=[p1, p2], kernel_ms=[k1, k2],
               speedup=(p1 + p2) / (k1 + k2), ok=True)
     return times
@@ -308,7 +545,14 @@ def main() -> None:
     err_k1 = check_k1(device)  # B
     err_k2 = check_k2(device)  # C
     check_replay(device)  # D
-    launches = run_dmc(device, smi)  # D
+    launches, state, baseline = run_dmc(device, smi)  # D
+    err_k4 = check_k4(device)  # F
+    check_estimator_replay(device)  # G
+    launches["K4"] = sum(
+        run_estimators(device, smi, state, label, estimators,
+                       BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline)
+        for i, (label, estimators) in enumerate(
+            (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS))))
     times = time_kernels(device, smi)  # E
 
     kernels = [
@@ -322,6 +566,12 @@ def main() -> None:
          "replaces": "phd_qmclib_tpu/ops/prng.py:64",
          "launches": launches["K2"], "max_abs_err": err_k2,
          **times["K2"]},
+        {"name": "walker_histogram", "route": "cuda",
+         "source": "phd_qmclib_torch/csrc/histogram.cu",
+         "replaces": "phd_qmclib_tpu/ops/histogram.py:81",
+         "launches": launches["K4"], "max_abs_err": err_k4,
+         **times["K4"], "g2_ms": times["K4 g2"]["ms"],
+         "g2_plain_ms": times["K4 g2"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,14 @@ convention the local energy is::
     E_L = sum_t (-f_t''/f_t + (f_t'/f_t)^2) - sum_i drift_i^2 + V
         = -(laplacian psi)/psi + V
 """
+import math
 import typing as t
 from types import SimpleNamespace
 
 import torch
 
-from ..ops.pbc import min_image_bounded, sign
+from ..ops import histogram
+from ..ops.pbc import min_image, min_image_bounded, sign
 
 __all__ = ["CFCParams", "build_core_funcs", "SysConfSlot"]
 
@@ -62,7 +64,9 @@ def build_core_funcs(*,
     corresponding terms when the functions are built.
 
     Returns a namespace with ``log_psi``, ``drift``, ``energy``,
-    ``energy_and_drift`` and ``log_psi_and_energy``.
+    ``energy_and_drift`` and ``log_psi_and_energy``, and the estimator
+    functions ``fourier_density_parts_harmonics`` (S(k)),
+    ``one_body_density_grid`` (OBDM) and ``pair_dist_histogram`` (g2).
     """
     nop = boson_number
 
@@ -163,6 +167,107 @@ def build_core_funcs(*,
         energy_v = kin - (drift_v ** 2).sum(dim=-1) + pot
         return lp, energy_v
 
+    # -- estimators -----------------------------------------------------------
+
+    def one_body_density_grid(szs, pos, cfc: CFCParams):
+        """OBDM ``n1`` at a grid of displacements: ``szs (M,)``, ``pos
+        (..., N)`` -> ``(..., M)``; the average over particles of the
+        wavefunction ratio with particle ``i`` moved by ``sz``.
+
+        The unshifted per-particle log sums (one-body orbital plus the
+        row sums of the pair matrix) are shared by every offset, so each
+        offset costs one pair-log pass over the shifted distances
+        ``|z_ij + sz|``.  The offsets run one after the other: one
+        ``(..., N, N)`` pass is live at a time.
+        """
+        out_shape = pos.shape[:-1] + (szs.shape[0],)
+        if is_free and is_ideal:
+            return torch.ones(out_shape, dtype=pos.dtype, device=pos.device)
+        sc = cfc.model_params.supercell_size
+        base = torch.zeros_like(pos)
+        d0 = off_diag = None
+        if not is_free:
+            base = base + one_body(pos, cfc).abs().log()
+        if not is_ideal:
+            # Raw differences (bounded by (-L, L)); the minimum image
+            # applies per offset after the shift.
+            d0 = pos[..., :, None] - pos[..., None, :]
+            off_diag = ~torch.eye(nop, dtype=torch.bool, device=pos.device)
+            r = torch.where(off_diag, min_image_bounded(d0, sc).abs(),
+                            0.25 * sc)
+            log_tb, _, _ = two_body_pair_terms(r, cfc, need_log=True,
+                                               need_derivs=False)
+            base = base + _masked_sum(log_tb, off_diag, -1)
+
+        columns = []
+        for sz in szs:
+            num = torch.zeros_like(pos)
+            if not is_free:
+                num = num + one_body(pos + sz, cfc).abs().log()
+            if not is_ideal:
+                r_s = torch.where(off_diag, min_image(d0 + sz, sc).abs(),
+                                  0.25 * sc)
+                log_tb_s, _, _ = two_body_pair_terms(
+                    r_s, cfc, need_log=True, need_derivs=False)
+                num = num + _masked_sum(log_tb_s, off_diag, -1)
+            columns.append(torch.exp(num - base).sum(dim=-1) / nop)
+        return torch.stack(columns, dim=-1)
+
+    def fourier_density_parts_harmonics(num_modes: int, pos,
+                                        cfc: CFCParams):
+        """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for the
+        harmonic momenta ``k_j = j 2 pi / L``, ``j = 0..num_modes-1``,
+        shape ``(..., num_modes, 3)``.
+
+        One sincos on ``(..., N)``, then the Chebyshev recurrence
+        ``cos((j+1)t) = 2 cos t cos(jt) - cos((j-1)t)`` (the same for
+        sin) for the other modes, with the JAX package's operation
+        order.  The modes of cos and sin stack into one ``(M, 2, ...,
+        N)`` buffer, two launches per mode, and reduce over the
+        particles in one sum.
+        """
+        sc = cfc.model_params.supercell_size
+        theta = (torch.full_like(sc, 2 * math.pi) / sc) * pos
+        buf = torch.empty((num_modes, 2) + pos.shape, dtype=pos.dtype,
+                          device=pos.device)
+        buf[0, 0] = 1.0
+        buf[0, 1] = 0.0
+        if num_modes > 1:
+            torch.cos(theta, out=buf[1, 0])
+            torch.sin(theta, out=buf[1, 1])
+            two_c1 = 2 * buf[1, 0]
+        for j in range(2, num_modes):
+            torch.sub(two_c1 * buf[j - 1], buf[j - 2], out=buf[j])
+        re, im = buf.sum(dim=-1).unbind(1)
+        parts = torch.stack([re ** 2 + im ** 2, re, im], dim=-1)
+        return torch.movedim(parts, 0, -2)
+
+    def pair_dist_histogram(num_bins: int, pos, cfc: CFCParams):
+        """Per-walker histogram of the unordered-pair minimum-image
+        distances over ``num_bins`` uniform bins spanning ``[0, L/2]``:
+        ``(..., num_bins)`` exact counts, each unordered pair once, so
+        that ``g2(r) = <counts(r)> L / (N (N-1) dr)``.
+
+        Bins the ``(..., N, N)`` distance matrix row by row with
+        :func:`phd_qmclib_torch.ops.histogram.walker_histogram` (the
+        CUDA kernel on a CUDA tensor), sums over ``i``, takes the N
+        exact-zero diagonal entries out of bin 0 and halves: all exact.
+        """
+        if nop < 2:
+            return torch.zeros(pos.shape[:-1] + (num_bins,),
+                               dtype=pos.dtype, device=pos.device)
+        sc = cfc.model_params.supercell_size
+        r = min_image_bounded(pos[..., :, None] - pos[..., None, :],
+                              sc).abs()  # diagonal exactly 0
+        bin_size = 0.5 * sc / torch.full_like(sc, num_bins)
+        hist = histogram.walker_histogram(r, bin_size, num_bins).sum(dim=-2)
+        hist[..., 0] -= nop
+        return 0.5 * hist
+
     return SimpleNamespace(log_psi=log_psi, drift=drift, energy=energy,
                            energy_and_drift=energy_and_drift,
-                           log_psi_and_energy=log_psi_and_energy)
+                           log_psi_and_energy=log_psi_and_energy,
+                           one_body_density_grid=one_body_density_grid,
+                           fourier_density_parts_harmonics=(
+                               fourier_density_parts_harmonics),
+                           pair_dist_histogram=pair_dist_histogram)

@@ -519,9 +519,13 @@ def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
 
     The functions take ``(pos, cfc)`` with ``pos`` of shape ``(..., N)``
     and ``cfc`` a :class:`CFCParams` whose leaves are floats or 0-d
-    tensors.  ``energy_and_drift`` runs through
-    :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift`: the CUDA
-    kernel on a CUDA tensor, its plain torch version on a CPU one.
+    tensors; the estimator functions take a leading argument (the S(k)
+    mode count, the OBDM offsets, the g2 bin count).
+    ``energy_and_drift`` runs through
+    :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift` and
+    ``pair_dist_histogram`` through
+    :func:`phd_qmclib_torch.ops.histogram.walker_histogram`: the CUDA
+    kernels on a CUDA tensor, their plain torch versions on a CPU one.
     """
     static = (spec_or_static.static_spec
               if isinstance(spec_or_static, Spec) else spec_or_static)
@@ -554,11 +558,14 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
 
     def with_cast(fn):
         @functools.wraps(fn)
-        def wrapped(pos, cfc):
-            return fn(pos, cast_params(cfc, pos.dtype, pos.device))
+        def wrapped(*args):
+            *lead, pos, cfc = args
+            return fn(*lead, pos, cast_params(cfc, pos.dtype, pos.device))
         return wrapped
 
-    for name in ("log_psi", "drift", "log_psi_and_energy"):
+    for name in ("log_psi", "drift", "log_psi_and_energy",
+                 "one_body_density_grid", "fourier_density_parts_harmonics",
+                 "pair_dist_histogram"):
         setattr(funcs, name, with_cast(getattr(funcs, name)))
     funcs.energy_and_drift = energy_and_drift
     funcs.energy = lambda pos, cfc: energy_and_drift(pos, cfc)[0]

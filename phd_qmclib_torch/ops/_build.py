@@ -3,7 +3,8 @@
 ``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain
 C interface, ``build/libqmc_kernels.so`` at the root of the checkout,
 the first time a kernel is launched (or again when a source is newer
-than the library).  The library is loaded with ``ctypes``: every
+than the library).  Each source compiles in its own ``nvcc`` process,
+all started together, and one more links the objects.  The library is loaded with ``ctypes``: every
 pointer and the stream pass as ``c_void_p``, every integer as ``c_int``,
 and every launch function returns its ``cudaGetLastError()``.
 
@@ -21,7 +22,7 @@ from pathlib import Path
 __all__ = ["build", "check", "library", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu")
+SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIBRARY = BUILD_DIR / "libqmc_kernels.so"
 
@@ -30,7 +31,7 @@ LIBRARY = BUILD_DIR / "libqmc_kernels.so"
 #: accurate ``logf``.  ``-Xptxas -v`` reports registers, shared memory
 #: and spills per kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: Signatures of the exported launch functions (all return an int).
@@ -45,6 +46,10 @@ SIGNATURES = {
     # out (uint32 words), num_quads, key_lo, key_hi, step_lo, step_hi,
     # stream
     "qmc_philox_words": (_P, _I, _I, _I, _I, _I, _P),
+    # pos, bin_size (0-d, on the device), out, num_rows, row_len,
+    # num_bins, stream
+    "qmc_walker_histogram_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "qmc_walker_histogram_f64": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -65,24 +70,43 @@ def build() -> str:
     """Compile the library if it is missing or older than a source.
 
     Returns what ``nvcc`` printed (the ``-Xptxas -v`` report), or an
-    empty string when the library was up to date.  The library is
-    written under a temporary name and renamed, so concurrent builds
-    never load a half-written file.
+    empty string when the library was up to date.  The objects go to a
+    fresh temporary directory and the library is written under a
+    temporary name and renamed, so concurrent builds never load a
+    half-written file.
     """
     newest_source = max(src.stat().st_mtime for src in SOURCES)
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest_source:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        tmp = Path(tmp_dir)
+        objects = [tmp / f"{src.stem}.o" for src in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(SOURCES, objects)]
+        procs = []
+        for cmd, obj in zip(compiles, objects):
+            with open(obj.with_suffix(".log"), "w") as out:
+                procs.append(subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait()
+        logs = [obj.with_suffix(".log").read_text() for obj in objects]
+        for cmd, proc, log in zip(compiles, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        tmp_lib = tmp / LIBRARY.name
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", str(tmp_lib), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp_lib, LIBRARY)
+    return "".join(logs) + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)

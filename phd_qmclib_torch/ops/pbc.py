@@ -6,13 +6,21 @@ of ``jnp.mod``, so the results agree bit for bit.
 """
 import torch
 
-__all__ = ["min_image_bounded", "recast_to_supercell", "sign"]
+__all__ = ["min_image", "min_image_bounded", "recast_to_supercell", "sign"]
 
 
 def sign(v: torch.Tensor) -> torch.Tensor:
     """Sign of ``v`` following ``copysign(1, v)`` semantics:
     ``sign(0) = +1``."""
     return torch.where(v >= 0, torch.ones_like(v), -torch.ones_like(v))
+
+
+def min_image(z_ij: torch.Tensor, sc_size) -> torch.Tensor:
+    """Minimum-image displacement for a supercell of size ``sc_size``:
+    the representative in ``[-sc_size/2, sc_size/2)``."""
+    sc_half = 0.5 * sc_size
+    wrapped = -sc_half + torch.remainder(z_ij + sc_half, sc_size)
+    return torch.where(z_ij.abs() > sc_half, wrapped, z_ij)
 
 
 def min_image_bounded(z_ij: torch.Tensor, sc_size) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Diffusion Monte Carlo: drift-diffusion propagation with birth/death
-branching and population control.
+branching and population control, and the DMC estimators.
 
-Counterpart of ``phd_qmclib_tpu.samplers.dmc`` without estimators and on
-one device.  Each step, as in the JAX package:
+Counterpart of ``phd_qmclib_tpu.samplers.dmc`` on one device.  Each
+step, as in the JAX package:
 
 1. comb on the previous step's weights: each valid walker ``i`` is
    cloned ``floor(w_i + u_i)`` times, ``floor(w + u) -> cumsum ->
@@ -11,19 +11,32 @@ one device.  Each step, as in the JAX package:
    energies and drifts;
 3. the reference-energy controller ``E_ref = E_accum - c log(W /
    W_target) / dt`` updates from the ensemble sums;
-4. the children diffuse with the previous ``E_ref``:
+4. the estimators measure the post-branching (pre-diffusion) ensemble;
+5. the children diffuse with the previous ``E_ref``:
    ``z' = z + 2 F dt + sigma xi``, ``sigma = sqrt(2 dt)``, recast into
    ``[0, L)``;
-5. the fused local energy and drift at ``z'`` (the pair kernel) and the
+6. the fused local energy and drift at ``z'`` (the pair kernel) and the
    branching weight ``w = exp(-dt ((E' + E)/2 - E_ref))``.
+
+Estimators: the density histogram (through the histogram kernel), the
+S(k) Fourier parts, the one-body density matrix (OBDM) grid, the
+pair-distance histogram g2(r) (the histogram kernel again) and the
+centre-of-mass (CM) diffusion.  Each is mixed, or pure: a per-walker
+accumulator transported through the branching ancestry every step,
+frozen after ``pfw_num_time_steps`` and divided by the number of
+contributions (forward walking).  ``est_every = K`` measures every K-th
+step; the steps in between only compose the ancestry permutation, which
+the next measured step applies to the accumulators in one gather.  The
+imaginary-time-correlation (ITC) estimator of the JAX package is not
+ported yet: :class:`Sampling` has no ``itc_est_spec``.
 
 :meth:`Sampling.blocks` is a Python loop over steps that never waits on
 the device inside a block: the walker count stays a 0-d device tensor,
-and the per-step ensemble scalars are stacked into ``(nts,)`` tensors
-and fetched once per block.  The comb uniforms come from a
-``torch.Generator`` on the device, one stream per block; the diffusion
-noise from the Philox normals kernel keyed by ``(rng_seed, global step
-index)``.
+the measuring decisions use the step index the host already knows, and
+the per-step ensemble scalars and estimator rows are stacked and fetched
+once per block.  The comb uniforms come from a ``torch.Generator`` on
+the device, one stream per block; the diffusion noise from the Philox
+normals kernel keyed by ``(rng_seed, global step index)``.
 """
 import typing as t
 from dataclasses import dataclass
@@ -34,13 +47,18 @@ import torch
 
 from .. import utils
 from ..models import mrbp
-from ..ops import prng
+from ..ops import histogram, prng
 
 __all__ = [
+    "DensityEstSpec",
+    "OBDEstSpec",
+    "PairCorrEstSpec",
     "PropsData",
     "Sampling",
     "SamplingBlock",
+    "SSFEstSpec",
     "State",
+    "aux_from_numpy",
     "branching_comb",
     "state_from_numpy",
 ]
@@ -61,6 +79,10 @@ class State(t.NamedTuple):
     accum_energy: torch.Tensor  # running growth-energy estimate
     total_energy: torch.Tensor  # controller accumulator
     total_weight: torch.Tensor  # controller accumulator
+    #: CM-diffusion accumulator (``cm_diffusion_est``): each walker's
+    #: ancestry-transported centre-of-mass displacement since the
+    #: measurement window opened, ``(Wm,)``; ``None`` when disabled.
+    cmd_accum: t.Optional[torch.Tensor] = None
 
 
 class PropsData(t.NamedTuple):
@@ -74,9 +96,86 @@ class PropsData(t.NamedTuple):
 
 
 class SamplingBlock(t.NamedTuple):
-    """Data yielded per block."""
+    """Data yielded per block; the estimator rows are on the host, one
+    per measured step, and ``None`` in burn-in blocks or when the
+    estimator is off."""
     iter_props: PropsData
+    iter_density: t.Optional[torch.Tensor]  # (nts // K, num_bins)
+    iter_ssf: t.Optional[torch.Tensor]      # (nts // K, num_modes, 3)
     last_state: State
+    iter_obd: t.Optional[torch.Tensor] = None  # (nts // (K m), num_pos)
+    #: Per measured step ``[sum_w W_cm^2, sum_w W_cm]`` over the valid
+    #: walkers, ``(nts // K, 2)``.
+    iter_cmd: t.Optional[torch.Tensor] = None
+    iter_g2: t.Optional[torch.Tensor] = None   # (nts // (K m), num_bins)
+    #: The JAX package's ITC rows; always ``None`` here.
+    iter_itc: t.Optional[torch.Tensor] = None
+    iter_itc_nw: t.Optional[torch.Tensor] = None
+    #: The pure estimators' accumulators after the block (on the
+    #: device) when the forward-walking window spans several blocks;
+    #: ``None`` otherwise.
+    aux_carry: t.Optional[dict] = None
+
+
+@dataclass(frozen=True)
+class DensityEstSpec:
+    """Density estimator spec: a ``num_bins`` histogram over ``[0, L)``."""
+    num_bins: int
+    as_pure_est: bool = True
+    pfw_num_time_steps: t.Optional[int] = None
+
+
+@dataclass(frozen=True)
+class SSFEstSpec:
+    """Static structure factor spec: the harmonic momenta
+    ``k_j = j 2 pi / L``, ``j < num_modes``."""
+    num_modes: int
+    as_pure_est: bool = True
+    pfw_num_time_steps: t.Optional[int] = None
+
+
+@dataclass(frozen=True)
+class OBDEstSpec:
+    """One-body density matrix spec: ``n1(sz)`` on a ``num_pos``-point
+    grid over ``[0, L/2]``.
+
+    ``n1`` is off-diagonal in position, so the pure variant transports
+    the per-walker ``n1_loc`` values through the ancestry: exact only
+    when the trial function is the ground state.  ``est_every_mult``
+    evaluates the grid only every ``est_every * est_every_mult``-th
+    step; the ancestry transport still advances every step.
+    """
+    num_pos: int
+    as_pure_est: bool = True
+    pfw_num_time_steps: t.Optional[int] = None
+    est_every_mult: int = 1
+
+
+@dataclass(frozen=True)
+class PairCorrEstSpec:
+    """Direct pair-correlation spec: a histogram of unordered-pair
+    minimum-image distances on ``num_bins`` bins over ``[0, L/2]``,
+    ``g2(r) = <counts> L / (N (N-1) dr)``.  ``est_every_mult`` thins it
+    like the OBDM grid."""
+    num_bins: int
+    as_pure_est: bool = True
+    pfw_num_time_steps: t.Optional[int] = None
+    est_every_mult: int = 1
+
+
+class _Branch(t.NamedTuple):
+    """The post-branching ensemble of a step, which the estimators
+    measure."""
+    parent: torch.Tensor  # (Wm,) int64 branching table
+    pos: torch.Tensor     # (Wm, N) children, before diffusion
+    valid: torch.Tensor   # (Wm,) bool
+
+
+class _EstConsts(t.NamedTuple):
+    """What a run's estimators need on the device, made once per run."""
+    cfc: mrbp.CFCParams
+    density_bin_size: t.Optional[torch.Tensor]  # 0-d
+    obd_offsets: t.Optional[torch.Tensor]       # (num_pos,)
 
 
 def branching_comb(weights: torch.Tensor, num_walkers: torch.Tensor,
@@ -105,17 +204,33 @@ def state_from_numpy(state, device="cpu") -> State:
     the same fields, as numpy-convertible arrays) on ``device``.
 
     The JAX ``num_walkers`` has one entry per shard; only one-shard
-    states convert.
+    states convert.  ``cmd_accum`` converts when present; the ITC
+    fields (``itc_buf``, ``itc_filled``) must be ``None``.
     """
-    fields = {name: torch.tensor(np.asarray(getattr(state, name)),
-                                 device=device)
-              for name in State._fields}
+    for name in ("itc_buf", "itc_filled"):
+        if getattr(state, name, None) is not None:
+            raise ValueError(f"the port has no ITC estimator: {name} "
+                             f"must be None")
+    fields = {}
+    for name in State._fields:
+        value = getattr(state, name, None)
+        fields[name] = (None if value is None else
+                        torch.tensor(np.asarray(value), device=device))
     num_walkers = fields["num_walkers"]
     if num_walkers.numel() != 1:
         raise ValueError(f"only one-shard states convert, got "
                          f"{num_walkers.numel()} walker counts")
     fields["num_walkers"] = num_walkers.reshape(()).to(torch.int64)
     return State(**fields)
+
+
+def aux_from_numpy(aux_carry: dict,
+                   device="cpu") -> t.Dict[str, torch.Tensor]:
+    """The pure estimators' accumulators of a JAX ``SamplingBlock.
+    aux_carry`` (numpy-convertible arrays) as tensors on ``device``, for
+    :meth:`Sampling.replay_estimators` to continue a JAX window."""
+    return {name: torch.tensor(np.asarray(value), device=device)
+            for name, value in aux_carry.items()}
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -129,7 +244,12 @@ class Sampling:
     """DMC sampling spec bound to an mrbp model.
 
     The walker buffer has the fixed size ``max_num_walkers``;
-    ``target_num_walkers`` drives the population controller.
+    ``target_num_walkers`` drives the population controller.  The
+    ``*_est_spec`` fields switch the estimators on; ``cm_diffusion_est``
+    accumulates each walker's CM displacement (drift and noise, before
+    the recast, so windings count) through the ancestry and resets it
+    every ``cm_window_blocks`` measured blocks (``None``: one window for
+    the whole run).  ``est_every`` measures every K-th step.
     ``ref_compat`` takes the slot's previous-step energy as ``E_prev``
     in the branching weight instead of the parent's (the reference
     library's stale-slot read; both are O(dt) discretizations).
@@ -140,6 +260,13 @@ class Sampling:
     target_num_walkers: int
     num_walkers_control_factor: t.Optional[float] = None
     rng_seed: t.Optional[int] = None
+    density_est_spec: t.Optional[DensityEstSpec] = None
+    ssf_est_spec: t.Optional[SSFEstSpec] = None
+    obd_est_spec: t.Optional[OBDEstSpec] = None
+    pair_corr_est_spec: t.Optional[PairCorrEstSpec] = None
+    cm_diffusion_est: bool = False
+    cm_window_blocks: t.Optional[int] = 1
+    est_every: int = 1
     ref_compat: bool = False
 
     def __post_init__(self):
@@ -148,6 +275,25 @@ class Sampling:
                                int(utils.get_random_rng_seed()))
         if self.num_walkers_control_factor is None:
             object.__setattr__(self, "num_walkers_control_factor", 0.125)
+        if self.est_every < 1:
+            raise ValueError("est_every must be a positive integer")
+        thinned = (self.obd_est_spec, self.pair_corr_est_spec)
+        for spec in thinned:
+            if spec is not None and spec.est_every_mult < 1:
+                raise ValueError(
+                    "est_every_mult must be a positive integer")
+        if self.est_every > 1 or any(
+                spec is not None and spec.est_every_mult > 1
+                for spec in thinned):
+            for spec in self._est_specs:
+                if spec is None or not spec.as_pure_est \
+                        or not spec.pfw_num_time_steps:
+                    continue
+                if spec.pfw_num_time_steps % self._every(spec):
+                    raise ValueError(
+                        "pfw_num_time_steps must be divisible by "
+                        "est_every (x est_every_mult for the "
+                        "OBDM/pair-correlation estimators)")
 
     @property
     def cfc_params(self) -> mrbp.CFCParams:
@@ -164,6 +310,122 @@ class Sampling:
 
     def _cast_params(self, dtype, device) -> mrbp.CFCParams:
         return mrbp.cast_params(self.cfc_params, dtype, device)
+
+    # -- estimator geometry ---------------------------------------------------
+
+    @property
+    def density_bins_edges(self) -> np.ndarray:
+        if self.density_est_spec is None:
+            raise TypeError("the density spec has not been specified")
+        num_bins = self.density_est_spec.num_bins
+        return np.linspace(0, self.model_spec.supercell_size, num_bins + 1)
+
+    @property
+    def ssf_momenta(self) -> np.ndarray:
+        if self.ssf_est_spec is None:
+            raise TypeError(
+                "no S(k) estimator spec was configured for this sampling")
+        num_modes = self.ssf_est_spec.num_modes
+        return np.arange(num_modes) * 2 * np.pi \
+            / self.model_spec.supercell_size
+
+    @property
+    def obd_pos_offsets(self) -> np.ndarray:
+        if self.obd_est_spec is None:
+            raise TypeError(
+                "the one-body density matrix spec has not been specified")
+        return np.linspace(0.0, 0.5 * self.model_spec.supercell_size,
+                           self.obd_est_spec.num_pos)
+
+    @property
+    def pair_corr_bin_edges(self) -> np.ndarray:
+        if self.pair_corr_est_spec is None:
+            raise TypeError(
+                "the pair-correlation spec has not been specified")
+        num_bins = self.pair_corr_est_spec.num_bins
+        return np.linspace(0, 0.5 * self.model_spec.supercell_size,
+                           num_bins + 1)
+
+    @property
+    def _est_specs(self):
+        return (self.density_est_spec, self.ssf_est_spec,
+                self.obd_est_spec, self.pair_corr_est_spec)
+
+    def _every(self, spec) -> int:
+        """Measuring period of an estimator, in steps."""
+        return self.est_every * getattr(spec, "est_every_mult", 1)
+
+    def _pfw_steps(self, spec) -> int:
+        # An unset window is effectively infinite.
+        return spec.pfw_num_time_steps if spec.pfw_num_time_steps \
+            else 99999999
+
+    def _pure_aux_shapes(self) -> t.Dict[str, t.Tuple[int, ...]]:
+        """Shapes of the pure estimators' forward-walking accumulators."""
+        max_w = self.max_num_walkers
+        density, ssf, obd, g2 = (
+            spec if spec is not None and spec.as_pure_est else None
+            for spec in self._est_specs)
+        shapes = {}
+        if density:
+            shapes["aux_density"] = (max_w, density.num_bins)
+        if ssf:
+            shapes["aux_ssf"] = (max_w, ssf.num_modes, 3)
+        if obd:
+            shapes["aux_obd"] = (max_w, obd.num_pos)
+        if g2:
+            shapes["aux_g2"] = (max_w, g2.num_bins)
+        return shapes
+
+    def pfw_window_blocks(self, num_time_steps_block: int) -> int:
+        """Forward-walking window length in blocks.
+
+        1 (per-block windows) unless a pure estimator's
+        ``pfw_num_time_steps`` is a multiple of the block length longer
+        than one block: the accumulators then persist across ``pfw /
+        nts`` blocks.  Estimators with a shorter window freeze at their
+        own and keep transporting to the end of the longest.
+        """
+        window = 1
+        for spec in self._est_specs:
+            if spec is None or not spec.as_pure_est \
+                    or not spec.pfw_num_time_steps:
+                continue
+            pfw = int(spec.pfw_num_time_steps)
+            if pfw > num_time_steps_block \
+                    and pfw % num_time_steps_block == 0:
+                window = max(window, pfw // num_time_steps_block)
+        return window
+
+    def _check_block_length(self, num_time_steps_block: int) -> None:
+        """A measured block must end on a measured step of every
+        estimator."""
+        for spec, name in ((self.obd_est_spec, "obd"),
+                           (self.pair_corr_est_spec, "g2")):
+            if spec is not None and spec.est_every_mult > 1 \
+                    and num_time_steps_block % self._every(spec):
+                raise ValueError(
+                    "num_time_steps_block must be divisible by "
+                    f"est_every * {name} est_every_mult")
+        if num_time_steps_block % self.est_every:
+            raise ValueError("num_time_steps_block must be divisible by "
+                             "est_every")
+
+    def _fresh_aux(self, dtype, device) -> t.Dict[str, torch.Tensor]:
+        return {name: torch.zeros(shape, dtype=dtype, device=device)
+                for name, shape in self._pure_aux_shapes().items()}
+
+    def _est_consts(self, dtype, device) -> _EstConsts:
+        cfc = self._cast_params(dtype, device)
+        bin_size = offsets = None
+        if self.density_est_spec is not None:
+            sc = cfc.model_params.supercell_size
+            bin_size = sc / torch.full_like(sc,
+                                            self.density_est_spec.num_bins)
+        if self.obd_est_spec is not None:
+            offsets = torch.as_tensor(self.obd_pos_offsets, dtype=dtype,
+                                      device=device)
+        return _EstConsts(cfc, bin_size, offsets)
 
     # -- state construction ---------------------------------------------------
 
@@ -221,7 +483,9 @@ class Sampling:
             num_walkers=torch.tensor(num, dtype=torch.int64,
                                      device=device),
             ref_energy=f(ref_energy), accum_energy=f(energy_mean),
-            total_energy=f(0.0), total_weight=f(0.0))
+            total_energy=f(0.0), total_weight=f(0.0),
+            cmd_accum=(torch.zeros(max_w, dtype=dtype, device=device)
+                       if self.cm_diffusion_est else None))
 
     # -- the step -------------------------------------------------------------
 
@@ -232,8 +496,11 @@ class Sampling:
         pre-scaled diffusion noise ``xi (Wm, N)``.
 
         ``e_prev_slots`` is the slot-wise previous-step energy of
-        ``ref_compat`` (``None`` otherwise).  Returns ``(new_state,
-        new_e_prev_slots, parent)``.
+        ``ref_compat`` (``None`` otherwise).  A state with a
+        ``cmd_accum`` transports it through the parents and adds the
+        step's CM displacement.  Returns ``(new_state,
+        new_e_prev_slots, branch)``, where ``branch`` is the
+        post-branching ensemble the estimators measure.
         """
         dt = self.time_step
         nwc = self.num_walkers_control_factor
@@ -263,6 +530,10 @@ class Sampling:
 
         # 4) Diffuse the children with the PREVIOUS E_ref.
         npos = mrbp.recast(cpos + 2.0 * cdrift * dt + xi, cfc)
+        cmd_accum = state.cmd_accum
+        if cmd_accum is not None:
+            cmd_accum = cmd_accum[parent] \
+                + (2.0 * cdrift * dt + xi).mean(dim=-1)
 
         # 5) Fused energy and drift, and the branching weight.
         nenergy, ndrift = self.core_funcs.energy_and_drift(npos, cfc)
@@ -281,13 +552,129 @@ class Sampling:
             pos=npos, drift=ndrift, energies=nenergy, weights=nweight,
             masks=~valid, energy=state_energy, weight=state_weight,
             num_walkers=nw, ref_energy=new_ref, accum_energy=accum_energy,
-            total_energy=total_energy, total_weight=total_weight)
-        return new_state, e_prev_slots, parent
+            total_energy=total_energy, total_weight=total_weight,
+            cmd_accum=cmd_accum)
+        return new_state, e_prev_slots, _Branch(parent, cpos, valid)
+
+    def _estimate(self, consts: _EstConsts, aux: dict,
+                  perm: t.Optional[torch.Tensor], branch: _Branch,
+                  cmd_accum: t.Optional[torch.Tensor], step_idx: int):
+        """The estimators of one measured step.
+
+        ``perm`` is the ancestry permutation composed over the
+        transport-only steps since the last measured one (``None``: the
+        identity); every accumulator is gathered through ``perm[parent]``
+        once.  ``step_idx`` is the step's index in the forward-walking
+        window.  Returns ``(new_aux, est)`` with one row per estimator
+        measured at this step.
+        """
+        funcs, cfc = self.core_funcs, consts.cfc
+        cpos, valid = branch.pos, branch.valid
+        anc = branch.parent if perm is None else perm[branch.parent]
+        aux = {name: acc[anc] for name, acc in aux.items()}
+        est = {}
+
+        def masked_sum(x):
+            return torch.where(valid.view((-1,) + (1,) * (x.dim() - 1)),
+                               x, 0.0).sum(dim=0)
+
+        def measure(name, spec, values):
+            if not spec.as_pure_est:
+                return masked_sum(values)
+            pfw, every = self._pfw_steps(spec), self._every(spec)
+            if step_idx < pfw:
+                aux[name] = aux[name] + values
+            total = masked_sum(aux[name])
+            # A device tensor as the divisor: CUDA divides by a host
+            # scalar as a multiply by its reciprocal, which may differ
+            # from the CPU's (and the JAX package's) division in the
+            # last bit.
+            return total / total.new_full(
+                (), min((step_idx + 1) // every, pfw // every))
+
+        def due(spec):
+            return (step_idx + 1) % self._every(spec) == 0
+
+        spec = self.density_est_spec
+        if spec is not None:
+            hist = histogram.walker_histogram(cpos, consts.density_bin_size,
+                                              spec.num_bins)
+            hist = torch.where(valid[:, None], hist, 0.0)
+            est["density"] = measure("aux_density", spec, hist)
+        spec = self.ssf_est_spec
+        if spec is not None:
+            est["ssf"] = measure("aux_ssf", spec,
+                                 funcs.fourier_density_parts_harmonics(
+                                     spec.num_modes, cpos, cfc))
+        spec = self.obd_est_spec
+        if spec is not None and due(spec):
+            est["obd"] = measure("aux_obd", spec,
+                                 funcs.one_body_density_grid(
+                                     consts.obd_offsets, cpos, cfc))
+        spec = self.pair_corr_est_spec
+        if spec is not None and due(spec):
+            est["g2"] = measure("aux_g2", spec,
+                                funcs.pair_dist_histogram(
+                                    spec.num_bins, cpos, cfc))
+        if cmd_accum is not None:
+            est["cmd"] = torch.stack([masked_sum(cmd_accum ** 2),
+                                      masked_sum(cmd_accum)])
+        return aux, est
+
+    def _run(self, state: State, draws, consts: _EstConsts,
+             measuring: bool, aux: t.Optional[dict], step_offset: int):
+        """Step through ``draws``, an iterable of ``(comb_u, xi)``.
+
+        With ``measuring``, every ``est_every``-th step measures the
+        estimators (step ``k`` of the run has index ``step_offset + k``
+        in the forward-walking window) and the steps in between compose
+        the ancestry permutation.  Returns ``(state, aux, props, est)``:
+        the per-step ensemble scalars and estimator rows, as lists of
+        device tensors.
+        """
+        e_prev_slots = state.energies if self.ref_compat else None
+        cadence = self.est_every
+        perm = None
+        props, est = [], {}
+        for step, (comb_u, xi) in enumerate(draws):
+            state, e_prev_slots, branch = self._step(
+                state, e_prev_slots, comb_u, xi, consts.cfc)
+            props.append((state.energy, state.weight, state.num_walkers,
+                          state.ref_energy, state.accum_energy))
+            if not measuring:
+                continue
+            if (step + 1) % cadence:
+                if aux:
+                    perm = (branch.parent if perm is None
+                            else perm[branch.parent])
+                continue
+            aux, rows = self._estimate(consts, aux, perm, branch,
+                                       state.cmd_accum, step_offset + step)
+            perm = None
+            for name, row in rows.items():
+                est.setdefault(name, []).append(row)
+        return state, aux, props, est
 
     def _block_seed(self, block_index: int) -> int:
         """Seed of the comb-uniform stream of one block."""
         ss = np.random.SeedSequence([self.rng_seed, block_index])
         return int(ss.generate_state(1, dtype=np.uint64)[0])
+
+    def _block_draws(self, block_index: int, num_time_steps_block: int,
+                     state: State):
+        """The comb uniforms and diffusion noise of one block, drawn on
+        the state's device as the steps consume them."""
+        dtype, device = state.pos.dtype, state.pos.device
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self._block_seed(block_index))
+        sigma = self.sigma_spread
+        for step in range(num_time_steps_block):
+            comb_u = torch.rand(state.weights.shape, generator=gen,
+                                dtype=dtype, device=device)
+            xi = sigma * prng.normal(
+                self.rng_seed, block_index * num_time_steps_block + step,
+                state.pos.shape, dtype, device)
+            yield comb_u, xi
 
     # -- public sampling APIs -------------------------------------------------
 
@@ -296,41 +683,58 @@ class Sampling:
                block_offset: int = 0) -> t.Iterator[SamplingBlock]:
         """Yield :class:`SamplingBlock` objects indefinitely.
 
-        ``burn_in_blocks`` is accepted for the JAX package's signature:
-        with no estimators, burn-in blocks and measured blocks run the
-        same step.  ``block_offset`` continues the random streams of a
-        run that already consumed that many blocks: the comb stream of
-        block ``b`` is seeded from ``(rng_seed, block_offset + b)`` and
-        the diffusion noise of its step ``t`` is keyed by ``(rng_seed,
+        The first ``burn_in_blocks`` blocks run the dynamics only: no
+        estimator is measured and their rows are ``None`` (the CM
+        accumulator still advances, and its first window opens with the
+        first measured block).  A forward-walking window longer than one
+        block carries the pure accumulators across blocks
+        (``aux_carry``), with the step index counted from the window's
+        start.  ``block_offset`` continues the random streams of a run
+        that already consumed that many blocks: the comb stream of block
+        ``b`` is seeded from ``(rng_seed, block_offset + b)`` and the
+        diffusion noise of its step ``t`` is keyed by ``(rng_seed,
         (block_offset + b) * nts + t)``.
         """
-        del burn_in_blocks
         state = ini_state
         dtype, device = state.pos.dtype, state.pos.device
+        if self.cm_diffusion_est and state.cmd_accum is None:
+            state = state._replace(cmd_accum=torch.zeros(
+                state.pos.shape[0], dtype=dtype, device=device))
         nts = num_time_steps_block
-        cfc = self._cast_params(dtype, device)
-        sigma = self.sigma_spread
-        block_index = block_offset
+        consts = self._est_consts(dtype, device)
+        window = self.pfw_window_blocks(nts)
+        cmd_window = self.cm_window_blocks
+        aux = None
+        block = 0
         while True:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(self._block_seed(block_index))
-            e_prev_slots = state.energies if self.ref_compat else None
-            steps = []
-            for step in range(nts):
-                comb_u = torch.rand(state.weights.shape, generator=gen,
-                                    dtype=dtype, device=device)
-                xi = sigma * prng.normal(self.rng_seed,
-                                         block_index * nts + step,
-                                         state.pos.shape, dtype, device)
-                state, e_prev_slots, _ = self._step(state, e_prev_slots,
-                                                    comb_u, xi, cfc)
-                steps.append((state.energy, state.weight,
-                              state.num_walkers, state.ref_energy,
-                              state.accum_energy))
+            measured_idx = block - burn_in_blocks
+            measuring = measured_idx >= 0
+            if self.cm_diffusion_est and (
+                    measured_idx == 0 or (cmd_window and measured_idx > 0
+                                          and measured_idx % cmd_window
+                                          == 0)):
+                state = state._replace(
+                    cmd_accum=torch.zeros_like(state.cmd_accum))
+            step_offset = 0
+            if measuring:
+                self._check_block_length(nts)
+                win_pos = measured_idx % window
+                if win_pos == 0:
+                    aux = self._fresh_aux(dtype, device)
+                step_offset = win_pos * nts
+            draws = self._block_draws(block_offset + block, nts, state)
+            state, aux, steps, est = self._run(state, draws, consts,
+                                               measuring, aux, step_offset)
             props = PropsData(*(torch.stack(column).cpu()
                                 for column in zip(*steps)))
-            yield SamplingBlock(props, state)
-            block_index += 1
+            rows = {name: torch.stack(values).cpu()
+                    for name, values in est.items()}
+            yield SamplingBlock(
+                props, rows.get("density"), rows.get("ssf"), state,
+                iter_obd=rows.get("obd"), iter_cmd=rows.get("cmd"),
+                iter_g2=rows.get("g2"),
+                aux_carry=aux if measuring and window > 1 else None)
+            block += 1
 
     def replay_states(self, ini_state: State, comb_u,
                       diffusion_noise) -> t.Dict[str, torch.Tensor]:
@@ -353,9 +757,36 @@ class Sampling:
             "num_walkers", "energy", "weight", "ref_energy",
             "accum_energy", "pos", "energies", "weights", "parent")}
         for step in range(comb_u.shape[0]):
-            state, e_prev_slots, parent = self._step(
+            state, e_prev_slots, branch = self._step(
                 state, e_prev_slots, comb_u[step], xi[step], cfc)
             for name in out:
-                out[name].append(parent if name == "parent"
+                out[name].append(branch.parent if name == "parent"
                                  else getattr(state, name))
         return {name: torch.stack(values) for name, values in out.items()}
+
+    def replay_estimators(self, ini_state: State, comb_u, diffusion_noise,
+                          aux_in: t.Optional[dict] = None,
+                          step_offset: int = 0):
+        """The estimators under injected noise (see :meth:`replay_states`
+        for ``comb_u`` and ``diffusion_noise``): every ``est_every``-th
+        step measures, the others only transport.
+
+        ``aux_in`` (e.g. from :func:`aux_from_numpy`) and
+        ``step_offset`` continue a forward-walking window that started
+        ``step_offset`` steps earlier; by default the window starts
+        here with zero accumulators.  Returns ``(est, aux)``: for each
+        estimator its rows stacked over the steps where it measured
+        (``(nts // K, ...)``, or ``nts // (K m)`` with a multiplier),
+        and the final accumulators.
+        """
+        dtype, device = ini_state.pos.dtype, ini_state.pos.device
+        comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
+        xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
+        aux = self._fresh_aux(dtype, device)
+        if aux_in is not None:
+            aux = {name: torch.as_tensor(aux_in[name], dtype=dtype,
+                                         device=device) for name in aux}
+        _, aux, _, est = self._run(ini_state, zip(comb_u, xi),
+                                   self._est_consts(dtype, device), True,
+                                   aux, step_offset)
+        return {name: torch.stack(rows) for name, rows in est.items()}, aux

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from phd_qmclib_torch.models import mrbp
-from phd_qmclib_torch.ops import pairwise, prng
+from phd_qmclib_torch.ops import histogram, pairwise, prng
 from phd_qmclib_torch.samplers import dmc
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +131,102 @@ def test_dmc_on_the_card_matches_the_cpu_replay(cuda):
     # One K1 launch per step (the build adds one) and one K2 launch.
     assert pairwise.energy_and_drift.launch_count == 16 + 1
     assert prng.normal.launch_count == 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,row_len,num_bins", [
+    (17408, 128, 128),   # the density estimator at the bench shape
+    (4096, 1024, 100),   # N = 1024, bins not a multiple of 32
+    (333, 33, 37),
+    (5, 7, 3000),        # few warps per CTA
+])
+def test_histogram_kernel_equals_plain(cuda, rows, row_len, num_bins,
+                                       dtype):
+    sc = float(num_bins) / 3
+    pos = torch.as_tensor(np.random.default_rng(rows).uniform(
+        -0.1 * sc, 1.1 * sc, (rows, row_len)), dtype=dtype, device=cuda)
+    bin_size = torch.tensor(sc / num_bins, dtype=dtype, device=cuda)
+    count = histogram.walker_histogram.launch_count
+    hist = histogram.walker_histogram(pos, bin_size, num_bins)
+    torch.cuda.synchronize()
+    assert histogram.walker_histogram.launch_count == count + 1
+    assert hist.dtype == dtype and hist.shape == (rows, num_bins)
+    assert torch.equal(hist,
+                       histogram.walker_histogram_plain(pos, bin_size,
+                                                        num_bins))
+    assert bool((hist.sum(-1) == row_len).all())
+
+
+def test_histogram_kernel_at_the_g2_shape(cuda):
+    """The (W, N, N) pair-distance rows of the g2 estimator at N = 128,
+    128 bins of L / 256."""
+    pos = torch.as_tensor(np.random.default_rng(2).uniform(
+        0, 128.0, (2048, 128)), dtype=torch.float32, device=cuda)
+    d = pos[:, :, None] - pos[:, None, :]
+    r = (d - 128.0 * torch.round(d / 128.0)).abs()
+    bin_size = torch.tensor(0.5, device=cuda)
+    hist = histogram.walker_histogram(r, bin_size, 128)
+    assert hist.shape == (2048, 128, 128)
+    assert torch.equal(hist, histogram.walker_histogram_plain(r, bin_size,
+                                                              128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_histogram_kernel_edges(cuda, dtype):
+    vals = np.concatenate([np.arange(16.0), [16 - 1e-6, 0.0, 15.9999990,
+                                             -0.5, -0.0, 16.0, 1e30,
+                                             np.inf, -np.inf, np.nan]])
+    pos = torch.as_tensor(np.tile(vals, (4, 1)), dtype=dtype, device=cuda)
+    for bin_size, num_bins in ((1.0, 16), (16.0 / 7, 7), (0.1, 160)):
+        bs = torch.tensor(bin_size, dtype=dtype, device=cuda)
+        assert torch.equal(
+            histogram.walker_histogram(pos, bs, num_bins),
+            histogram.walker_histogram_plain(pos, bs, num_bins))
+
+
+def test_histogram_kernel_rejects_bad_inputs(cuda):
+    pos = torch.zeros((4, 8), device=cuda)
+    bs = torch.tensor(1.0, device=cuda)
+    with pytest.raises(ValueError, match="num_bins"):
+        histogram.walker_histogram(pos, bs, histogram.MAX_BINS + 1)
+    with pytest.raises(ValueError, match="bin_size"):
+        histogram.walker_histogram(pos, bs.double(), 4)
+    with pytest.raises(ValueError, match="bin_size"):
+        histogram.walker_histogram(pos, bs.cpu(), 4)
+
+
+def test_dmc_estimators_on_the_card_match_the_cpu_replay(cuda):
+    """Every estimator of the sampler on the card (K1, K2, K4) against
+    the same replay with the plain versions on the CPU, f64."""
+    spec = mrbp.Spec(**dict(BENCH, boson_number=16, supercell_size=16.0))
+    sampling = dmc.Sampling(
+        spec, time_step=1e-2, max_num_walkers=64, target_num_walkers=48,
+        rng_seed=3, est_every=2, cm_diffusion_est=True,
+        density_est_spec=dmc.DensityEstSpec(num_bins=16,
+                                            pfw_num_time_steps=8),
+        ssf_est_spec=dmc.SSFEstSpec(num_modes=8),
+        obd_est_spec=dmc.OBDEstSpec(num_pos=5, est_every_mult=2),
+        pair_corr_est_spec=dmc.PairCorrEstSpec(num_bins=12,
+                                               est_every_mult=2))
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
+    comb_u = rng.random((12, 64))
+    xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
+    on_cpu, aux_cpu = sampling.replay_estimators(
+        sampling.build_state(confs), comb_u, xi)
+    count = histogram.walker_histogram.launch_count
+    on_card, aux_card = sampling.replay_estimators(
+        sampling.build_state(confs, device=cuda), comb_u, xi)
+    # 6 density and 3 g2 measurements.
+    assert histogram.walker_histogram.launch_count == count + 9
+    assert set(on_card) == set(on_cpu) == {"density", "ssf", "obd", "g2",
+                                           "cmd"}
+    for name, rows in on_cpu.items():
+        if name in ("density", "g2"):
+            assert torch.equal(on_card[name].cpu(), rows), name
+        else:
+            torch.testing.assert_close(on_card[name].cpu(), rows,
+                                       rtol=1e-9, atol=1e-9)
+    for name, acc in aux_cpu.items():
+        torch.testing.assert_close(aux_card[name].cpu(), acc, rtol=1e-9,
+                                   atol=1e-9)
