@@ -5,8 +5,10 @@
 Drives the DMC main path of ``phd_qmclib_torch`` at the bench
 configuration (v0=20, r=1, gn=1, N=128 bosons, L=128, rm=0.4, dt=1e-3,
 16,384 target walkers in a 17,408-slot buffer, f32) through its
-hand-written CUDA kernels, without and with the estimators, and checks
-the kernels and the physics:
+hand-written CUDA kernels, without and with the estimators, and the VMC
+path at the bench VMC configuration (the same model at N=64, L=64,
+16,384 chains) and the variational example, and checks the kernels and
+the physics:
 
 A. the card's name and power limit; the kernels' build (``-Xptxas -v``);
 B. the pair energy/drift kernel (K1) against its plain torch version,
@@ -30,8 +32,33 @@ G. DMC with estimators from phase D's last state: a small f64 estimator
    step; CM diffusion with an 8-block window), 2 timed blocks of 512
    steps each: the E/N band, the sum rules at every measured step, and
    the kernels' launch counts;
+H. the log|psi| variant of the pair kernel (K1 log) against its plain
+   version: f32 at the VMC shape (16384 x 64) and the DMC shape
+   (17408 x 128), f64 at 256 walkers, on the bench, free, ideal and
+   defected models;
+I. a small f64 VMC replay on the card against the same replay on the
+   CPU (injected moves and acceptance uniforms, uniform and Gaussian
+   proposals): equal acceptance decisions, positions within 1e-12;
+V1. VMC at the bench VMC configuration (move_spread 0.4, 32-mode S(k)
+   every step, uniform random starts): 1 burn block and 2 timed blocks
+   of 512 steps; E/N and the acceptance must land in the band of the
+   JAX package's VMC run of the same protocol on a CPU; the S(k) sum
+   rules at every step;
+V2. the variational example (``examples/vmc_variational.yml``:
+   move_spread 0.25, ``est_every`` 8, 64-mode S(k), 32-point OBDM every
+   64th step, regular start) without its checkpoints and HDF5 output: 1
+   burn block and 1 timed block of 512 steps; the S(k) and OBDM sum
+   rules at every measured step;
+J. the fused diffusion kernel (K3) against its plain version and the
+   DMC step's own diffusion (``dmc.Sampling.diffuse`` on K2's noise: K2,
+   torch ops, K1) at 17408 x 128 f32: its noise is K2's bit for bit;
 E. each kernel's time against its plain version at the main path's
-   shapes, alternating plain, kernel, kernel, plain.
+   shapes, alternating plain, kernel, kernel, plain (K3 also against the
+   step's own diffusion).
+
+Every kernel's launches are counted from 0 over the runs of D, G1, G2,
+V1 and V2; K3 lies on none of them (the DMC step keeps its own
+sequence, as in the JAX package), and its count there must stay 0.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -48,7 +75,7 @@ import torch
 
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
-from phd_qmclib_torch.samplers import dmc
+from phd_qmclib_torch.samplers import dmc, vmc
 
 NOP = 128
 TARGET_WALKERS = 16384
@@ -83,6 +110,32 @@ K2_TOL = dict(rtol=1e-6, atol=2e-6)
 #: the zero shift): 1e-4 relative.
 SUM_RULE_RTOL, OBDM_RTOL = 1e-5, 1e-4
 
+#: The VMC configurations: the bench VMC stage (``bench.py:202-211``) and
+#: the variational example (``examples/vmc_variational.yml``).
+VMC_NOP = 64
+VMC_CHAINS = 16384
+VMC_SPEC = dict(BENCH_SPEC, boson_number=VMC_NOP,
+                supercell_size=float(VMC_NOP))
+#: V1's protocol, for which its band was made: the sampler's settings,
+#: uniform random starts, burn blocks, timed blocks and their length.
+#: E/N has not settled after the burn block (it still drifts by about
+#: 0.007 per block), so the band holds for this protocol only.
+VMC_BAND_PROTOCOL = dict(move_spread=0.4, ssf_modes=32, start="uniform",
+                         burn_blocks=1, timed_blocks=2, steps_per_block=512)
+#: V1's band: E/N (mean over the timed blocks, every step and chain)
+#: and the acceptance of three VMC runs of the JAX package (f32, XLA) on
+#: a CPU with VMC_BAND_PROTOCOL (``tools/jax_vmc_band.py``; 2048, 2048
+#: and 4096 chains, seeds 1-3): 8.49395 +- 0.00042 and 0.23790 +-
+#: 0.00030, errors from the spread of the independent chains' time
+#: averages.  The tolerance is 5 sigma of that error and of this run's
+#: own (16,384 chains: 0.0003 and 0.00022).
+VMC_ENERGY_REF, VMC_ENERGY_TOL = 8.49395, 0.0026
+VMC_ACCEPT_REF, VMC_ACCEPT_TOL = 0.23790, 0.0019
+#: K1 log vs plain: log|psi| sums N^2/2 pair logs in f32 in another order
+#: (the JAX package's own Pallas-vs-XLA test allows 1e-5); the energy
+#: and drift as for the forward variant.
+K1_LOG_F32_TOL = dict(K1_F32_TOL, log_psi_rtol=1e-5, log_psi_atol=1e-4)
+
 #: Phase G's estimator loads.
 G1_ESTIMATORS = dict(
     density_est_spec=dmc.DensityEstSpec(num_bins=128, as_pure_est=True),
@@ -106,6 +159,23 @@ def phase(name: str, **fields) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+#: Each kernel's launch counter: the wrapper and its attribute.
+COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
+            "K1 log": (pairwise.energy_and_drift, "log_psi_launch_count"),
+            "K2": (prng.normal, "launch_count"),
+            "K3": (pairwise.diffuse_energy_drift, "launch_count"),
+            "K4": (histogram.walker_histogram, "launch_count")}
+
+
+def reset_counts() -> None:
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -258,8 +328,7 @@ def run_dmc(device, card: str):
     confs = np.stack([spec.init_get_sys_conf(rng=rng)
                       for _ in range(TARGET_WALKERS)]).astype(np.float32)
 
-    pairwise.energy_and_drift.launch_count = 0
-    prng.normal.launch_count = 0
+    reset_counts()
     t_start = time.perf_counter()
     state = sampling.build_state(confs, dtype=np.float32, device=device)
     blocks = sampling.blocks(state, num_time_steps_block=NTS,
@@ -279,8 +348,7 @@ def run_dmc(device, card: str):
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": pairwise.energy_and_drift.launch_count,
-                "K2": prng.normal.launch_count}
+    launches = read_counts()
 
     steps_run = (BURN_BLOCKS + TIMED_BLOCKS) * NTS
     last = block.last_state
@@ -415,15 +483,13 @@ def check_sum_rules(sampling: dmc.Sampling, block) -> dict:
 
 
 def run_estimators(device, card: str, state, label: str, estimators: dict,
-                   block_offset: int, baseline: dict) -> int:
+                   block_offset: int, baseline: dict) -> dict:
     """Phase G1/G2: 2 timed blocks with estimators from ``state``.
-    Returns the K4 launches of the run."""
+    Returns the launch counts of the run."""
     sampling = bench_sampling(**estimators)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    pairwise.energy_and_drift.launch_count = 0
-    prng.normal.launch_count = 0
-    histogram.walker_histogram.launch_count = 0
+    reset_counts()
     blocks = sampling.blocks(state, num_time_steps_block=NTS,
                              block_offset=block_offset)
     start = torch.cuda.Event(enable_timing=True)
@@ -438,9 +504,7 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"K1": pairwise.energy_and_drift.launch_count,
-                "K2": prng.normal.launch_count,
-                "K4": histogram.walker_histogram.launch_count}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     steps_run = TIMED_BLOCKS * NTS
     e_per_boson = check_energy([b.iter_props for b in done], label)
@@ -478,7 +542,278 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
           sum_rule_max_rel_dev={k: max(r[k] for r in sum_rules)
                                 for k in sum_rules[0]},
           launches=launches, ok=True)
-    return launches["K4"]
+    return launches
+
+
+def check_k1_log(device) -> float:
+    """Phase H; returns the largest abs error at the VMC shape."""
+    free = dict(VMC_SPEC, lattice_depth=0.0)
+    ideal = dict(VMC_SPEC, interaction_strength=0.0)
+    max_err = 0.0
+    for label, spec_kwargs, walkers, dtype in (
+            ("vmc f32", VMC_SPEC, VMC_CHAINS, torch.float32),
+            ("bench f32", BENCH_SPEC, MAX_WALKERS, torch.float32),
+            ("defected f32", DEFECTED_SPEC, 4096, torch.float32),
+            ("free f32", free, 4096, torch.float32),
+            ("ideal f32", ideal, 4096, torch.float32),
+            ("vmc f64", VMC_SPEC, 256, torch.float64),
+            ("defected f64", DEFECTED_SPEC, 256, torch.float64),
+            ("free f64", free, 256, torch.float64),
+            ("ideal f64", ideal, 256, torch.float64)):
+        pos, params, kw = pair_inputs(spec_kwargs, walkers, dtype, device)
+        count = pairwise.energy_and_drift.log_psi_launch_count
+        out = pairwise.energy_and_drift(pos, params, with_log_psi=True, **kw)
+        torch.cuda.synchronize()
+        require(pairwise.energy_and_drift.log_psi_launch_count == count + 1,
+                f"K1 log {label} launched")
+        plain = pairwise.energy_and_drift_plain(pos, params,
+                                                with_log_psi=True, **kw)
+        require(all(bool(torch.isfinite(x).all()) for x in out),
+                f"K1 log {label} finite")
+        if dtype == torch.float32:
+            tol = K1_LOG_F32_TOL
+            tols = ((tol["log_psi_rtol"], tol["log_psi_atol"]),
+                    (tol["energy_rtol"], 0.0),
+                    (tol["drift_rtol"], tol["drift_atol"]))
+        else:
+            tols = ((K1_F64_RTOL, K1_F64_RTOL),) * 3
+        for got, want, (rtol, atol) in zip(out, plain, tols):
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        abs_err = [float((a - b).abs().max()) for a, b in zip(out, plain)]
+        rel_err = [float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                   for a, b in zip(out[:2], plain[:2])]
+        if label == "vmc f32":
+            max_err = max(abs_err)
+        phase("H", check=f"K1 log {label}", shape=list(pos.shape),
+              log_psi_max_rel_err=rel_err[0], energy_max_rel_err=rel_err[1],
+              log_psi_max_abs_err=abs_err[0], energy_max_abs_err=abs_err[1],
+              drift_max_abs_err=abs_err[2], ok=True)
+    return max_err
+
+
+def check_vmc_replay(device) -> None:
+    """Phase I: the Metropolis chains with K1 log (and K2's stream
+    replaced by injected Gaussian moves) on the card against the CPU,
+    f64, N=16."""
+    spec = mrbp.Spec(**dict(DEFECTED_SPEC, boson_number=16,
+                            supercell_size=16.0, num_defects=4))
+    for gaussian in (False, True):
+        spread = 0.15 if gaussian else 0.4
+        sampling = vmc.Sampling(spec, move_spread=spread, rng_seed=3,
+                                num_walkers=64, gaussian=gaussian)
+        rng = np.random.default_rng(1)
+        confs = rng.uniform(0, 16.0, (64, 16))
+        moves = (spread * rng.standard_normal((10, 64, 16)) if gaussian
+                 else rng.random((10, 64, 16)))
+        accept_u = rng.random((10, 64))
+        on_cpu = sampling.replay_chain(sampling.build_state(confs), moves,
+                                       accept_u)
+        on_card = sampling.replay_chain(
+            sampling.build_state(confs, device=device), moves, accept_u)
+        require(torch.equal(on_card[2].cpu(), on_cpu[2]),
+                "VMC replay acceptance decisions equal")
+        errs = {}
+        for name, got, want in zip(("pos", "wf_abs_log"), on_card[:2],
+                                   on_cpu[:2]):
+            errs[name] = float((got.cpu() - want).abs().max())
+            require(errs[name] < 1e-12, f"VMC replay {name} within 1e-12")
+        phase("I", check="f64 VMC replay card vs CPU",
+              proposals="gaussian" if gaussian else "uniform", steps=10,
+              accepted=int(on_cpu[2].sum()), max_abs_err=errs, ok=True)
+
+
+def vmc_rows_sum_rules(block, chains: int) -> dict:
+    """S(0) = N^2 W, Re rho_0 = N W and OBDM(0) = W at every measured
+    step; returns the largest relative deviation of each."""
+    rules = {"ssf": (lambda x: x[:, 0, 0], VMC_NOP ** 2, SUM_RULE_RTOL),
+             "re_rho0": (lambda x: x[:, 0, 1], VMC_NOP, SUM_RULE_RTOL),
+             "obd": (lambda x: x[:, 0], 1, OBDM_RTOL)}
+    devs = {}
+    for name, (reduce, per_chain, rtol) in rules.items():
+        rows = getattr(block, "iter_obd" if name == "obd" else "iter_ssf")
+        if rows is None:
+            continue
+        require(bool(torch.isfinite(rows).all()), f"{name} rows finite")
+        dev = float(((reduce(rows.double()) - per_chain * chains).abs()
+                     / (per_chain * chains)).max())
+        require(dev < rtol, f"{name} sum rule within {rtol}: {dev}")
+        devs[name] = dev
+    return devs
+
+
+def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
+            confs: np.ndarray, timed_blocks: int) -> dict:
+    """Phases V1/V2: 1 burn block and ``timed_blocks`` timed blocks of
+    ``NTS`` steps from ``confs``.  Returns E/N, the acceptance, the rate,
+    the launch counts and the protocol that was run."""
+    chains = sampling.num_walkers
+    burn_blocks = 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t_start = time.perf_counter()
+    state = sampling.build_state(confs, dtype=torch.float32, device=device)
+    blocks = sampling.blocks(NTS, state)
+    burn = [next(blocks) for _ in range(burn_blocks)][-1]
+    burn_s = time.perf_counter() - t_start
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    done = [next(blocks) for _ in range(timed_blocks)]  # each ends in a fetch
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    steps_run = (burn_blocks + timed_blocks) * NTS
+    require(launches["K1 log"] >= steps_run,
+            f"{label}: K1 log launches {launches} cover {steps_run} steps")
+    e_per_n = float(np.mean([float(b.iter_props.energy.double().mean())
+                             for b in done])) / VMC_NOP
+    accept = float(np.mean([b.accept_rate for b in done]))
+    last = done[-1].last_state
+    require(last.pos.shape == (chains, VMC_NOP)
+            and bool(torch.isfinite(last.pos).all())
+            and bool(torch.isfinite(last.wf_abs_log).all())
+            and np.isfinite(e_per_n) and 0 < accept < 1,
+            f"{label}: finite chains of the ensemble's shape")
+    sum_rules = [vmc_rows_sum_rules(b, chains) for b in done]
+    step_ms = start.elapsed_time(end) / (timed_blocks * NTS)
+    rate = chains * timed_blocks * NTS / wall_s
+    phase(label, check="VMC", card=card, chains=chains,
+          est_every=sampling.est_every, steps_run=steps_run, burn_s=burn_s,
+          timed_wall_s=wall_s, chain_steps_per_s=rate,
+          step_ms_cuda_events=step_ms, peak_device_memory_gb=peak_gb,
+          energy_per_boson=e_per_n, accept_rate=accept,
+          burn_energy_per_boson=float(burn.iter_props.energy.double().mean())
+          / VMC_NOP,
+          measured_rows={name: sum(len(getattr(b, f"iter_{name}"))
+                                   for b in done)
+                         for name in ("ssf", "obd", "g2")
+                         if getattr(done[0], f"iter_{name}") is not None},
+          sum_rule_max_rel_dev={k: max(r[k] for r in sum_rules)
+                                for k in sum_rules[0]},
+          launches=launches, ok=True)
+    return {"energy_per_boson": e_per_n, "accept_rate": accept,
+            "chain_steps_per_s": rate, "launches": launches,
+            "protocol": dict(move_spread=sampling.move_spread,
+                             ssf_modes=getattr(sampling.ssf_est_spec,
+                                               "num_modes", None),
+                             burn_blocks=burn_blocks,
+                             timed_blocks=timed_blocks,
+                             steps_per_block=NTS)}
+
+
+def run_vmc_bench(device, card: str) -> dict:
+    """Phase V1; returns the launch counts."""
+    protocol = VMC_BAND_PROTOCOL
+    sampling = vmc.Sampling(
+        mrbp.Spec(**VMC_SPEC), move_spread=protocol["move_spread"],
+        rng_seed=1, num_walkers=VMC_CHAINS,
+        ssf_est_spec=vmc.SSFEstSpec(num_modes=protocol["ssf_modes"]))
+    require(protocol["start"] == "uniform", "V1 starts uniform")
+    confs = np.random.default_rng(0).uniform(
+        0.0, float(VMC_NOP), (VMC_CHAINS, VMC_NOP)).astype(np.float32)
+    out = run_vmc(device, card, "V1", sampling, confs, TIMED_BLOCKS)
+    require(dict(out["protocol"], start="uniform") == protocol,
+            f"V1 ran {out['protocol']}, the band's protocol is {protocol}")
+    e_per_n, accept = out["energy_per_boson"], out["accept_rate"]
+    require(abs(e_per_n - VMC_ENERGY_REF) < VMC_ENERGY_TOL,
+            f"V1: E/N {e_per_n} within {VMC_ENERGY_TOL} of the JAX CPU "
+            f"runs' {VMC_ENERGY_REF}")
+    require(abs(accept - VMC_ACCEPT_REF) < VMC_ACCEPT_TOL,
+            f"V1: acceptance {accept} within {VMC_ACCEPT_TOL} of the JAX "
+            f"CPU runs' {VMC_ACCEPT_REF}")
+    phase("V1", check="E/N and acceptance band", energy_per_boson=e_per_n,
+          energy_ref=VMC_ENERGY_REF, energy_dev=e_per_n - VMC_ENERGY_REF,
+          accept_rate=accept, accept_ref=VMC_ACCEPT_REF,
+          accept_dev=accept - VMC_ACCEPT_REF, protocol=protocol, ok=True)
+    return out["launches"]
+
+
+def run_vmc_example(device, card: str) -> dict:
+    """Phase V2; returns the launch counts."""
+    spec = mrbp.Spec(**VMC_SPEC)
+    sampling = vmc.Sampling(
+        spec, move_spread=0.25, rng_seed=7, num_walkers=VMC_CHAINS,
+        est_every=8, ssf_est_spec=vmc.SSFEstSpec(num_modes=64),
+        obd_est_spec=vmc.OBDEstSpec(num_pos=32, est_every_mult=8))
+    conf = spec.init_get_sys_conf(dist_type=mrbp.DIST_REGULAR)
+    out = run_vmc(device, card, "V2", sampling, conf, 1)
+    return out["launches"]
+
+
+def diffuse_inputs(device):
+    """K3's inputs at the DMC shape: cloned parents with their K1 energy
+    and drift, E_ref on the device; and the DMC step's own diffusion of
+    the same inputs, ``step(xi=None)``: K2's noise for the same key (or
+    the unit normals ``xi``) scaled by sigma, then
+    ``dmc.Sampling.diffuse`` (torch move and recast, K1, weight)."""
+    pos, params, kw = pair_inputs(BENCH_SPEC, MAX_WALKERS, torch.float32,
+                                  device, seed=7)
+    energy, drift = pairwise.energy_and_drift(pos, params, **kw)
+    sampling = bench_sampling()
+    # What the sampler makes once per run: the cast and packed parameters.
+    cfc = mrbp.cast_params(sampling.cfc_params, torch.float32, device)
+    step_params = pairwise.pack_params(cfc, torch.float32, device)
+    args = dict(cpos=pos, cdrift=drift, cenergy=energy, params=params,
+                dt=sampling.time_step, sigma=sampling.sigma_spread,
+                e_ref=torch.tensor(ENERGY_REF * NOP, device=device),
+                rng_seed=1, step=12345)
+
+    def step(xi=None):
+        if xi is None:
+            xi = prng.normal(args["rng_seed"], args["step"], pos.shape,
+                             pos.dtype, device)
+        return sampling.diffuse(pos, drift, energy, sampling.sigma_spread * xi,
+                                args["e_ref"], cfc, step_params)
+    return args, kw, step
+
+
+def check_k3(device) -> float:
+    """Phase J; returns the largest abs error of the energies against
+    the plain version on the same moved positions."""
+    args, kw, step = diffuse_inputs(device)
+    xi = prng.normal_plain(5, 6, args["cpos"].shape, torch.float32, device)
+    count = pairwise.diffuse_energy_drift.launch_count
+    fused = pairwise.diffuse_energy_drift(**args, **kw)
+    injected = pairwise.diffuse_energy_drift(**args, xi=xi, **kw)
+    torch.cuda.synchronize()
+    require(pairwise.diffuse_energy_drift.launch_count == count + 2,
+            "K3 launched")
+    stepped = step()
+    plain = pairwise.diffuse_energy_drift_plain(**args, **kw)
+    injected_step = step(xi)
+    injected_plain = pairwise.diffuse_energy_drift_plain(**args, xi=xi, **kw)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(x).all()) for x in fused + injected),
+            "K3 outputs finite")
+    # The drawn noise is K2's bit for bit: the moved positions equal the
+    # DMC step's, whose normals come from the K2 kernel.
+    require(torch.equal(fused[0], stepped[0]),
+            "K3 noise equal to K2's (moved positions equal the step's)")
+    require(torch.equal(injected[0], injected_step[0])
+            and torch.equal(injected[0], injected_plain[0]),
+            "K3 with injected xi: moved positions equal")
+    d = fused[0] - plain[0]
+    pos_err = float((d - NOP * torch.round(d / NOP)).abs().max())
+    require(pos_err < 1e-4, f"K3 moved positions vs plain: {pos_err}")
+    errs = {"npos_vs_plain_normals": pos_err}
+    tol = K1_F32_TOL
+    for label, got, want in (("step", fused, stepped),
+                             ("plain", injected, injected_plain),
+                             ("injected step", injected, injected_step)):
+        torch.testing.assert_close(got[1], want[1],
+                                   rtol=tol["energy_rtol"], atol=0.0)
+        torch.testing.assert_close(got[2], want[2], rtol=tol["drift_rtol"],
+                                   atol=tol["drift_atol"])
+        torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0.0)
+        errs[f"nenergy_vs_{label}"] = float((got[1] - want[1]).abs().max())
+        errs[f"nweight_vs_{label}"] = float((got[3] - want[3]).abs().max())
+    phase("J", check="K3 vs plain and the DMC step's diffusion", shape=list(
+        args["cpos"].shape), words_equal_k2=True, max_abs_err=errs, ok=True)
+    return errs["nenergy_vs_plain"]
 
 
 def time_kernels(device, card: str) -> dict:
@@ -490,6 +825,9 @@ def time_kernels(device, card: str) -> dict:
         0, NOP, shape), dtype=torch.float32, device=device)
     distances = pair_distances(device)
     unit, half = (torch.tensor(x, device=device) for x in (1.0, 0.5))
+    vpos, vparams, vkw = pair_inputs(VMC_SPEC, VMC_CHAINS, torch.float32,
+                                     device)
+    dargs, dkw, dstep = diffuse_inputs(device)
     cases = {
         "K1": (lambda: pairwise.energy_and_drift_plain(pos, params, **kw),
                lambda: pairwise.energy_and_drift(pos, params, **kw),
@@ -505,7 +843,23 @@ def time_kernels(device, card: str) -> dict:
                                                            NOP),
                   lambda: histogram.walker_histogram(distances, half, NOP),
                   5, 50),
+        "K1 log": (lambda: pairwise.energy_and_drift_plain(
+                       vpos, vparams, with_log_psi=True, **vkw),
+                   lambda: pairwise.energy_and_drift(
+                       vpos, vparams, with_log_psi=True, **vkw), 5, 100),
+        "K1 log dmc shape": (lambda: pairwise.energy_and_drift_plain(
+                                 pos, params, with_log_psi=True, **kw),
+                             lambda: pairwise.energy_and_drift(
+                                 pos, params, with_log_psi=True, **kw),
+                             5, 50),
+        "K3": (lambda: pairwise.diffuse_energy_drift_plain(**dargs, **dkw),
+               lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
+               5, 50),
+        "K3 vs step": (
+            dstep, lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
+            50, 50),
     }
+    shapes = {"K4 g2": list(distances.shape), "K1 log": list(vpos.shape)}
     times = {}
     for name, (plain, kernel, plain_reps, kernel_reps) in cases.items():
         p1 = cuda_ms(plain, plain_reps)
@@ -514,8 +868,9 @@ def time_kernels(device, card: str) -> dict:
         p2 = cuda_ms(plain, plain_reps)
         times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
         phase("E", kernel=name, card=card,
-              shape=list(distances.shape if name == "K4 g2" else shape),
-              plain_ms=[p1, p2], kernel_ms=[k1, k2],
+              shape=shapes.get(name, list(shape)),
+              **{"step_ms" if name == "K3 vs step" else "plain_ms":
+                 [p1, p2]}, kernel_ms=[k1, k2],
               speedup=(p1 + p2) / (k1 + k2), ok=True)
     return times
 
@@ -545,15 +900,28 @@ def main() -> None:
     err_k1 = check_k1(device)  # B
     err_k2 = check_k2(device)  # C
     check_replay(device)  # D
-    launches, state, baseline = run_dmc(device, smi)  # D
+    dmc_launches, state, baseline = run_dmc(device, smi)  # D
+    runs = [dmc_launches]
     err_k4 = check_k4(device)  # F
     check_estimator_replay(device)  # G
-    launches["K4"] = sum(
-        run_estimators(device, smi, state, label, estimators,
-                       BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline)
-        for i, (label, estimators) in enumerate(
-            (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS))))
+    runs += [run_estimators(device, smi, state, label, estimators,
+                            BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline)
+             for i, (label, estimators) in enumerate(
+                 (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS)))]
+    err_k1_log = check_k1_log(device)  # H
+    check_vmc_replay(device)  # I
+    runs.append(run_vmc_bench(device, smi))  # V1
+    runs.append(run_vmc_example(device, smi))  # V2
+    err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
+
+    # The main path's launches: each run of D, G1, G2, V1 and V2 counts
+    # from 0.  K3 lies on no path (the DMC step keeps its own sequence,
+    # as in the JAX package): none of those runs may have launched it.
+    launches = {name: sum(run[name] for run in runs) for name in COUNTERS}
+    require(all(launches[name] > 0 for name in ("K1", "K1 log", "K2", "K4")),
+            f"every kernel of the main path launched: {launches}")
+    require(launches["K3"] == 0, f"K3 off the main path: {launches}")
 
     kernels = [
         {"name": "pair_energy_drift", "route": "cuda",
@@ -561,6 +929,13 @@ def main() -> None:
          "replaces": "phd_qmclib_tpu/ops/pairwise.py:84",
          "launches": launches["K1"], "max_abs_err": err_k1,
          **times["K1"]},
+        {"name": "pair_logpsi_energy_drift", "route": "cuda",
+         "source": "phd_qmclib_torch/csrc/pairwise.cu",
+         "replaces": "phd_qmclib_tpu/ops/pairwise.py:84",
+         "launches": launches["K1 log"], "max_abs_err": err_k1_log,
+         **times["K1 log"],
+         "dmc_shape_ms": times["K1 log dmc shape"]["ms"],
+         "dmc_shape_plain_ms": times["K1 log dmc shape"]["plain_ms"]},
         {"name": "philox_normals", "route": "cuda",
          "source": "phd_qmclib_torch/csrc/prng.cu",
          "replaces": "phd_qmclib_tpu/ops/prng.py:64",
@@ -572,6 +947,12 @@ def main() -> None:
          "launches": launches["K4"], "max_abs_err": err_k4,
          **times["K4"], "g2_ms": times["K4 g2"]["ms"],
          "g2_plain_ms": times["K4 g2"]["plain_ms"]},
+        {"name": "diffuse_energy_drift", "route": "cuda",
+         "source": "phd_qmclib_torch/csrc/diffuse.cu",
+         "replaces": "phd_qmclib_tpu/ops/pairwise.py:210",
+         "launches": launches["K3"], "on_main_path": False,
+         "max_abs_err": err_k3, **times["K3"],
+         "step_ms": times["K3 vs step"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

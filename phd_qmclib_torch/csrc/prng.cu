@@ -13,6 +13,8 @@
 // pair u1 = (w0 >> 8) 2^-24 + 2^-24 in (0, 1], u2 = (w1 >> 8) 2^-24 in
 // [0, 1), and elements 4q = r cos(2 pi u2), 4q+1 = r sin(2 pi u2) with
 // r = sqrt(-2 log u1); words (w2, w3) give elements 4q+2 and 4q+3.
+// The generator and the transform live in philox.cuh, which the fused
+// diffusion kernel (diffuse.cu) includes too.
 //
 // What bounds it on the H100: bytes written.  Each output element costs
 // one quarter of a Philox call (10 rounds of two 32x32 multiplies) plus
@@ -27,68 +29,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
-constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+using qmc::box_muller;
+using qmc::philox4x32_10;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t c2, uint32_t c3,
-                                               uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
-    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += kW0;
-    k1 += kW1;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-// Quarter-wave polynomials of ops/trig.py (SIN_COEFFS, COS_COEFFS) on
-// [0, pi/2].
-__device__ __forceinline__ float cos_poly(float x) {
-  const float z2 = x * x;
-  float acc = -2.60510641e-07f;
-  acc = acc * z2 + 2.47601348e-05f;
-  acc = acc * z2 + -1.38883608e-03f;
-  acc = acc * z2 + 4.16666362e-02f;
-  acc = acc * z2 + -4.99999994e-01f;
-  acc = acc * z2 + 1.0f;
-  return acc;
-}
-
-__device__ __forceinline__ float sin_poly(float x) {
-  const float z2 = x * x;
-  float acc = -2.38894895e-08f;
-  acc = acc * z2 + 2.75252866e-06f;
-  acc = acc * z2 + -1.98408615e-04f;
-  acc = acc * z2 + 8.33333098e-03f;
-  acc = acc * z2 + -1.66666666e-01f;
-  acc = acc * z2 + 1.0f;
-  return x * acc;
-}
-
-__device__ __forceinline__ void box_muller(uint32_t w1, uint32_t w2,
-                                           float* zc, float* zs) {
-  const float inv24 = 1.0f / 16777216.0f;
-  const float u1 = static_cast<float>(w1 >> 8) * inv24 + inv24;
-  const float u2 = static_cast<float>(w2 >> 8) * inv24;
-  const float radius = sqrtf(-2.0f * logf(u1));
-  const float a = 2.0f * u2;
-  const float b = a - 2.0f * rintf(0.5f * a);  // in [-1, 1]
-  const float c = fabsf(b);
-  const bool flip = c > 0.5f;
-  const float arg = 3.14159265358979323846f * (flip ? 1.0f - c : c);
-  *zc = radius * ((flip ? -1.0f : 1.0f) * cos_poly(arg));
-  *zs = radius * ((b >= 0.0f ? 1.0f : -1.0f) * sin_poly(arg));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -65,7 +65,8 @@ def build_core_funcs(*,
 
     Returns a namespace with ``log_psi``, ``drift``, ``energy``,
     ``energy_and_drift`` and ``log_psi_and_energy``, and the estimator
-    functions ``fourier_density_parts_harmonics`` (S(k)),
+    functions ``fourier_density`` and ``fourier_density_parts`` (S(k) at
+    explicit momenta), ``fourier_density_parts_harmonics`` (S(k)),
     ``one_body_density_grid`` (OBDM) and ``pair_dist_histogram`` (g2).
     """
     nop = boson_number
@@ -213,6 +214,23 @@ def build_core_funcs(*,
             columns.append(torch.exp(num - base).sum(dim=-1) / nop)
         return torch.stack(columns, dim=-1)
 
+    def fourier_density(kz, pos, cfc: CFCParams):
+        """Fourier component of the density, ``rho_k = sum_i e^{i k
+        z_i}``, for the momenta ``kz (M,)`` and ``pos (..., N)``:
+        complex ``(..., M)``."""
+        phase = pos[..., :, None] * kz  # (..., N, M)
+        return torch.complex(torch.cos(phase).sum(dim=-2),
+                             torch.sin(phase).sum(dim=-2))
+
+    def fourier_density_parts(kz, pos, cfc: CFCParams):
+        """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for explicit
+        momenta ``kz (M,)``, shape ``(..., M, 3)``: the VMC sampler seeds
+        its carried parts with them."""
+        phase = pos[..., :, None] * kz
+        re = torch.cos(phase).sum(dim=-2)
+        im = torch.sin(phase).sum(dim=-2)
+        return torch.stack([re ** 2 + im ** 2, re, im], dim=-1)
+
     def fourier_density_parts_harmonics(num_modes: int, pos,
                                         cfc: CFCParams):
         """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for the
@@ -268,6 +286,8 @@ def build_core_funcs(*,
                            energy_and_drift=energy_and_drift,
                            log_psi_and_energy=log_psi_and_energy,
                            one_body_density_grid=one_body_density_grid,
+                           fourier_density=fourier_density,
+                           fourier_density_parts=fourier_density_parts,
                            fourier_density_parts_harmonics=(
                                fourier_density_parts_harmonics),
                            pair_dist_histogram=pair_dist_histogram)

@@ -12,9 +12,9 @@ lattice, with a Bijl-Jastrow trial wavefunction:
 
 The spec is a frozen host-side dataclass (NumPy/SciPy, copied from the
 JAX package); the functions are batched torch functions.  The fused
-energy and drift of :func:`core_funcs` runs through
-:func:`phd_qmclib_torch.ops.pairwise.energy_and_drift`, which launches
-the hand-written CUDA kernel on a CUDA tensor.
+energy and drift, and the fused log|psi| and energy, of :func:`core_funcs`
+run through :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift`,
+which launches the hand-written CUDA kernel on a CUDA tensor.
 """
 import functools
 import math
@@ -521,11 +521,16 @@ def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
     and ``cfc`` a :class:`CFCParams` whose leaves are floats or 0-d
     tensors; the estimator functions take a leading argument (the S(k)
     mode count, the OBDM offsets, the g2 bin count).
-    ``energy_and_drift`` runs through
-    :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift` and
+    ``energy_and_drift`` and ``log_psi_and_energy`` run through
+    :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift` (the forward
+    and the log|psi| variant) and
     ``pair_dist_histogram`` through
     :func:`phd_qmclib_torch.ops.histogram.walker_histogram`: the CUDA
     kernels on a CUDA tensor, their plain torch versions on a CPU one.
+    The first two take an optional third argument, the kernel's
+    parameter vector ``pairwise.pack_params(cfc)`` in ``pos``' dtype on
+    its device: the samplers pack it once per run, since packing costs
+    more host time per call than the kernel's launch.
     """
     static = (spec_or_static.static_spec
               if isinstance(spec_or_static, Spec) else spec_or_static)
@@ -547,14 +552,25 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
         boson_number=static.boson_number,
     )
     nop = static.boson_number
+    kernel_kw = dict(nop=nop, is_free=static.is_free,
+                     is_ideal=static.is_ideal,
+                     defects_sep=static.defects_sep)
 
-    def energy_and_drift(pos, cfc):
-        params = pairwise.pack_params(cfc, pos.dtype, pos.device)
+    def energy_and_drift(pos, cfc, params=None):
+        if params is None:
+            params = pairwise.pack_params(cfc, pos.dtype, pos.device)
         energy, drift = pairwise.energy_and_drift(
-            pos.reshape(-1, nop).contiguous(), params, nop=nop,
-            is_free=static.is_free, is_ideal=static.is_ideal,
-            defects_sep=static.defects_sep)
+            pos.reshape(-1, nop).contiguous(), params, **kernel_kw)
         return energy.reshape(pos.shape[:-1]), drift.reshape(pos.shape)
+
+    def log_psi_and_energy(pos, cfc, params=None):
+        if params is None:
+            params = pairwise.pack_params(cfc, pos.dtype, pos.device)
+        log_psi, energy, _ = pairwise.energy_and_drift(
+            pos.reshape(-1, nop).contiguous(), params, with_log_psi=True,
+            **kernel_kw)
+        return (log_psi.reshape(pos.shape[:-1]),
+                energy.reshape(pos.shape[:-1]))
 
     def with_cast(fn):
         @functools.wraps(fn)
@@ -563,11 +579,11 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
             return fn(*lead, pos, cast_params(cfc, pos.dtype, pos.device))
         return wrapped
 
-    for name in ("log_psi", "drift", "log_psi_and_energy",
-                 "one_body_density_grid", "fourier_density_parts_harmonics",
-                 "pair_dist_histogram"):
+    for name in ("log_psi", "drift", "one_body_density_grid",
+                 "fourier_density_parts_harmonics", "pair_dist_histogram"):
         setattr(funcs, name, with_cast(getattr(funcs, name)))
     funcs.energy_and_drift = energy_and_drift
+    funcs.log_psi_and_energy = log_psi_and_energy
     funcs.energy = lambda pos, cfc: energy_and_drift(pos, cfc)[0]
     funcs.static_spec = static
     return funcs

@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain
-C interface, ``build/libqmc_kernels.so`` at the root of the checkout,
-the first time a kernel is launched (or again when a source is newer
-than the library).  Each source compiles in its own ``nvcc`` process,
-all started together, and one more links the objects.  The library is loaded with ``ctypes``: every
-pointer and the stream pass as ``c_void_p``, every integer as ``c_int``,
-and every launch function returns its ``cudaGetLastError()``.
+``csrc/*.cu`` (with the device code they share in ``csrc/*.cuh``)
+compile with ``nvcc`` into one shared library with a plain C interface,
+``build/libqmc_kernels.so`` at the root of the checkout, the first time
+a kernel is launched (or again when a source or header is newer than
+the library).  Each source compiles in its own ``nvcc`` process,
+all started together, and one more links the objects.  The library is
+loaded with ``ctypes``: every pointer and the stream pass as
+``c_void_p``, every integer as ``c_int``, and every launch function
+returns its ``cudaGetLastError()``.
 
 Nothing here runs at import time: the CPU tests import every module on
 a host without ``nvcc`` or a GPU.
@@ -19,10 +21,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "check", "library", "BUILD_DIR", "SOURCES"]
+__all__ = ["build", "check", "library", "BUILD_DIR", "HEADERS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu")
+SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu",
+           CSRC / "diffuse.cu")
+#: Device code included by several sources.
+HEADERS = (CSRC / "pair_terms.cuh", CSRC / "philox.cuh", CSRC / "trig.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIBRARY = BUILD_DIR / "libqmc_kernels.so"
 
@@ -33,13 +38,27 @@ LIBRARY = BUILD_DIR / "libqmc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_DIFFUSE = (_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, _P)
 #: Signatures of the exported launch functions (all return an int).
 SIGNATURES = {
     # pos, params, energy, drift, num_walkers, nop, is_free, is_ideal,
     # defects_sep, stream
     "qmc_pair_energy_drift_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "qmc_pair_energy_drift_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # pos, params, log_psi, energy, drift, num_walkers, nop, is_free,
+    # is_ideal, defects_sep, stream
+    "qmc_pair_logpsi_energy_drift_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P),
+    "qmc_pair_logpsi_energy_drift_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P),
+    # cpos, cdrift, cenergy, params, xi (or NULL), e_ref (0-d, on the
+    # device), dt, sigma, key_lo, key_hi, step_lo, step_hi, npos,
+    # nenergy, ndrift, nweight, num_walkers, nop, is_free, is_ideal,
+    # defects_sep, stream
+    "qmc_diffuse_energy_drift_f32": _DIFFUSE,
+    "qmc_diffuse_energy_drift_f64": _DIFFUSE,
     # out, num_elements, key_lo, key_hi, step_lo, step_hi, stream
     "qmc_philox_normals_f32": (_P, _I, _I, _I, _I, _I, _P),
     "qmc_philox_normals_f64": (_P, _I, _I, _I, _I, _I, _P),
@@ -75,7 +94,7 @@ def build() -> str:
     temporary name and renamed, so concurrent builds never load a
     half-written file.
     """
-    newest_source = max(src.stat().st_mtime for src in SOURCES)
+    newest_source = max(src.stat().st_mtime for src in SOURCES + HEADERS)
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest_source:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,32 +1,43 @@
-"""Fused Bijl-Jastrow local energy and drift: the DMC hot op.
+"""Fused Bijl-Jastrow local energy, drift and log|psi|: the hot ops of
+DMC and VMC, and the fused DMC diffusion step.
 
-Counterpart of ``phd_qmclib_tpu.ops.pairwise.energy_and_drift_pallas``
-(forward variant).  For every walker, O(N^2) minimum-image pair terms
-reduce to a per-particle drift and a per-walker local energy, plus the
-one-body Kronig-Penney terms.
+Counterpart of ``phd_qmclib_tpu.ops.pairwise``:
 
-:func:`energy_and_drift` launches the hand-written CUDA kernel of
-``csrc/pairwise.cu`` on a CUDA tensor and runs
-:func:`energy_and_drift_plain` on a CPU tensor.  Both sum the energy per
-particle first, ``E_L = sum_i (kin_i - drift_i^2 + pot_i)``, in the
-order of the Pallas kernel.
+* :func:`energy_and_drift` replaces ``energy_and_drift_pallas``, both
+  variants: the forward one (the DMC step) and, with
+  ``with_log_psi=True``, the one that adds log|psi| (the VMC step).  For
+  every walker, O(N^2) minimum-image pair terms reduce to a
+  per-particle drift and a per-walker local energy (and log|psi|), plus
+  the one-body Kronig-Penney terms.
+* :func:`diffuse_energy_drift` replaces ``diffuse_energy_drift_pallas``:
+  noise, move, recast, the forward terms and the branching weight in one
+  pass.  As in the JAX package, no sampler calls it.
+
+Each launches its hand-written CUDA kernel (``csrc/pairwise.cu``,
+``csrc/diffuse.cu``) on a CUDA tensor and runs its plain torch version
+on a CPU tensor.  Both sum the energy and log|psi| per particle first,
+``E_L = sum_i (kin_i - drift_i^2 + pot_i)``, in the order of the Pallas
+kernel.
 """
 import math
 
 import torch
 
-from . import _build, trig
-from .pbc import min_image_bounded, sign
+from . import _build, prng, trig
+from .pbc import min_image_bounded, recast_to_supercell, sign
 
-__all__ = ["PARAMS_SIZE", "energy_and_drift", "energy_and_drift_plain",
-           "pack_params"]
+__all__ = ["PARAMS_SIZE", "diffuse_energy_drift", "diffuse_energy_drift_plain",
+           "energy_and_drift", "energy_and_drift_plain", "pack_params"]
 
 #: Packed-parameter layout.  Slots 0-12 are those of the JAX package's
 #: ``pack_params``; slot 13 holds the Hamiltonian's lattice depth, which
-#: the potential uses off the defects (slot 0 is the trial orbital's).
+#: the potential uses off the defects (slot 0 is the trial orbital's);
+#: slot 14 the one-body orbital's well amplitude
+#: ``cf = sqrt(1 + v0/e0 sinh^2(sqrt(v0 - e0) z_b / 2))`` (0 for a free
+#: gas), which the log|psi| variant needs.
 PARAMS_SIZE = 16
 (P_V0, P_E0, P_K1, P_KP1, P_ZA, P_ZB, P_L, P_RM, P_K2, P_BETA, P_ROFF,
- P_AM, P_V0D, P_V0M) = range(14)
+ P_AM, P_V0D, P_V0M, P_CF) = range(15)
 
 #: Largest particle count of the kernel: one thread per particle.
 MAX_NOP = 1024
@@ -50,23 +61,32 @@ def pack_params(cfc, dtype: torch.dtype = torch.float32,
     vals = [torch.as_tensor(e, dtype=dtype, device=device).reshape(())
             for e in entries]
     vals[P_RM] = vals[P_RM].abs()
+    v0, e0, z_b = vals[P_V0], vals[P_E0], vals[P_ZB]
+    # The expression of models/mrbp.py::_one_body; 0/0 for a free gas.
+    cf = torch.sqrt(1 + v0 / e0 * torch.sinh(0.5 * torch.sqrt(v0 - e0)
+                                             * z_b) ** 2)
+    vals.append(torch.where(e0 != 0, cf, 0.0))
     vals += [torch.zeros_like(vals[0])] * (PARAMS_SIZE - len(vals))
     return torch.stack(vals)
 
 
 def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
                            nop: int, is_free: bool, is_ideal: bool,
-                           defects_sep: int = 1):
-    """Plain torch version of the kernel: ``(energy (W,), drift (W, N))``.
+                           defects_sep: int = 1, with_log_psi: bool = False):
+    """Plain torch version of the kernel: ``(energy (W,), drift (W, N))``,
+    or ``(log_psi (W,), energy, drift)`` with ``with_log_psi``.
 
     The pair block is a ``(W, N, N)`` tensor.  f32 evaluates the
-    rational tan polynomial, f64 the library sin/cos, as the JAX
-    package's XLA path does.
+    rational tan polynomial, or with ``with_log_psi`` the sin/cos
+    polynomials, f64 the library sin/cos, as the JAX package's XLA path
+    does; the log path takes one log per pair, ``p log(x)``.  The pair
+    kinetic term is ``C (1 + v^2)`` either way.
     """
     p = params
     drift = torch.zeros_like(pos)
     kin_rows = torch.zeros_like(pos)
     pot = torch.zeros_like(pos)
+    log_rows = torch.zeros_like(pos)
 
     if not is_free:
         v0, e0, k1, kp1 = p[P_V0], p[P_E0], p[P_K1], p[P_KP1]
@@ -74,9 +94,10 @@ def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
         n_cell = torch.floor(pos)
         z_cell = pos - n_cell
         in_barrier = z_a < z_cell
-        ob_ldz = torch.where(
-            in_barrier, kp1 * torch.tanh(kp1 * (z_cell - 1.0 + 0.5 * z_b)),
-            -k1 * torch.tan(k1 * (z_cell - 0.5 * z_a)))
+        arg_b = kp1 * (z_cell - 1.0 + 0.5 * z_b)
+        arg_w = k1 * (z_cell - 0.5 * z_a)
+        ob_ldz = torch.where(in_barrier, kp1 * torch.tanh(arg_b),
+                             -k1 * torch.tan(arg_w))
         ob_d2 = torch.where(in_barrier, v0 - e0, -e0)
         if defects_sep == 1:
             barrier_v = p[P_V0D].expand_as(pos)
@@ -86,6 +107,10 @@ def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
         pot = torch.where(in_barrier, barrier_v, 0.0)
         drift = ob_ldz
         kin_rows = -ob_d2 + ob_ldz * ob_ldz
+        if with_log_psi:
+            f1 = torch.where(in_barrier, torch.cosh(arg_b),
+                             p[P_CF] * torch.cos(arg_w))
+            log_rows = f1.abs().log()
 
     if not is_ideal:
         L, rm, k2 = p[P_L], p[P_RM], p[P_K2]
@@ -97,35 +122,33 @@ def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
         pref = math.pi / L
         arg = (torch.where(in_cut, k2, pref) * r
                + torch.where(in_cut, -k2 * r_off, 0.0))
-        if pos.dtype == torch.float32:
-            s, c = trig.tancot_poly32(arg)
-        else:
+        if pos.dtype != torch.float32:
             s, c = torch.sin(arg), torch.cos(arg)
+        elif with_log_psi:
+            s, c = trig.sincos_poly32(arg)
+        else:
+            s, c = trig.tancot_poly32(arg)
         v = torch.where(in_cut, s, c) / torch.where(in_cut, c, s)
         ldz = torch.where(in_cut, -k2, pref * beta) * v
         kin = torch.where(in_cut, k2 * k2, pref * pref * beta) \
             * (1.0 + v * v)
         drift = drift + torch.where(off, ldz * sign(d), 0.0).sum(dim=-1)
         kin_rows = kin_rows + torch.where(off, kin, 0.0).sum(dim=-1)
+        if with_log_psi:
+            log_f2 = torch.where(in_cut, 1.0, beta) * torch.log(
+                torch.where(in_cut, p[P_AM].abs() * c, s))
+            log_rows = log_rows + 0.5 * torch.where(off, log_f2,
+                                                    0.0).sum(dim=-1)
 
     energy = (kin_rows - drift * drift + pot).sum(dim=-1)
+    if with_log_psi:
+        return log_rows.sum(dim=-1), energy, drift
     return energy, drift
 
 
-def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
-                     nop: int, is_free: bool, is_ideal: bool,
-                     defects_sep: int = 1):
-    """Fused ``(energy (W,), drift (W, N))`` for walkers ``pos (W, N)``.
-
-    A CUDA tensor launches the kernel of ``csrc/pairwise.cu`` (f32 or
-    f64, any ``N <= 1024``); a CPU tensor runs
-    :func:`energy_and_drift_plain`.  ``params`` is :func:`pack_params`'s
-    vector in ``pos``'s dtype, on ``pos``'s device.
-    """
-    if pos.device.type == "cpu":
-        return energy_and_drift_plain(pos, params, nop=nop,
-                                      is_free=is_free, is_ideal=is_ideal,
-                                      defects_sep=defects_sep)
+def _check_params(pos: torch.Tensor, params: torch.Tensor, nop: int,
+                  defects_sep: int) -> None:
+    """The checks common to the kernels' wrappers."""
     if pos.device.type != "cuda":
         raise ValueError(f"no kernel for device {pos.device}")
     if pos.dtype not in (torch.float32, torch.float64):
@@ -141,24 +164,147 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
         raise ValueError("pos and params must be contiguous")
     if defects_sep < 1:
         raise ValueError(f"defects_sep must be positive, got {defects_sep}")
+
+
+def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
+                     nop: int, is_free: bool, is_ideal: bool,
+                     defects_sep: int = 1, with_log_psi: bool = False):
+    """Fused ``(energy (W,), drift (W, N))`` for walkers ``pos (W, N)``,
+    or ``(log_psi (W,), energy, drift)`` with ``with_log_psi``, in the
+    order of ``energy_and_drift_pallas``.
+
+    A CUDA tensor launches the kernel of ``csrc/pairwise.cu`` (f32 or
+    f64, any ``N <= 1024``, free and ideal gases included); a CPU tensor
+    runs :func:`energy_and_drift_plain`.  ``params`` is
+    :func:`pack_params`' vector in ``pos``'s dtype, on ``pos``'s device.
+    Each launch adds one to ``energy_and_drift.launch_count`` (forward)
+    or ``energy_and_drift.log_psi_launch_count`` (log|psi|).
+    """
+    if pos.device.type == "cpu":
+        return energy_and_drift_plain(pos, params, nop=nop,
+                                      is_free=is_free, is_ideal=is_ideal,
+                                      defects_sep=defects_sep,
+                                      with_log_psi=with_log_psi)
+    _check_params(pos, params, nop, defects_sep)
     num_walkers = pos.shape[0]
     energy = torch.empty(num_walkers, dtype=pos.dtype, device=pos.device)
     drift = torch.empty_like(pos)
+    log_psi = torch.empty_like(energy) if with_log_psi else None
     if num_walkers == 0:
-        return energy, drift
+        return (energy, drift) if log_psi is None else (log_psi, energy,
+                                                        drift)
     lib = _build.library()
-    launch = (lib.qmc_pair_energy_drift_f32 if pos.dtype == torch.float32
-              else lib.qmc_pair_energy_drift_f64)
+    f32 = pos.dtype == torch.float32
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
+        flags = (num_walkers, nop, int(is_free), int(is_ideal), defects_sep,
+                 stream)
+        if with_log_psi:
+            launch = (lib.qmc_pair_logpsi_energy_drift_f32 if f32
+                      else lib.qmc_pair_logpsi_energy_drift_f64)
+            _build.check(launch(pos.data_ptr(), params.data_ptr(),
+                                log_psi.data_ptr(), energy.data_ptr(),
+                                drift.data_ptr(), *flags),
+                         "pair log|psi|/energy/drift kernel")
+            energy_and_drift.log_psi_launch_count += 1
+            return log_psi, energy, drift
+        launch = (lib.qmc_pair_energy_drift_f32 if f32
+                  else lib.qmc_pair_energy_drift_f64)
         _build.check(launch(pos.data_ptr(), params.data_ptr(),
-                            energy.data_ptr(), drift.data_ptr(),
-                            num_walkers, nop, int(is_free), int(is_ideal),
-                            defects_sep, stream),
+                            energy.data_ptr(), drift.data_ptr(), *flags),
                      "pair energy/drift kernel")
     energy_and_drift.launch_count += 1
     return energy, drift
 
 
-#: Kernel launches since the last reset (set it to 0 to reset).
+#: Kernel launches since the last reset (set them to 0 to reset): the
+#: forward variant and the log|psi| variant.
 energy_and_drift.launch_count = 0
+energy_and_drift.log_psi_launch_count = 0
+
+
+# -- the fused diffusion step ------------------------------------------------
+
+def diffuse_energy_drift_plain(cpos, cdrift, cenergy, params, dt: float,
+                               sigma: float, e_ref, rng_seed: int, step: int,
+                               *, xi=None, nop: int, is_free: bool,
+                               is_ideal: bool, defects_sep: int = 1):
+    """Plain torch version of the fused diffusion kernel:
+    :func:`~phd_qmclib_torch.ops.prng.normal_plain` (unless ``xi`` is
+    given), the move, the recast, :func:`energy_and_drift_plain` and the
+    weight, in the order of the DMC step
+    (``phd_qmclib_torch.samplers.dmc.Sampling.diffuse``)."""
+    if xi is None:
+        xi = prng.normal_plain(rng_seed, step, cpos.shape, cpos.dtype,
+                               cpos.device)
+    npos = recast_to_supercell(cpos + 2.0 * cdrift * dt + sigma * xi, 0.0,
+                               params[P_L])
+    nenergy, ndrift = energy_and_drift_plain(
+        npos, params, nop=nop, is_free=is_free, is_ideal=is_ideal,
+        defects_sep=defects_sep)
+    nweight = torch.exp(-dt * (0.5 * (nenergy + cenergy) - e_ref))
+    return npos, nenergy, ndrift, nweight
+
+
+def diffuse_energy_drift(cpos, cdrift, cenergy, params, dt: float,
+                         sigma: float, e_ref, rng_seed: int, step: int, *,
+                         xi=None, nop: int, is_free: bool, is_ideal: bool,
+                         defects_sep: int = 1):
+    """One fused DMC diffusion step of the cloned parents
+    ``cpos, cdrift (W, N)``, ``cenergy (W,)``:
+    ``z' = recast(z + 2 F dt + sigma xi)``, the forward terms at ``z'``
+    and the weight ``exp(-dt ((E' + E) / 2 - e_ref))``.
+
+    ``xi`` is the Philox normal stream of
+    :func:`~phd_qmclib_torch.ops.prng.normal` for ``(rng_seed, step)``,
+    or the injected ``xi (W, N)`` (unit normals, scaled here by
+    ``sigma``).  ``e_ref`` is a 0-d tensor of ``cpos``' dtype on its
+    device.  Returns ``(npos (W, N), nenergy (W,), ndrift (W, N),
+    nweight (W,))``, as ``diffuse_energy_drift_pallas`` does.
+
+    A CUDA tensor launches the kernel of ``csrc/diffuse.cu``; a CPU
+    tensor runs :func:`diffuse_energy_drift_plain`.
+    """
+    kw = dict(nop=nop, is_free=is_free, is_ideal=is_ideal,
+              defects_sep=defects_sep)
+    if cpos.device.type == "cpu":
+        return diffuse_energy_drift_plain(cpos, cdrift, cenergy, params, dt,
+                                          sigma, e_ref, rng_seed, step,
+                                          xi=xi, **kw)
+    _check_params(cpos, params, nop, defects_sep)
+    num_walkers = cpos.shape[0]
+    inputs = [("cdrift", cdrift, cpos.shape),
+              ("cenergy", cenergy, (num_walkers,)), ("e_ref", e_ref, ())]
+    if xi is not None:
+        inputs.append(("xi", xi, cpos.shape))
+    for name, t, shape in inputs:
+        if t.shape != shape or t.dtype != cpos.dtype \
+                or t.device != cpos.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(shape)} "
+                             f"tensor in cpos' dtype on cpos' device")
+    npos = torch.empty_like(cpos)
+    ndrift = torch.empty_like(cpos)
+    nenergy = torch.empty(num_walkers, dtype=cpos.dtype, device=cpos.device)
+    nweight = torch.empty_like(nenergy)
+    if num_walkers == 0:
+        return npos, nenergy, ndrift, nweight
+    lib = _build.library()
+    launch = (lib.qmc_diffuse_energy_drift_f32
+              if cpos.dtype == torch.float32
+              else lib.qmc_diffuse_energy_drift_f64)
+    with torch.cuda.device(cpos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(launch(
+            cpos.data_ptr(), cdrift.data_ptr(), cenergy.data_ptr(),
+            params.data_ptr(), None if xi is None else xi.data_ptr(),
+            e_ref.data_ptr(), float(dt), float(sigma),
+            *prng.launch_args(rng_seed, step), npos.data_ptr(),
+            nenergy.data_ptr(), ndrift.data_ptr(), nweight.data_ptr(),
+            num_walkers, nop, int(is_free), int(is_ideal), defects_sep,
+            stream), "fused diffusion kernel")
+    diffuse_energy_drift.launch_count += 1
+    return npos, nenergy, ndrift, nweight
+
+
+#: Kernel launches since the last reset (set it to 0 to reset).
+diffuse_energy_drift.launch_count = 0

@@ -23,8 +23,8 @@ import torch
 
 from . import _build, trig
 
-__all__ = ["box_muller", "normal", "normal_plain", "philox_words",
-           "philox_words_plain"]
+__all__ = ["box_muller", "launch_args", "normal", "normal_plain",
+           "philox_words", "philox_words_plain"]
 
 _MASK32 = 0xFFFFFFFF
 #: Philox4x32 round multipliers and Weyl key increments (Salmon et al.,
@@ -138,7 +138,8 @@ def normal_plain(key: int, step: int, shape, dtype=torch.float32,
 
 # -- kernel wrappers ---------------------------------------------------------
 
-def _launch_args(key: int, step: int):
+def launch_args(key: int, step: int):
+    """``(key_lo, key_hi, step_lo, step_hi)`` as the C interface's ints."""
     return [_as_c_int(w) for w in (*_split64(key), *_split64(step))]
 
 
@@ -169,7 +170,7 @@ def normal(key: int, step: int, shape, dtype=torch.float32,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(launch(out.data_ptr(), numel,
-                            *_launch_args(key, step), stream),
+                            *launch_args(key, step), stream),
                      "Philox normals kernel")
     normal.launch_count += 1
     return out
@@ -193,6 +194,6 @@ def philox_words(key: int, step: int, num_quads: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(_build.library().qmc_philox_words(
-            out.data_ptr(), num_quads, *_launch_args(key, step), stream),
+            out.data_ptr(), num_quads, *launch_args(key, step), stream),
             "Philox words kernel")
     return out.to(torch.int64) & _MASK32

@@ -1,2 +1,3 @@
-"""Monte Carlo samplers: DMC (drift-diffusion with branching)."""
-from . import dmc  # noqa: F401
+"""Monte Carlo samplers: VMC (Metropolis chains) and DMC (drift-diffusion
+with branching)."""
+from . import dmc, vmc  # noqa: F401

@@ -47,7 +47,7 @@ import torch
 
 from .. import utils
 from ..models import mrbp
-from ..ops import histogram, prng
+from ..ops import histogram, pairwise, prng
 
 __all__ = [
     "DensityEstSpec",
@@ -171,9 +171,11 @@ class _Branch(t.NamedTuple):
     valid: torch.Tensor   # (Wm,) bool
 
 
-class _EstConsts(t.NamedTuple):
-    """What a run's estimators need on the device, made once per run."""
+class _Consts(t.NamedTuple):
+    """What a run's steps and estimators need on the device, made once
+    per run."""
     cfc: mrbp.CFCParams
+    params: torch.Tensor  # pairwise.pack_params(cfc), the kernels' vector
     density_bin_size: t.Optional[torch.Tensor]  # 0-d
     obd_offsets: t.Optional[torch.Tensor]       # (num_pos,)
 
@@ -231,12 +233,6 @@ def aux_from_numpy(aux_carry: dict,
     :meth:`Sampling.replay_estimators` to continue a JAX window."""
     return {name: torch.tensor(np.asarray(value), device=device)
             for name, value in aux_carry.items()}
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
 @dataclass(frozen=True)
@@ -415,7 +411,7 @@ class Sampling:
         return {name: torch.zeros(shape, dtype=dtype, device=device)
                 for name, shape in self._pure_aux_shapes().items()}
 
-    def _est_consts(self, dtype, device) -> _EstConsts:
+    def _consts(self, dtype, device) -> _Consts:
         cfc = self._cast_params(dtype, device)
         bin_size = offsets = None
         if self.density_est_spec is not None:
@@ -425,7 +421,8 @@ class Sampling:
         if self.obd_est_spec is not None:
             offsets = torch.as_tensor(self.obd_pos_offsets, dtype=dtype,
                                       device=device)
-        return _EstConsts(cfc, bin_size, offsets)
+        return _Consts(cfc, pairwise.pack_params(cfc, dtype, device),
+                       bin_size, offsets)
 
     # -- state construction ---------------------------------------------------
 
@@ -457,7 +454,7 @@ class Sampling:
         if dtype is None:
             dtype = pos_set.dtype if np.issubdtype(
                 pos_set.dtype, np.floating) else np.float64
-        dtype = _torch_dtype(dtype)
+        dtype = utils.torch_dtype(dtype)
 
         pos = torch.zeros((max_w, nop), dtype=dtype, device=device)
         pos[:num] = torch.as_tensor(pos_set, dtype=dtype, device=device)
@@ -490,8 +487,7 @@ class Sampling:
     # -- the step -------------------------------------------------------------
 
     def _step(self, state: State, e_prev_slots: t.Optional[torch.Tensor],
-              comb_u: torch.Tensor, xi: torch.Tensor,
-              cfc: mrbp.CFCParams):
+              comb_u: torch.Tensor, xi: torch.Tensor, consts: _Consts):
         """One time step with the comb uniforms ``comb_u (Wm,)`` and the
         pre-scaled diffusion noise ``xi (Wm, N)``.
 
@@ -528,15 +524,8 @@ class Sampling:
         new_ref = accum_energy - nwc * torch.log(
             torch.clamp(state_weight, min=1.0) / target) / dt
 
-        # 4) Diffuse the children with the PREVIOUS E_ref.
-        npos = mrbp.recast(cpos + 2.0 * cdrift * dt + xi, cfc)
-        cmd_accum = state.cmd_accum
-        if cmd_accum is not None:
-            cmd_accum = cmd_accum[parent] \
-                + (2.0 * cdrift * dt + xi).mean(dim=-1)
-
-        # 5) Fused energy and drift, and the branching weight.
-        nenergy, ndrift = self.core_funcs.energy_and_drift(npos, cfc)
+        # 4) Diffuse the children with the PREVIOUS E_ref: move, energy
+        #    and drift, and the branching weight.
         if e_prev_slots is not None:
             # Only live slots are written: a slot that goes dead and
             # later revives sees its stale energy.
@@ -544,9 +533,14 @@ class Sampling:
             e_prev_slots = torch.where(valid, cenergy, e_prev_slots)
         else:
             e_prev = cenergy
-        nweight = torch.exp(
-            -dt * (0.5 * (nenergy + e_prev) - state.ref_energy))
+        npos, nenergy, ndrift, nweight = self.diffuse(
+            cpos, cdrift, e_prev, xi, state.ref_energy, consts.cfc,
+            consts.params)
         nweight = torch.where(valid, nweight, 0.0)
+        cmd_accum = state.cmd_accum
+        if cmd_accum is not None:
+            cmd_accum = cmd_accum[parent] \
+                + (2.0 * cdrift * dt + xi).mean(dim=-1)
 
         new_state = State(
             pos=npos, drift=ndrift, energies=nenergy, weights=nweight,
@@ -556,7 +550,26 @@ class Sampling:
             cmd_accum=cmd_accum)
         return new_state, e_prev_slots, _Branch(parent, cpos, valid)
 
-    def _estimate(self, consts: _EstConsts, aux: dict,
+    def diffuse(self, cpos: torch.Tensor, cdrift: torch.Tensor,
+                e_prev: torch.Tensor, xi: torch.Tensor,
+                ref_energy: torch.Tensor, cfc: mrbp.CFCParams,
+                params: t.Optional[torch.Tensor] = None):
+        """The step's diffusion of the children ``cpos, cdrift (W, N)``
+        with the pre-scaled noise ``xi``: the move and recast, the fused
+        energy and drift at the new positions, and the weight
+        ``exp(-dt ((E' + e_prev) / 2 - ref_energy))``.  Returns
+        ``(npos, nenergy, ndrift, nweight)``, the outputs of
+        :func:`phd_qmclib_torch.ops.pairwise.diffuse_energy_drift`, which
+        fuses the same sequence in one kernel.  ``params`` is
+        ``pairwise.pack_params(cfc)`` when the caller packed it once.
+        """
+        dt = self.time_step
+        npos = mrbp.recast(cpos + 2.0 * cdrift * dt + xi, cfc)
+        nenergy, ndrift = self.core_funcs.energy_and_drift(npos, cfc, params)
+        nweight = torch.exp(-dt * (0.5 * (nenergy + e_prev) - ref_energy))
+        return npos, nenergy, ndrift, nweight
+
+    def _estimate(self, consts: _Consts, aux: dict,
                   perm: t.Optional[torch.Tensor], branch: _Branch,
                   cmd_accum: t.Optional[torch.Tensor], step_idx: int):
         """The estimators of one measured step.
@@ -621,7 +634,7 @@ class Sampling:
                                       masked_sum(cmd_accum)])
         return aux, est
 
-    def _run(self, state: State, draws, consts: _EstConsts,
+    def _run(self, state: State, draws, consts: _Consts,
              measuring: bool, aux: t.Optional[dict], step_offset: int):
         """Step through ``draws``, an iterable of ``(comb_u, xi)``.
 
@@ -638,7 +651,7 @@ class Sampling:
         props, est = [], {}
         for step, (comb_u, xi) in enumerate(draws):
             state, e_prev_slots, branch = self._step(
-                state, e_prev_slots, comb_u, xi, consts.cfc)
+                state, e_prev_slots, comb_u, xi, consts)
             props.append((state.energy, state.weight, state.num_walkers,
                           state.ref_energy, state.accum_energy))
             if not measuring:
@@ -655,18 +668,13 @@ class Sampling:
                 est.setdefault(name, []).append(row)
         return state, aux, props, est
 
-    def _block_seed(self, block_index: int) -> int:
-        """Seed of the comb-uniform stream of one block."""
-        ss = np.random.SeedSequence([self.rng_seed, block_index])
-        return int(ss.generate_state(1, dtype=np.uint64)[0])
-
     def _block_draws(self, block_index: int, num_time_steps_block: int,
                      state: State):
         """The comb uniforms and diffusion noise of one block, drawn on
         the state's device as the steps consume them."""
         dtype, device = state.pos.dtype, state.pos.device
         gen = torch.Generator(device=device)
-        gen.manual_seed(self._block_seed(block_index))
+        gen.manual_seed(utils.block_seed(self.rng_seed, block_index))
         sigma = self.sigma_spread
         for step in range(num_time_steps_block):
             comb_u = torch.rand(state.weights.shape, generator=gen,
@@ -701,7 +709,7 @@ class Sampling:
             state = state._replace(cmd_accum=torch.zeros(
                 state.pos.shape[0], dtype=dtype, device=device))
         nts = num_time_steps_block
-        consts = self._est_consts(dtype, device)
+        consts = self._consts(dtype, device)
         window = self.pfw_window_blocks(nts)
         cmd_window = self.cm_window_blocks
         aux = None
@@ -750,7 +758,7 @@ class Sampling:
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
         comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
         xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
-        cfc = self._cast_params(dtype, device)
+        consts = self._consts(dtype, device)
         state = ini_state
         e_prev_slots = ini_state.energies if self.ref_compat else None
         out = {name: [] for name in (
@@ -758,7 +766,7 @@ class Sampling:
             "accum_energy", "pos", "energies", "weights", "parent")}
         for step in range(comb_u.shape[0]):
             state, e_prev_slots, branch = self._step(
-                state, e_prev_slots, comb_u[step], xi[step], cfc)
+                state, e_prev_slots, comb_u[step], xi[step], consts)
             for name in out:
                 out[name].append(branch.parent if name == "parent"
                                  else getattr(state, name))
@@ -787,6 +795,6 @@ class Sampling:
             aux = {name: torch.as_tensor(aux_in[name], dtype=dtype,
                                          device=device) for name in aux}
         _, aux, _, est = self._run(ini_state, zip(comb_u, xi),
-                                   self._est_consts(dtype, device), True,
+                                   self._consts(dtype, device), True,
                                    aux, step_offset)
         return {name: torch.stack(rows) for name, rows in est.items()}, aux

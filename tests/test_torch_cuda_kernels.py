@@ -15,7 +15,7 @@ import torch
 
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import histogram, pairwise, prng
-from phd_qmclib_torch.samplers import dmc
+from phd_qmclib_torch.samplers import dmc, vmc
 
 pytestmark = pytest.mark.cuda
 
@@ -230,3 +230,164 @@ def test_dmc_estimators_on_the_card_match_the_cpu_replay(cuda):
     for name, acc in aux_cpu.items():
         torch.testing.assert_close(aux_card[name].cpu(), acc, rtol=1e-9,
                                    atol=1e-9)
+
+
+def _logpsi_spec(nop, kind):
+    kwargs = dict(BENCH, boson_number=nop, supercell_size=float(nop))
+    if kind == "free":
+        kwargs.update(lattice_depth=0.0)
+    elif kind == "ideal":
+        kwargs.update(interaction_strength=0.0)
+    elif kind == "defected":
+        kwargs.update(num_defects={1: 1, 33: 3}.get(nop, 8),
+                      defect_magnitude=10.0)
+    return mrbp.Spec(**kwargs)
+
+
+@pytest.mark.parametrize("dtype,rtol_lp,rtol_e,rtol_d,atol_d", [
+    # f32: per-particle sums of up to 1023 pair terms in another order,
+    # and fma contraction in the kernel.
+    (torch.float32, 1e-5, 2e-5, 1e-3, 1e-4),
+    (torch.float64, 1e-10, 1e-10, 1e-10, 1e-10),
+])
+@pytest.mark.parametrize("kind", ["bench", "free", "ideal", "defected"])
+@pytest.mark.parametrize("nop", [1, 33, 64, 128, 1024])
+def test_log_psi_kernel_matches_plain(cuda, nop, kind, dtype, rtol_lp,
+                                      rtol_e, rtol_d, atol_d):
+    spec = _logpsi_spec(nop, kind)
+    static = spec.static_spec
+    num_walkers = 8 if nop == 1024 else 256
+    pos = torch.as_tensor(np.random.default_rng(nop).uniform(
+        0, spec.supercell_size, (num_walkers, nop)), dtype=dtype,
+        device=cuda)
+    params = pairwise.pack_params(spec.cfc_params, dtype, cuda)
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    count = pairwise.energy_and_drift.log_psi_launch_count
+    lp, energy, drift = pairwise.energy_and_drift(pos, params,
+                                                  with_log_psi=True, **kw)
+    torch.cuda.synchronize()
+    assert pairwise.energy_and_drift.log_psi_launch_count == count + 1
+    lp_p, energy_p, drift_p = pairwise.energy_and_drift_plain(
+        pos, params, with_log_psi=True, **kw)
+    torch.testing.assert_close(lp, lp_p, rtol=rtol_lp, atol=rtol_lp)
+    torch.testing.assert_close(energy, energy_p, rtol=rtol_e, atol=rtol_e)
+    torch.testing.assert_close(drift, drift_p, rtol=rtol_d, atol=atol_d)
+    if dtype == torch.float64:
+        # The forward variant's energy and drift, bit for bit.
+        energy_f, drift_f = pairwise.energy_and_drift(pos, params, **kw)
+        assert torch.equal(energy_f, energy) and torch.equal(drift_f, drift)
+
+
+def _diffuse_inputs(nop, num_walkers, dtype, device, seed=0):
+    spec = mrbp.Spec(**dict(BENCH, boson_number=nop,
+                            supercell_size=float(nop)))
+    static = spec.static_spec
+    rng = np.random.default_rng(seed)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    cpos = t(rng.uniform(0, nop, (num_walkers, nop)))
+    params = pairwise.pack_params(spec.cfc_params, dtype, device)
+    energy, drift = pairwise.energy_and_drift(cpos, params, nop=nop,
+                                              is_free=False, is_ideal=False)
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    return dict(cpos=cpos, cdrift=drift, cenergy=energy, params=params,
+                dt=1e-3, sigma=float(np.sqrt(2e-3)),
+                e_ref=t(8.4 * nop), rng_seed=0x1234_5678_9ABC,
+                step=(1 << 33) + 7), t(rng.standard_normal(
+                    (num_walkers, nop))), kw
+
+
+def _min_image_err(a, b, sc):
+    d = a - b
+    return (d - sc * torch.round(d / sc)).abs().max().item()
+
+
+def _step_diffuse(args, nop, xi=None):
+    """The DMC step's own diffusion (``dmc.Sampling.diffuse``) on the
+    fused kernel's inputs: K2's noise (or ``xi``) pre-scaled by sigma,
+    then the torch move and recast, K1 and the weight."""
+    cpos = args["cpos"]
+    spec = mrbp.Spec(**dict(BENCH, boson_number=nop,
+                            supercell_size=float(nop)))
+    sampling = dmc.Sampling(spec, time_step=args["dt"],
+                            max_num_walkers=cpos.shape[0],
+                            target_num_walkers=cpos.shape[0],
+                            rng_seed=args["rng_seed"])
+    assert sampling.sigma_spread == args["sigma"]
+    if xi is None:
+        xi = prng.normal(args["rng_seed"], args["step"], cpos.shape,
+                         cpos.dtype, cpos.device)
+    return sampling.diffuse(
+        cpos, args["cdrift"], args["cenergy"], sampling.sigma_spread * xi,
+        args["e_ref"], mrbp.cast_params(spec.cfc_params, cpos.dtype,
+                                        cpos.device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop,num_walkers", [(128, 512), (13, 77),
+                                             (33, 64), (2, 5)])
+def test_diffuse_kernel_matches_plain(cuda, nop, num_walkers, dtype):
+    """The fused diffusion kernel against its plain version (same key)
+    and against the DMC step's own diffusion (K2, torch ops, K1), N not
+    a multiple of 4 included: equal moved positions with the normals
+    kernel's stream and with injected xi."""
+    args, xi, kw = _diffuse_inputs(nop, num_walkers, dtype, cuda)
+    count = pairwise.diffuse_energy_drift.launch_count
+    fused = pairwise.diffuse_energy_drift(**args, **kw)
+    torch.cuda.synchronize()
+    assert pairwise.diffuse_energy_drift.launch_count == count + 1
+    unfused = _step_diffuse(args, nop)
+    plain = pairwise.diffuse_energy_drift_plain(**args, **kw)
+    assert torch.equal(fused[0], unfused[0])
+    assert _min_image_err(fused[0], plain[0], float(nop)) < 1e-4
+    rtol = 2e-5 if dtype == torch.float32 else 1e-10
+    for got, want in zip(fused[1:], unfused[1:]):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=rtol)
+    injected = pairwise.diffuse_energy_drift(**args, xi=xi, **kw)
+    injected_unfused = _step_diffuse(args, nop, xi)
+    injected_plain = pairwise.diffuse_energy_drift_plain(**args, xi=xi,
+                                                         **kw)
+    assert torch.equal(injected[0], injected_unfused[0])
+    assert torch.equal(injected[0], injected_plain[0])
+    for got, want in zip(injected[1:], injected_plain[1:]):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=rtol)
+
+
+def test_diffuse_kernel_rejects_bad_inputs(cuda):
+    args, xi, kw = _diffuse_inputs(16, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="e_ref"):
+        pairwise.diffuse_energy_drift(**dict(args, e_ref=args["e_ref"].cpu()),
+                                      **kw)
+    with pytest.raises(ValueError, match="xi"):
+        pairwise.diffuse_energy_drift(**args, xi=xi[:, :8].contiguous(),
+                                      **kw)
+
+
+@pytest.mark.parametrize("gaussian", [False, True],
+                         ids=["uniform", "gaussian"])
+def test_vmc_on_the_card_matches_the_cpu_replay(cuda, gaussian):
+    """The Metropolis chains with the log|psi| kernel on the card
+    against the same replay on the CPU, f64, on injected draws."""
+    spec = mrbp.Spec(**dict(BENCH, boson_number=16, supercell_size=16.0,
+                            num_defects=4, defect_magnitude=10.0))
+    spread = 0.15 if gaussian else 0.4
+    sampling = vmc.Sampling(spec, move_spread=spread, rng_seed=3,
+                            num_walkers=64, gaussian=gaussian)
+    rng = np.random.default_rng(1)
+    confs = rng.uniform(0, 16.0, (64, 16))
+    moves = (spread * rng.standard_normal((10, 64, 16)) if gaussian
+             else rng.random((10, 64, 16)))
+    accept_u = rng.random((10, 64))
+    on_cpu = sampling.replay_chain(sampling.build_state(confs), moves,
+                                   accept_u)
+    count = pairwise.energy_and_drift.log_psi_launch_count
+    on_card = sampling.replay_chain(sampling.build_state(confs, device=cuda),
+                                    moves, accept_u)
+    assert pairwise.energy_and_drift.log_psi_launch_count == count + 11
+    assert torch.equal(on_card[2].cpu(), on_cpu[2])
+    for got, want in zip(on_card[:2], on_cpu[:2]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)

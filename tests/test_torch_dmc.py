@@ -129,6 +129,27 @@ def test_blocks_run_on_cpu():
     assert not torch.equal(shifted.last_state.pos, first.last_state.pos)
 
 
+def test_a_run_packs_the_kernel_parameters_once(monkeypatch):
+    """The steps take the packed parameter vector from the run's
+    constants: one ``pack_params`` per block run and per replay, none
+    per step."""
+    from phd_qmclib_torch.ops import pairwise
+    sampling = tdmc.Sampling(tmrbp.Spec(**SPEC), **SAMPLING)
+    state = sampling.build_state(_confs(48))
+    packs = []
+    pack_params = pairwise.pack_params
+    monkeypatch.setattr(pairwise, "pack_params",
+                        lambda *a: packs.append(1) or pack_params(*a))
+    blocks = sampling.blocks(state, num_time_steps_block=8)
+    next(blocks)
+    next(blocks)
+    assert len(packs) == 1
+    rng = np.random.default_rng(2)
+    sampling.replay_states(state, rng.random((4, 64)),
+                           1e-2 * rng.standard_normal((4, 64, 16)))
+    assert len(packs) == 2
+
+
 def test_state_from_numpy_rejects_sharded_states():
     jsampling = jdmc.Sampling(jmrbp.Spec(**SPEC), **SAMPLING)
     jstate = jsampling.build_state(_confs(48))
