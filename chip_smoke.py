@@ -54,11 +54,15 @@ J. the fused diffusion kernel (K3) against its plain version and the
    torch ops, K1) at 17408 x 128 f32: its noise is K2's bit for bit;
 E. each kernel's time against its plain version at the main path's
    shapes, alternating plain, kernel, kernel, plain (K3 also against the
-   step's own diffusion).
+   step's own diffusion), beside its bound: the larger of its flops over
+   the FP32 peak and its bytes over the HBM rate, counted from the
+   shapes; K2 also beside ``torch.randn`` (another stream).
 
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-V1 and V2; K3 lies on none of them (the DMC step keeps its own
-sequence, as in the JAX package), and its count there must stay 0.
+V1 and V2, in all and per step of each run; K1 must run on every DMC
+step and K1 log on every VMC step.  K3 lies on none of them (the DMC
+step keeps its own sequence, as in the JAX package), and its count
+there must stay 0.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -135,6 +139,27 @@ VMC_ACCEPT_REF, VMC_ACCEPT_TOL = 0.23790, 0.0019
 #: (the JAX package's own Pallas-vs-XLA test allows 1e-5); the energy
 #: and drift as for the forward variant.
 K1_LOG_F32_TOL = dict(K1_F32_TOL, log_psi_rtol=1e-5, log_psi_atol=1e-4)
+
+#: The least time of a kernel (``bound``): published peaks of one H100
+#: SXM at its 700 W limit (NVIDIA's data sheet): FP32 outside the tensor
+#: cores, and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+#: Flops per unit of work, as the CUDA sources count them (fma = 2, a
+#: MUFU op = 1; compares, selects and integer ops not counted, so each
+#: bound stays a least time): K1 per unordered pair, forward and log|psi|
+#: (``csrc/pair_terms.cuh::walker_terms``; the O(N) one-body terms and
+#: reductions left out); one Box-Muller per pair of normals
+#: (``csrc/philox.cuh::box_muller``: ~40 flops, 20 per normal; the
+#: Philox rounds are integer ops); K4 per element (the floor division of
+#: ``csrc/histogram.cu``: fmod, subtract, divide, floor); K3 per element
+#: its move (4) and the Box-Muller of its element's pair, which each
+#: thread recomputes (40), per unordered pair K1's.
+K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
+K2_FLOPS_PER_NORMAL = 20
+K4_FLOPS_PER_ELEMENT = 4
+K3_FLOPS_PER_ELEMENT = 44
+F32_BYTES = 4
 
 #: Phase G's estimator loads.
 G1_ESTIMATORS = dict(
@@ -285,7 +310,8 @@ def check_replay(device) -> None:
     confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
     comb_u = rng.random((10, 64))
     xi = sampling.sigma_spread * rng.standard_normal((10, 64, 16))
-    on_cpu = sampling.replay_states(sampling.build_state(confs), comb_u, xi)
+    on_cpu = sampling.replay_states(
+        sampling.build_state(confs, device="cpu"), comb_u, xi)
     on_card = sampling.replay_states(
         sampling.build_state(confs, device=device), comb_u, xi)
     require(torch.equal(on_card["parent"].cpu(), on_cpu["parent"]),
@@ -437,8 +463,8 @@ def check_estimator_replay(device) -> None:
     confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
     comb_u = rng.random((12, 64))
     xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
-    on_cpu, _ = sampling.replay_estimators(sampling.build_state(confs),
-                                           comb_u, xi)
+    on_cpu, _ = sampling.replay_estimators(
+        sampling.build_state(confs, device="cpu"), comb_u, xi)
     on_card, _ = sampling.replay_estimators(
         sampling.build_state(confs, device=device), comb_u, xi)
     errs = {}
@@ -606,8 +632,8 @@ def check_vmc_replay(device) -> None:
         moves = (spread * rng.standard_normal((10, 64, 16)) if gaussian
                  else rng.random((10, 64, 16)))
         accept_u = rng.random((10, 64))
-        on_cpu = sampling.replay_chain(sampling.build_state(confs), moves,
-                                       accept_u)
+        on_cpu = sampling.replay_chain(
+            sampling.build_state(confs, device="cpu"), moves, accept_u)
         on_card = sampling.replay_chain(
             sampling.build_state(confs, device=device), moves, accept_u)
         require(torch.equal(on_card[2].cpu(), on_cpu[2]),
@@ -697,6 +723,7 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
           launches=launches, ok=True)
     return {"energy_per_boson": e_per_n, "accept_rate": accept,
             "chain_steps_per_s": rate, "launches": launches,
+            "steps_run": steps_run,
             "protocol": dict(move_spread=sampling.move_spread,
                              ssf_modes=getattr(sampling.ssf_est_spec,
                                                "num_modes", None),
@@ -705,8 +732,8 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
                              steps_per_block=NTS)}
 
 
-def run_vmc_bench(device, card: str) -> dict:
-    """Phase V1; returns the launch counts."""
+def run_vmc_bench(device, card: str):
+    """Phase V1; returns the launch counts and the steps run."""
     protocol = VMC_BAND_PROTOCOL
     sampling = vmc.Sampling(
         mrbp.Spec(**VMC_SPEC), move_spread=protocol["move_spread"],
@@ -729,11 +756,11 @@ def run_vmc_bench(device, card: str) -> dict:
           energy_ref=VMC_ENERGY_REF, energy_dev=e_per_n - VMC_ENERGY_REF,
           accept_rate=accept, accept_ref=VMC_ACCEPT_REF,
           accept_dev=accept - VMC_ACCEPT_REF, protocol=protocol, ok=True)
-    return out["launches"]
+    return out["launches"], out["steps_run"]
 
 
-def run_vmc_example(device, card: str) -> dict:
-    """Phase V2; returns the launch counts."""
+def run_vmc_example(device, card: str):
+    """Phase V2; returns the launch counts and the steps run."""
     spec = mrbp.Spec(**VMC_SPEC)
     sampling = vmc.Sampling(
         spec, move_spread=0.25, rng_seed=7, num_walkers=VMC_CHAINS,
@@ -741,7 +768,7 @@ def run_vmc_example(device, card: str) -> dict:
         obd_est_spec=vmc.OBDEstSpec(num_pos=32, est_every_mult=8))
     conf = spec.init_get_sys_conf(dist_type=mrbp.DIST_REGULAR)
     out = run_vmc(device, card, "V2", sampling, conf, 1)
-    return out["launches"]
+    return out["launches"], out["steps_run"]
 
 
 def diffuse_inputs(device):
@@ -816,8 +843,38 @@ def check_k3(device) -> float:
     return errs["nenergy_vs_plain"]
 
 
+def bound(flops: float, num_bytes: float) -> dict:
+    """The least time the card could take: the larger of the flops over
+    the FP32 peak and the bytes (each input read once, each output
+    written once) over the HBM rate."""
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = num_bytes / PEAK_HBM_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return {"bound_ms": ops_ms, "bound_by": "operations",
+                "bound_resource": "fp32"}
+    return {"bound_ms": bytes_ms, "bound_by": "bytes",
+            "bound_resource": "hbm"}
+
+
+def k1_bound(walkers: int, nop: int, log_psi: bool) -> dict:
+    """K1's bound: its unordered pairs' flops; positions and parameters
+    in, drift, energy (and log|psi|) out."""
+    pairs = walkers * nop * (nop - 1) // 2
+    flops = pairs * (K1_LOG_FLOPS_PER_PAIR if log_psi else K1_FLOPS_PER_PAIR)
+    values = (2 * walkers * nop + (2 if log_psi else 1) * walkers
+              + pairwise.PARAMS_SIZE)
+    return bound(flops, F32_BYTES * values)
+
+
+def k4_bound(rows: int, row_len: int, num_bins: int) -> dict:
+    """K4's bound: the rows in, the counts out."""
+    return bound(rows * row_len * K4_FLOPS_PER_ELEMENT,
+                 F32_BYTES * (rows * row_len + rows * num_bins + 1))
+
+
 def time_kernels(device, card: str) -> dict:
-    """Phase E: kernel vs plain at the main path's shapes, in turns."""
+    """Phase E: kernel vs plain at the main path's shapes, in turns, each
+    beside its bound; K2 also beside ``torch.randn``."""
     pos, params, kw = pair_inputs(BENCH_SPEC, MAX_WALKERS, torch.float32,
                                   device)
     shape = (MAX_WALKERS, NOP)
@@ -828,50 +885,73 @@ def time_kernels(device, card: str) -> dict:
     vpos, vparams, vkw = pair_inputs(VMC_SPEC, VMC_CHAINS, torch.float32,
                                      device)
     dargs, dkw, dstep = diffuse_inputs(device)
+    walkers, numel = MAX_WALKERS, MAX_WALKERS * NOP
+    pairs = walkers * NOP * (NOP - 1) // 2
+    k3_bound = bound(pairs * K1_FLOPS_PER_PAIR + numel * K3_FLOPS_PER_ELEMENT,
+                     F32_BYTES * (4 * numel + 3 * walkers
+                                  + pairwise.PARAMS_SIZE + 1))
     cases = {
         "K1": (lambda: pairwise.energy_and_drift_plain(pos, params, **kw),
                lambda: pairwise.energy_and_drift(pos, params, **kw),
-               5, 50),
+               5, 50, k1_bound(walkers, NOP, False)),
         "K2": (lambda: prng.normal_plain(1, 7, shape, torch.float32,
                                          device),
                lambda: prng.normal(1, 7, shape, torch.float32, device),
-               20, 500),
+               20, 500, bound(numel * K2_FLOPS_PER_NORMAL,
+                              F32_BYTES * numel)),
         "K4": (lambda: histogram.walker_histogram_plain(density, unit, NOP),
                lambda: histogram.walker_histogram(density, unit, NOP),
-               20, 500),
+               20, 500, k4_bound(walkers, NOP, NOP)),
         "K4 g2": (lambda: histogram.walker_histogram_plain(distances, half,
                                                            NOP),
                   lambda: histogram.walker_histogram(distances, half, NOP),
-                  5, 50),
+                  5, 50, k4_bound(numel, NOP, NOP)),
         "K1 log": (lambda: pairwise.energy_and_drift_plain(
                        vpos, vparams, with_log_psi=True, **vkw),
                    lambda: pairwise.energy_and_drift(
-                       vpos, vparams, with_log_psi=True, **vkw), 5, 100),
+                       vpos, vparams, with_log_psi=True, **vkw), 5, 100,
+                   k1_bound(VMC_CHAINS, VMC_NOP, True)),
         "K1 log dmc shape": (lambda: pairwise.energy_and_drift_plain(
                                  pos, params, with_log_psi=True, **kw),
                              lambda: pairwise.energy_and_drift(
                                  pos, params, with_log_psi=True, **kw),
-                             5, 50),
+                             5, 50, k1_bound(walkers, NOP, True)),
         "K3": (lambda: pairwise.diffuse_energy_drift_plain(**dargs, **dkw),
                lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
-               5, 50),
+               5, 50, k3_bound),
         "K3 vs step": (
             dstep, lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
-            50, 50),
+            50, 50, {}),
     }
     shapes = {"K4 g2": list(distances.shape), "K1 log": list(vpos.shape)}
     times = {}
-    for name, (plain, kernel, plain_reps, kernel_reps) in cases.items():
+    for name, (plain, kernel, plain_reps, kernel_reps, least) in \
+            cases.items():
         p1 = cuda_ms(plain, plain_reps)
         k1 = cuda_ms(kernel, kernel_reps)
         k2 = cuda_ms(kernel, kernel_reps)
         p2 = cuda_ms(plain, plain_reps)
-        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+        times[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                       **least}
+        share = ({"bound_share": least["bound_ms"] / times[name]["ms"]}
+                 if least else {})
         phase("E", kernel=name, card=card,
               shape=shapes.get(name, list(shape)),
               **{"step_ms" if name == "K3 vs step" else "plain_ms":
                  [p1, p2]}, kernel_ms=[k1, k2],
-              speedup=(p1 + p2) / (k1 + k2), ok=True)
+              speedup=(p1 + p2) / (k1 + k2), **least, **share, ok=True)
+    # K2's yardstick: torch.randn draws standard normals of the same shape
+    # on a CUDA generator, but from another stream (the generator's own
+    # Philox offsets, not (seed, step)): timed, never used by the port.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    library = [cuda_ms(lambda: torch.randn(shape, device=device,
+                                           generator=gen), 500)
+               for _ in range(2)]
+    times["K2"]["library_ms"] = sum(library) / 2
+    phase("E", kernel="K2 yardstick", card=card, shape=list(shape),
+          library_call="torch.randn, another stream", library_ms=library,
+          ok=True)
     return times
 
 
@@ -901,58 +981,66 @@ def main() -> None:
     err_k2 = check_k2(device)  # C
     check_replay(device)  # D
     dmc_launches, state, baseline = run_dmc(device, smi)  # D
-    runs = [dmc_launches]
+    # Each run's launch counts and the steps it ran.
+    runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS)}
     err_k4 = check_k4(device)  # F
     check_estimator_replay(device)  # G
-    runs += [run_estimators(device, smi, state, label, estimators,
-                            BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline)
-             for i, (label, estimators) in enumerate(
-                 (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS)))]
+    for i, (label, estimators) in enumerate(
+            (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS))):
+        runs[label] = (run_estimators(
+            device, smi, state, label, estimators,
+            BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline),
+            TIMED_BLOCKS * NTS)
     err_k1_log = check_k1_log(device)  # H
     check_vmc_replay(device)  # I
-    runs.append(run_vmc_bench(device, smi))  # V1
-    runs.append(run_vmc_example(device, smi))  # V2
+    runs["V1"] = run_vmc_bench(device, smi)
+    runs["V2"] = run_vmc_example(device, smi)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
     # The main path's launches: each run of D, G1, G2, V1 and V2 counts
     # from 0.  K3 lies on no path (the DMC step keeps its own sequence,
     # as in the JAX package): none of those runs may have launched it.
-    launches = {name: sum(run[name] for run in runs) for name in COUNTERS}
+    launches = {name: sum(counts[name] for counts, _ in runs.values())
+                for name in COUNTERS}
+    per_step = {name: {label: counts[name] / steps
+                       for label, (counts, steps) in runs.items()
+                       if counts[name]}
+                for name in COUNTERS}
     require(all(launches[name] > 0 for name in ("K1", "K1 log", "K2", "K4")),
             f"every kernel of the main path launched: {launches}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
+    require(all(per_step["K1"].get(label, 0) >= 1
+                for label in ("D", "G1", "G2"))
+            and all(per_step["K1 log"].get(label, 0) >= 1
+                    for label in ("V1", "V2")),
+            f"K1 on every DMC step and K1 log on every VMC step: {per_step}")
 
+    def row(name, key, source, replaces, err, **extra):
+        # No single PyTorch call computes K1, K3 or K4: library_ms null.
+        return {"name": name, "route": "cuda",
+                "source": f"phd_qmclib_torch/csrc/{source}",
+                "replaces": f"phd_qmclib_tpu/ops/{replaces}",
+                "launches": launches[key],
+                "launches_per_step": per_step[key], "max_abs_err": err,
+                "library_ms": None, **times[key], **extra}
+
+    log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
     kernels = [
-        {"name": "pair_energy_drift", "route": "cuda",
-         "source": "phd_qmclib_torch/csrc/pairwise.cu",
-         "replaces": "phd_qmclib_tpu/ops/pairwise.py:84",
-         "launches": launches["K1"], "max_abs_err": err_k1,
-         **times["K1"]},
-        {"name": "pair_logpsi_energy_drift", "route": "cuda",
-         "source": "phd_qmclib_torch/csrc/pairwise.cu",
-         "replaces": "phd_qmclib_tpu/ops/pairwise.py:84",
-         "launches": launches["K1 log"], "max_abs_err": err_k1_log,
-         **times["K1 log"],
-         "dmc_shape_ms": times["K1 log dmc shape"]["ms"],
-         "dmc_shape_plain_ms": times["K1 log dmc shape"]["plain_ms"]},
-        {"name": "philox_normals", "route": "cuda",
-         "source": "phd_qmclib_torch/csrc/prng.cu",
-         "replaces": "phd_qmclib_tpu/ops/prng.py:64",
-         "launches": launches["K2"], "max_abs_err": err_k2,
-         **times["K2"]},
-        {"name": "walker_histogram", "route": "cuda",
-         "source": "phd_qmclib_torch/csrc/histogram.cu",
-         "replaces": "phd_qmclib_tpu/ops/histogram.py:81",
-         "launches": launches["K4"], "max_abs_err": err_k4,
-         **times["K4"], "g2_ms": times["K4 g2"]["ms"],
-         "g2_plain_ms": times["K4 g2"]["plain_ms"]},
-        {"name": "diffuse_energy_drift", "route": "cuda",
-         "source": "phd_qmclib_torch/csrc/diffuse.cu",
-         "replaces": "phd_qmclib_tpu/ops/pairwise.py:210",
-         "launches": launches["K3"], "on_main_path": False,
-         "max_abs_err": err_k3, **times["K3"],
-         "step_ms": times["K3 vs step"]["plain_ms"]},
+        row("pair_energy_drift", "K1", "pairwise.cu", "pairwise.py:84",
+            err_k1),
+        row("pair_logpsi_energy_drift", "K1 log", "pairwise.cu",
+            "pairwise.py:84", err_k1_log, dmc_shape_ms=log_dmc["ms"],
+            dmc_shape_plain_ms=log_dmc["plain_ms"],
+            dmc_shape_bound_ms=log_dmc["bound_ms"]),
+        row("philox_normals", "K2", "prng.cu", "prng.py:64", err_k2,
+            library_call="torch.randn, another stream"),
+        row("walker_histogram", "K4", "histogram.cu", "histogram.py:81",
+            err_k4, g2_ms=g2["ms"], g2_plain_ms=g2["plain_ms"],
+            g2_bound_ms=g2["bound_ms"]),
+        row("diffuse_energy_drift", "K3", "diffuse.cu", "pairwise.py:210",
+            err_k3, on_main_path=False,
+            step_ms=times["K3 vs step"]["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

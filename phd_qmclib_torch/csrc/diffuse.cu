@@ -14,18 +14,19 @@
 // stream (philox.cuh: the same words and normals as prng.cu) and recasts
 // with the floor modulo of torch.remainder, as the torch step does.
 //
-// What bounds it on the H100: the K1 pair loop (FP32 ALU and divides, see
-// pairwise.cu); the noise costs one Philox call and one Box-Muller per
-// particle, and the memory traffic is 3 N + 1 values in and 2 N + 2 out
-// per walker.
+// What bounds it on the H100: K1's pair terms (FP32 instruction issue,
+// see pairwise.cu); the noise costs one Philox call and one Box-Muller
+// per particle, and the memory traffic is 3 N + 1 values in and 2 N + 2
+// out per walker.
 //
 // What the design does about it: one CTA per walker as in K1, one thread
 // per particle.  Each thread draws its own normal, recomputing the whole
 // Philox quad of its element (four neighbouring elements share a quad,
 // also across walkers when N is not a multiple of 4), moves and recasts
 // its particle straight into shared memory, and then runs K1's body
-// (pair_terms.cuh) on the moved walker; thread 0 forms the weight after
-// the energy reduction.  No intermediate touches device memory.
+// (pair_terms.cuh: each unordered pair once) on the moved walker; thread 0
+// forms the weight after the energy reduction.  No intermediate touches
+// device memory.
 //
 // The move, the recast and the weight are written with round-to-nearest
 // intrinsics (no fma contraction) in the torch step's order,
@@ -70,33 +71,32 @@ diffuse_kernel(const T* __restrict__ cpos, const T* __restrict__ cdrift,
                T* __restrict__ npos, T* __restrict__ nenergy,
                T* __restrict__ ndrift, T* __restrict__ nweight, int nop,
                int is_free, int is_ideal, int defects_sep) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* warp_sums = reinterpret_cast<T*>(smem_raw);  // 32 entries
-  T* zs = warp_sums + 32;                         // nop moved positions
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const qmc::WalkerSmem<T> smem(smem_raw);  // positions: the moved ones
 
   const size_t walker = blockIdx.x;
   const int i = threadIdx.x;
   const size_t e = walker * nop + i;
+  T z = 0;
   if (i < nop) {
     const T noise = xi != nullptr
                         ? xi[e]
                         : static_cast<T>(qmc::philox_normal(e, k0, k1, s0, s1));
     const T moved = add_rn(add_rn(cpos[e], mul_rn(mul_rn(T(2), cdrift[e]), dt)),
                            mul_rn(sigma, noise));
-    const T z = add_rn(T(0), floor_mod(moved, params[qmc::P_L]));
-    zs[i] = z;
+    z = add_rn(T(0), floor_mod(moved, params[qmc::P_L]));
     npos[e] = z;
   }
+  smem.slots[i] = {z, T(0), T(0), T(0)};
   __syncthreads();
 
-  T term = 0;
-  if (i < nop) {
-    T drift_i;
-    qmc::particle_terms<T, false>(zs, nop, i, params, is_free, is_ideal,
-                                  defects_sep, &drift_i, &term, nullptr);
-    ndrift[e] = drift_i;
-  }
-  const T energy = qmc::block_sum(term, warp_sums);
+  T drift_i, sums[1];
+  qmc::walker_terms<T, false>(smem.slots, nop, z, params, is_free,
+                              is_ideal, defects_sep, &drift_i, &sums[0],
+                              nullptr);
+  if (i < nop) ndrift[e] = drift_i;
+  qmc::block_sums(sums, smem.warp_sums);
+  const T energy = sums[0];
   if (threadIdx.x == 0) {
     nenergy[walker] = energy;
     const T mean = mul_rn(T(0.5), add_rn(energy, cenergy[walker]));
@@ -116,9 +116,9 @@ int launch(const void* cpos, const void* cdrift, const void* cenergy,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = ((nop + 31) / 32) * 32;
-  const size_t smem = (32 + static_cast<size_t>(nop)) * sizeof(T);
   diffuse_kernel<T>
-      <<<num_walkers, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<num_walkers, threads, qmc::WalkerSmem<T>::bytes(threads),
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(cpos), static_cast<const T*>(cdrift),
           static_cast<const T*>(cenergy), static_cast<const T*>(params),
           static_cast<const T*>(xi), static_cast<const T*>(e_ref),

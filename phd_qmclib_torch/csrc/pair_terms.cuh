@@ -1,22 +1,33 @@
-// The per-particle body of the fused Bijl-Jastrow local energy, drift and
-// log|psi| (K1), shared by the pair kernel (pairwise.cu) and the fused
-// diffusion kernel (diffuse.cu).
+// The body of K1, the fused Bijl-Jastrow local energy, drift and log|psi|,
+// shared by the pair kernel (pairwise.cu) and the fused diffusion kernel
+// (diffuse.cu).  One CTA holds one walker: thread i < nop is particle i.
 //
-// For particle i of a walker whose positions zs[0..nop) sit in shared
-// memory, particle_terms computes the one-body Kronig-Penney terms and
-// loops over the O(N) minimum-image pairs (i, j), j != i, with one
-// branch-selected trig evaluation, one divide and (with kLogPsi) one log
-// per pair.  It returns the particle's drift F_i, its energy term
-// kin_i - F_i^2 + pot_i, and with kLogPsi its log|psi| share
-// log|f1(z_i)| + 1/2 sum_j log|f2(r_ij)|; the caller reduces the terms
-// over the particles.
+// walker_terms computes, for every particle of the walker whose positions
+// sit in shared memory, the one-body Kronig-Penney terms and the
+// minimum-image phonon pair terms.  It returns the particle's drift F_i,
+// its energy term kin_i - F_i^2 + pot_i and with kLogPsi its log|psi|
+// share; the caller reduces the terms over the block (block_sums).
+//
+// Each unordered pair is evaluated once, on a half ring: at step
+// k = 1 .. (nop - 1) / 2 thread i takes j = (i + k) mod nop, and for an
+// even nop a last step pairs i < nop / 2 with i + nop / 2.  The pair terms
+// depend on r = |d| only: the kinetic term and log|f2| are even in d, the
+// drift term odd.  Thread i keeps its own sums in registers and adds the
+// j side (the drift term negated, the same kinetic term) to particle j's
+// slot in shared memory, which also holds z_j.  At each step the partners
+// form a permutation, so no two threads touch one slot, and a barrier
+// ends the step.
+// Particle i's drift is complete (its own sums plus its slot, in that
+// fixed order) before it is squared, and the order of every addition is
+// fixed, so the forward and the log variant give the same energy and
+// drift (in double bit for bit: acc_add, acc_mul).
 //
 // The pair kinetic term is C (1 + v^2) in both variants, with v the tan
-// inside the contact cutoff and the cot outside, so the forward and the
-// log variant give the same E_L (in f64 bit for bit).  float evaluates
-// (s, c) with the rational tan of ops/trig.py (forward: only the ratio is
-// needed) or the sin/cos polynomials (log: the factors are needed too);
-// double the library sincos.
+// inside the contact cutoff and the cot outside.  float evaluates (s, c)
+// with the rational tan of ops/trig.py (forward: only the ratio is
+// needed) or the sin/cos polynomials (log: the factors are needed too),
+// v with the approximate reciprocal, and log|f2| with the approximate
+// log2; double keeps the library sincos, the IEEE divide and log.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,8 +46,6 @@ enum {
 constexpr int kMaxThreads = 1024;
 constexpr double kPi = 3.14159265358979323846;
 
-__device__ __forceinline__ float d_rint(float x) { return rintf(x); }
-__device__ __forceinline__ double d_rint(double x) { return rint(x); }
 __device__ __forceinline__ float d_floor(float x) { return floorf(x); }
 __device__ __forceinline__ double d_floor(double x) { return floor(x); }
 __device__ __forceinline__ float d_fabs(float x) { return fabsf(x); }
@@ -53,6 +62,41 @@ __device__ __forceinline__ float d_cosh(float x) { return coshf(x); }
 __device__ __forceinline__ double d_cosh(double x) { return cosh(x); }
 __device__ __forceinline__ float d_log(float x) { return logf(x); }
 __device__ __forceinline__ double d_log(double x) { return log(x); }
+__device__ __forceinline__ float d_fma(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double d_fma(double a, double b, double c) { return fma(a, b, c); }
+
+// The products and sums of the energy and drift: float lets the compiler
+// fuse a product into the next addition, double rounds each on its own,
+// so that the forward and the log variant, compiled apart, give the same
+// bits.
+__device__ __forceinline__ float acc_mul(float a, float b) { return a * b; }
+__device__ __forceinline__ double acc_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float acc_add(float a, float b) { return a + b; }
+__device__ __forceinline__ double acc_add(double a, double b) { return __dadd_rn(a, b); }
+
+// a / b: float with rcp.approx (MUFU.RCP, relative error below 2^-23)
+// and one multiply; double with the IEEE divide.
+__device__ __forceinline__ float pair_ratio(float a, float b) {
+  float inv;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(inv) : "f"(b));
+  return a * inv;
+}
+__device__ __forceinline__ double pair_ratio(double a, double b) {
+  return a / b;
+}
+
+// The pair log in units of pair_log_unit: float log2 with lg2.approx
+// (MUFU.LG2, absolute error below 2^-22), double the natural log.
+__device__ __forceinline__ float pair_log(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ double pair_log(double x) { return log(x); }
+__device__ __forceinline__ float pair_log_unit(float) {
+  return 0.693147180559945309f;  // ln 2
+}
+__device__ __forceinline__ double pair_log_unit(double) { return 1.0; }
 
 // (s, c) with tan(x) = s / c on (-pi/2, pi/2].  kFactors: s and c are
 // sin x and cos x themselves (the log variant needs them); otherwise only
@@ -83,38 +127,144 @@ __device__ __forceinline__ void trig_pair(double x, double* s, double* c) {
   sincos(x, s, c);
 }
 
-// Sum of v over the block; valid in thread 0.  warp_sums holds 32
-// entries of shared memory of its own.
+// One particle's slot in shared memory: its position in [0, L) and the
+// j-side sums of its drift and kinetic terms, together, so that one
+// access reads all three (16 bytes in float).
 template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* warp_sums) {
+struct alignas(4 * sizeof(T)) Slot {
+  T z, unused, drift, kin;
+};
+
+// The shared memory of one walker's CTA: 64 reduction slots, then one
+// Slot per thread (threads past nop pad).
+template <typename T>
+struct WalkerSmem {
+  T* warp_sums;
+  Slot<T>* slots;
+
+  __device__ explicit WalkerSmem(unsigned char* raw)
+      : warp_sums(reinterpret_cast<T*>(raw)),
+        slots(reinterpret_cast<Slot<T>*>(warp_sums + 64)) {}
+
+  static size_t bytes(int threads) {
+    return 64 * sizeof(T) + static_cast<size_t>(threads) * sizeof(Slot<T>);
+  }
+};
+
+// z in [0, L), where the pair terms' compare-and-select minimum image
+// needs it.  The positions the samplers keep are recast there after
+// every move and pass unchanged; any other is wrapped once here.
+template <typename T>
+__device__ __forceinline__ T into_supercell(T z, T L) {
+  return (z >= T(0) && z < L) ? z : z - L * d_floor(z / L);
+}
+
+// Sums of v[0 .. kCount) over the block, valid in thread 0 (one barrier
+// for all of them).  warp_sums holds 32 * kCount entries of its own.
+template <typename T, int kCount>
+__device__ __forceinline__ void block_sums(T (&v)[kCount], T* warp_sums) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  T total = 0;
-  if (warp == 0) {
-    const int num_warps = blockDim.x >> 5;
-    total = lane < num_warps ? warp_sums[lane] : T(0);
-    for (int off = 16; off > 0; off >>= 1) {
-      total += __shfl_down_sync(0xffffffffu, total, off);
+    for (int n = 0; n < kCount; ++n) {
+      v[n] += __shfl_down_sync(0xffffffffu, v[n], off);
     }
   }
-  return total;
+  if (lane == 0) {
+    for (int n = 0; n < kCount; ++n) warp_sums[32 * n + warp] = v[n];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int num_warps = blockDim.x >> 5;
+    for (int n = 0; n < kCount; ++n) {
+      v[n] = lane < num_warps ? warp_sums[32 * n + lane] : T(0);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      for (int n = 0; n < kCount; ++n) {
+        v[n] += __shfl_down_sync(0xffffffffu, v[n], off);
+      }
+    }
+  }
 }
 
-// K1's terms of particle i < nop; see the top of this file.  log_i is
-// written only with kLogPsi.
+// The pair constants, read once per thread.
+template <typename T>
+struct PairParams {
+  T L, half_l, rm, k2, neg_k2, in_b, pref, out_ldz, out_kin, in_kin,
+      abs_am, beta;
+
+  __device__ explicit PairParams(const T* __restrict__ p)
+      : L(p[P_L]),
+        half_l(T(0.5) * p[P_L]),
+        rm(p[P_RM]),
+        k2(p[P_K2]),
+        neg_k2(-p[P_K2]),
+        in_b(-p[P_K2] * p[P_ROFF]),
+        pref(T(kPi) / p[P_L]),
+        out_ldz(pref * p[P_BETA]),
+        out_kin(pref * pref * p[P_BETA]),
+        in_kin(p[P_K2] * p[P_K2]),
+        abs_am(d_fabs(p[P_AM])),
+        beta(p[P_BETA]) {}
+};
+
+// The terms of one unordered pair at d = z_i - z_j in [-L, L]: the drift
+// terms *fi of particle i and *fj of particle j, the kinetic term *kin of
+// each, and with kLogPsi log|f2| = p log(x) in units of pair_log_unit
+// (x = |am| cos, p = 1 inside the cutoff; x = sin, p = beta outside; both
+// bases are positive on the argument's domain).
+//
+// The minimum image by compare and select: r = |d|, or L - |d| past L/2
+// (the image across the boundary).  The imaged z_i - z_j is >= 0 unless
+// exactly one of d < 0 and the wrap holds, z_j - z_i likewise with d > 0:
+// *fj = -*fi, but coincident particles (d = 0) both take +ldz, as
+// sign(0) = +1 in the plain version.  At |d| = L/2 nothing wraps, as with
+// round-half-to-even; the cot is 0 there.
 template <typename T, bool kLogPsi>
-__device__ __forceinline__ void particle_terms(
-    const T* zs, int nop, int i, const T* __restrict__ params, int is_free,
-    int is_ideal, int defects_sep, T* drift_out, T* term_out, T* log_out) {
-  const T zi = zs[i];
+__device__ __forceinline__ void pair_terms(T d, const PairParams<T>& c,
+                                           T* fi, T* fj, T* kin, T* lg) {
+  const T ad = d_fabs(d);
+  const bool wrap = ad > c.half_l;
+  const T r = wrap ? c.L - ad : ad;
+  const bool in_cut = r < c.rm;
+  const T arg = d_fma(in_cut ? c.k2 : c.pref, r, in_cut ? c.in_b : T(0));
+  T s, co;
+  trig_pair<kLogPsi>(arg, &s, &co);
+  // tan inside the cutoff, cot outside: one reciprocal per pair.
+  const T v = pair_ratio(in_cut ? s : co, in_cut ? co : s);
+  const T ldz = acc_mul(in_cut ? c.neg_k2 : c.out_ldz, v);
+  *kin = acc_mul(in_cut ? c.in_kin : c.out_kin, d_fma(v, v, T(1)));
+  *fi = (d >= T(0)) != wrap ? ldz : -ldz;
+  *fj = (d <= T(0)) != wrap ? ldz : -ldz;
+  if (kLogPsi) {
+    const T lg_x = pair_log(in_cut ? c.abs_am * co : s);
+    *lg = in_cut ? lg_x : c.beta * lg_x;
+  }
+}
+
+// K1's terms of every particle of one walker; see the top of this file.
+// Every thread of the block calls it (it holds barriers); thread i < nop
+// gets particle i's, the others 0.  slots[0 .. blockDim.x) hold the
+// positions in [0, L) (into_supercell; any finite value past nop) and
+// zero sums, written before a barrier; zi is particle i's position as
+// given, for the one-body terms.  log_out is written only with kLogPsi.
+// The threads past nop run the same steps on a ring of their own over
+// the padding slots, so the loop holds no branch.
+//
+// float flops of one unordered pair as written, the subtraction d and the
+// sums of both sides included (fma = 2, rcp and lg2 = 1; compares,
+// selects and negations not counted): 28, and 40 with kLogPsi (the
+// sin/cos polynomials add 8, the log 3 and its sum 1).
+template <typename T, bool kLogPsi>
+__device__ __forceinline__ void walker_terms(
+    Slot<T>* slots, int nop, T zi,
+    const T* __restrict__ params, int is_free, int is_ideal,
+    int defects_sep, T* drift_out, T* term_out, T* log_out) {
+  const int i = threadIdx.x;
+  const bool active = i < nop;
   T drift_i = 0, kin_i = 0, pot_i = 0, log_i = 0;
 
-  if (!is_free) {
+  if (active && !is_free) {
     const T v0 = params[P_V0], e0 = params[P_E0];
     const T k1 = params[P_K1], kp1 = params[P_KP1];
     const T z_a = params[P_ZA], z_b = params[P_ZB];
@@ -131,7 +281,7 @@ __device__ __forceinline__ void particle_terms(
     }
     pot_i = in_barrier ? barrier_v : T(0);
     drift_i = ob_ldz;
-    kin_i = -ob_d2 + ob_ldz * ob_ldz;
+    kin_i = d_fma(ob_ldz, ob_ldz, -ob_d2);
     if (kLogPsi) {
       // f1: cosh in the barrier, cf cos in the well (cf packed once).
       const T f1 = in_barrier ? d_cosh(arg_b) : params[P_CF] * d_cos(arg_w);
@@ -140,44 +290,42 @@ __device__ __forceinline__ void particle_terms(
   }
 
   if (!is_ideal) {
-    const T L = params[P_L], inv_l = T(1) / L, rm = params[P_RM];
-    const T k2 = params[P_K2], beta = params[P_BETA];
-    const T r_off = params[P_ROFF];
-    const T pref = T(kPi) / L;
-    const T in_b = -k2 * r_off;
-    const T out_ldz = pref * beta, out_kin = pref * pref * beta;
-    const T in_kin = k2 * k2;
-    const T abs_am = d_fabs(params[P_AM]);
-    T drift_pair = 0, kin_pair = 0, log_pair = 0;
-    for (int j = 0; j < nop; ++j) {
-      if (j == i) continue;
-      T d = zi - zs[j];
-      d = d - L * d_rint(d * inv_l);
-      const T r = d_fabs(d);
-      const bool in_cut = r < rm;
-      const T arg = in_cut ? k2 * r + in_b : pref * r;
-      T s, c;
-      trig_pair<kLogPsi>(arg, &s, &c);
-      // tan inside the cutoff, cot outside: one divide per pair.
-      const T v = (in_cut ? s : c) / (in_cut ? c : s);
-      const T ldz = (in_cut ? -k2 : out_ldz) * v;
-      kin_pair += (in_cut ? in_kin : out_kin) * (T(1) + v * v);
-      drift_pair += d >= T(0) ? ldz : -ldz;
-      if (kLogPsi) {
-        // log|f2| = p log(x): x = |am| cos, p = 1 inside; x = sin,
-        // p = beta outside.  Both bases are positive on the argument's
-        // domain.
-        const T lg = d_log(in_cut ? abs_am * c : s);
-        log_pair += in_cut ? lg : beta * lg;
-      }
+    const PairParams<T> c(params);
+    const T z_own = slots[i].z;
+    T f_sum = 0, kin_sum = 0, log_sum = 0;
+    auto add_pair = [&](int j) {
+      const Slot<T> other = slots[j];
+      T fi, fj, kin, lg;
+      pair_terms<T, kLogPsi>(z_own - other.z, c, &fi, &fj, &kin, &lg);
+      f_sum = acc_add(f_sum, fi);
+      kin_sum = acc_add(kin_sum, kin);
+      if (kLogPsi) log_sum += lg;
+      slots[j].drift = acc_add(other.drift, fj);
+      slots[j].kin = acc_add(other.kin, kin);
+    };
+    const int half = nop >> 1;
+    const int ring_begin = active ? 0 : nop;
+    const int ring_end = active ? nop : static_cast<int>(blockDim.x);
+    int j = i;
+    for (int k = (nop - 1) >> 1; k > 0; --k) {
+      if (++j == ring_end) j = ring_begin;
+      add_pair(j);
+      __syncthreads();
     }
-    drift_i += drift_pair;
-    kin_i += kin_pair;
-    log_i += T(0.5) * log_pair;
+    if (nop == 2 * half && half > 0) {
+      if (i < half) add_pair(i + half);
+      __syncthreads();
+    }
+    if (active) {
+      const Slot<T> own = slots[i];
+      drift_i = acc_add(drift_i, acc_add(f_sum, own.drift));
+      kin_i = acc_add(kin_i, acc_add(kin_sum, own.kin));
+      if (kLogPsi) log_i += pair_log_unit(T(0)) * log_sum;
+    }
   }
 
   *drift_out = drift_i;
-  *term_out = kin_i - drift_i * drift_i + pot_i;
+  *term_out = acc_add(d_fma(-drift_i, drift_i, kin_i), pot_i);
   if (kLogPsi) *log_out = log_i;
 }
 

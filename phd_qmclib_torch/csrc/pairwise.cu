@@ -10,32 +10,42 @@
 // For every walker it computes the one-body Kronig-Penney terms (orbital
 // log-derivative, kinetic, barrier/defect potential, and with kLogPsi
 // log|f1|) and the O(N^2) minimum-image phonon pair block, one
-// branch-selected tan/cot per pair (and one log per pair with kLogPsi).
-// The per-particle body lives in pair_terms.cuh, which the fused
-// diffusion kernel (diffuse.cu) shares.
+// branch-selected tan/cot per unordered pair (and one log with kLogPsi).
+// The walker's body lives in pair_terms.cuh, which the fused diffusion
+// kernel (diffuse.cu) shares.
 //
-// What bounds it on the H100: FP32 ALU and divide throughput.  Each
-// ordered pair costs about 40 flops (minimum image, the rational tan
-// x P(x^2)/Q(x^2), one IEEE divide, the kinetic and drift terms) and
-// the only memory traffic is N positions in and N + 1 values out per
-// walker, so at N = 128 the kernel does ~5,000 flops per byte.
+// What bounds it on the H100: FP32 instruction issue.  The only memory
+// traffic is N positions in and N + 1 (N + 2 with kLogPsi) values out per
+// walker: 17.8 MB at 17408 x 128 against 141.5 M unordered pairs.
+// Counted in float as written (pair_terms.cuh; fma = 2, rcp and lg2 = 1),
+// an unordered pair costs 28 flops, 40 with kLogPsi: ~220 flops per byte,
+// ten times the card's 20 (67 TFLOP/s over 3.35 TB/s).  The real limit is
+// instruction issue: the f32 pair loop's SASS holds 44 instructions per
+// unordered pair (49.5 with kLogPsi; compares, selects, one LDS.128, one
+// STS.64, the barrier and the ring index besides the arithmetic), and an
+// issue slot retires at most one FMA, so the flops fill at most a third
+// of the slots.  The first design (one thread per particle over all
+// j != i) evaluated every pair twice, with an IEEE divide, a rintf on the
+// conversion pipe and, with kLogPsi, an accurate logf per ordered pair:
+// ~84 instructions per unordered pair in f32, ~154 with kLogPsi.
 //
-// What the design does about it: one CTA per walker, the walker's N
-// positions in shared memory (every thread reads the same z_j at the
-// same time: a broadcast, no bank conflicts), one thread per particle
-// i looping over j with the drift and kinetic sums in registers, and a
-// block reduction of the per-particle energy terms (a second one for
-// the per-particle log|psi| shares, in the Pallas order).  No pair value
-// ever leaves the registers.  Any N up to 1024 (one thread per
-// particle), float and double; the free-gas and ideal-gas branches are
-// compile-time-uniform flags read once per thread.
+// What the design does about it: one CTA per walker, one thread per
+// particle, the walker's positions in shared memory.  Each unordered pair
+// is evaluated once on a half ring (walker_terms): the odd drift term goes
+// to i and, negated, to j, the even kinetic term to both, the j side
+// through a shared-memory slot per particle, a barrier per step.  The
+// minimum image is two compares and a select (positions in [0, L)), the
+// tan/cot ratio one MUFU reciprocal, the pair log one MUFU log2; log|f2|
+// needs no j side, as only its walker sum is wanted.  The energy and
+// log|psi| terms are reduced in one pass (block_sums).  No pair value
+// ever leaves the registers.  Any N up to 1024, float and double; the
+// free-gas and ideal-gas branches are uniform flags read once per thread.
 //
-// The log variant adds per pair the sin/cos polynomials (in place of the
-// rational tan) and one logf: about 1.5 times the forward variant's work.
-//
-// Accuracy: built without --use_fast_math, so tanf/tanhf/rintf/logf and
-// the divide are the accurate ones, as in the JAX f32 path.  rint rounds
-// half to even like jnp.round.  E_L sums per-particle terms
+// Accuracy: built without --use_fast_math: the one-body tanf/tanhf/cosf/
+// coshf/logf are the accurate ones.  The approximate reciprocal and log2
+// stay well inside the kernel-vs-plain tolerances of chip_smoke.py and
+// tests/test_torch_cuda_kernels.py; double keeps the IEEE divide, sincos
+// and log, and is the oracle of the schedule.  E_L sums per-particle terms
 // (kin_i - drift_i^2 + pot_i) before the block reduction, the order of
 // the Pallas kernel and of the plain torch version: the kinetic and
 // drift^2 sums are each large against E_L and cancel.
@@ -54,30 +64,34 @@ pair_energy_drift_kernel(const T* __restrict__ pos,
                          T* __restrict__ energy, T* __restrict__ drift,
                          T* __restrict__ log_psi, int nop, int is_free,
                          int is_ideal, int defects_sep) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* warp_sums = reinterpret_cast<T*>(smem_raw);  // 32 entries
-  T* log_sums = warp_sums + 32;                   // 32 entries
-  T* zs = log_sums + 32;                          // nop positions
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const qmc::WalkerSmem<T> smem(smem_raw);
 
   const size_t walker = blockIdx.x;
-  const T* zw = pos + walker * nop;
-  for (int k = threadIdx.x; k < nop; k += blockDim.x) zs[k] = zw[k];
+  const int i = threadIdx.x;
+  const T zi = i < nop ? pos[walker * nop + i] : T(0);
+  smem.slots[i] = {qmc::into_supercell(zi, params[qmc::P_L]), T(0), T(0),
+                   T(0)};
   __syncthreads();
 
-  const int i = threadIdx.x;
-  T term = 0, log_i = 0;
-  if (i < nop) {
-    T drift_i;
-    qmc::particle_terms<T, kLogPsi>(zs, nop, i, params, is_free, is_ideal,
-                                    defects_sep, &drift_i, &term, &log_i);
-    drift[walker * nop + i] = drift_i;
-  }
+  T drift_i, term, log_i;
+  qmc::walker_terms<T, kLogPsi>(smem.slots, nop, zi, params, is_free,
+                                is_ideal, defects_sep, &drift_i, &term,
+                                &log_i);
+  if (i < nop) drift[walker * nop + i] = drift_i;
 
-  const T total = qmc::block_sum(term, warp_sums);
-  if (threadIdx.x == 0) energy[walker] = total;
-  if (kLogPsi) {
-    const T log_total = qmc::block_sum(log_i, log_sums);
-    if (threadIdx.x == 0) log_psi[walker] = log_total;
+  // One reduction pass for the energy and, with kLogPsi, log|psi|.
+  if constexpr (kLogPsi) {
+    T sums[2] = {term, log_i};
+    qmc::block_sums(sums, smem.warp_sums);
+    if (i == 0) {
+      energy[walker] = sums[0];
+      log_psi[walker] = sums[1];
+    }
+  } else {
+    T sums[1] = {term};
+    qmc::block_sums(sums, smem.warp_sums);
+    if (i == 0) energy[walker] = sums[0];
   }
 }
 
@@ -90,9 +104,9 @@ int launch(const void* pos, const void* params, void* log_psi, void* energy,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = ((nop + 31) / 32) * 32;
-  const size_t smem = (64 + static_cast<size_t>(nop)) * sizeof(T);
   pair_energy_drift_kernel<T, kLogPsi>
-      <<<num_walkers, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      <<<num_walkers, threads, qmc::WalkerSmem<T>::bytes(threads),
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(pos), static_cast<const T*>(params),
           static_cast<T*>(energy), static_cast<T*>(drift),
           static_cast<T*>(log_psi), nop, is_free, is_ideal, defects_sep);

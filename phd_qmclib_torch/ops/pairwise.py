@@ -44,9 +44,10 @@ MAX_NOP = 1024
 
 
 def pack_params(cfc, dtype: torch.dtype = torch.float32,
-                device="cpu") -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """Pack the mrbp ``CFCParams`` into the ``(PARAMS_SIZE,)`` vector
-    the kernel reads.
+    the kernel reads, on ``device`` (the card unless ``"cpu"`` is
+    asked for).
 
     Leaves may be floats or 0-d tensors; with 0-d tensors already on
     ``device`` the packing is one device-side stack and copies nothing
@@ -174,8 +175,9 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
     order of ``energy_and_drift_pallas``.
 
     A CUDA tensor launches the kernel of ``csrc/pairwise.cu`` (f32 or
-    f64, any ``N <= 1024``, free and ideal gases included); a CPU tensor
-    runs :func:`energy_and_drift_plain`.  ``params`` is
+    f64, any ``N <= 1024``, free and ideal gases included; each
+    unordered pair once, the positions wrapped into ``[0, L)`` for the
+    pair terms); a CPU tensor runs :func:`energy_and_drift_plain`.  ``params`` is
     :func:`pack_params`' vector in ``pos``'s dtype, on ``pos``'s device.
     Each launch adds one to ``energy_and_drift.launch_count`` (forward)
     or ``energy_and_drift.log_psi_launch_count`` (log|psi|).

@@ -144,11 +144,11 @@ def launch_args(key: int, step: int):
 
 
 def normal(key: int, step: int, shape, dtype=torch.float32,
-           device="cpu") -> torch.Tensor:
+           device="cuda") -> torch.Tensor:
     """Standard normals of ``shape`` for ``(key, step)``.
 
-    On a CUDA device this launches the kernel of ``csrc/prng.cu``; on
-    the CPU it runs :func:`normal_plain`.  ``dtype`` is float32 or
+    On a CUDA device (the default) this launches the kernel of
+    ``csrc/prng.cu``; on ``device="cpu"`` it runs :func:`normal_plain`.  ``dtype`` is float32 or
     float64 (the values are f32 normals either way).
     """
     device = torch.device(device)
@@ -181,7 +181,7 @@ normal.launch_count = 0
 
 
 def philox_words(key: int, step: int, num_quads: int,
-                 device="cpu") -> torch.Tensor:
+                 device="cuda") -> torch.Tensor:
     """Philox4x32-10 words ``(num_quads, 4)`` as int64 in [0, 2^32): the
     kernel's own bits on a CUDA device, for holding them against
     :func:`philox_words_plain`; :func:`philox_words_plain` on the CPU."""

@@ -201,7 +201,7 @@ def branching_comb(weights: torch.Tensor, num_walkers: torch.Tensor,
     return torch.clamp(parent, 0, max_w - 1), new_num
 
 
-def state_from_numpy(state, device="cpu") -> State:
+def state_from_numpy(state, device="cuda") -> State:
     """The port's :class:`State` from a JAX ``State`` (or any object with
     the same fields, as numpy-convertible arrays) on ``device``.
 
@@ -227,7 +227,7 @@ def state_from_numpy(state, device="cpu") -> State:
 
 
 def aux_from_numpy(aux_carry: dict,
-                   device="cpu") -> t.Dict[str, torch.Tensor]:
+                   device="cuda") -> t.Dict[str, torch.Tensor]:
     """The pure estimators' accumulators of a JAX ``SamplingBlock.
     aux_carry`` (numpy-convertible arrays) as tensors on ``device``, for
     :meth:`Sampling.replay_estimators` to continue a JAX window."""
@@ -428,7 +428,7 @@ class Sampling:
 
     def build_state(self, sys_conf_set: np.ndarray,
                     ref_energy: t.Optional[float] = None,
-                    dtype=None, device="cpu") -> State:
+                    dtype=None, device="cuda") -> State:
         """Build the initial ensemble on ``device`` from a configuration
         set ``(num, N)`` or ``(num, 2, N)``.
 

@@ -118,7 +118,7 @@ class _Consts(t.NamedTuple):
     obd_offsets: t.Optional[torch.Tensor]  # (num_pos,)
 
 
-def state_from_numpy(state, device="cpu") -> State:
+def state_from_numpy(state, device="cuda") -> State:
     """The port's :class:`State` from a JAX VMC ``State`` (or any object
     with the same fields, as numpy-convertible arrays) on ``device``."""
     return State(**{
@@ -242,7 +242,7 @@ class Sampling:
         return ssf, obd
 
     def build_state(self, sys_conf: np.ndarray, dtype=None,
-                    device="cpu") -> State:
+                    device="cuda") -> State:
         """The initial ensemble on ``device`` from one configuration of
         shape ``(2, N)`` or ``(N,)`` (every chain starts there) or a batch
         ``(W, 2, N)``/``(W, N)``: log|psi|, energy, and the S(k) and OBDM

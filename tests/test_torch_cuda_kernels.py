@@ -114,7 +114,8 @@ def test_dmc_on_the_card_matches_the_cpu_replay(cuda):
     confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
     comb_u = rng.random((10, 64))
     xi = sampling.sigma_spread * rng.standard_normal((10, 64, 16))
-    on_cpu = sampling.replay_states(sampling.build_state(confs), comb_u, xi)
+    on_cpu = sampling.replay_states(
+        sampling.build_state(confs, device="cpu"), comb_u, xi)
     on_card = sampling.replay_states(
         sampling.build_state(confs, device=cuda), comb_u, xi)
     assert torch.equal(on_card["parent"].cpu(), on_cpu["parent"])
@@ -213,7 +214,7 @@ def test_dmc_estimators_on_the_card_match_the_cpu_replay(cuda):
     comb_u = rng.random((12, 64))
     xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
     on_cpu, aux_cpu = sampling.replay_estimators(
-        sampling.build_state(confs), comb_u, xi)
+        sampling.build_state(confs, device="cpu"), comb_u, xi)
     count = histogram.walker_histogram.launch_count
     on_card, aux_card = sampling.replay_estimators(
         sampling.build_state(confs, device=cuda), comb_u, xi)
@@ -277,6 +278,91 @@ def test_log_psi_kernel_matches_plain(cuda, nop, kind, dtype, rtol_lp,
         # The forward variant's energy and drift, bit for bit.
         energy_f, drift_f = pairwise.energy_and_drift(pos, params, **kw)
         assert torch.equal(energy_f, energy) and torch.equal(drift_f, drift)
+
+
+#: Particle counts of the half-ring schedule: odd N (every step full),
+#: even N (a last step k = N/2 taken by the first half), warp edges, and
+#: the largest CTAs.
+HALF_RING_NOPS = [1, 2, 3, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1000, 1024]
+
+
+@pytest.mark.parametrize("dtype,rtol_lp,rtol_e,rtol_d,atol_d", [
+    # f32: per-particle sums of up to 1023 pair terms in another order,
+    # the approximate reciprocal and log2, and fma contraction.
+    (torch.float32, 1e-5, 2e-5, 1e-3, 1e-4),
+    (torch.float64, 1e-10, 1e-10, 1e-10, 1e-10),
+])
+@pytest.mark.parametrize("nop", HALF_RING_NOPS)
+def test_half_ring_matches_plain(cuda, nop, dtype, rtol_lp, rtol_e, rtol_d,
+                                 atol_d):
+    """Each unordered pair once, both variants, against their plain
+    versions; in f64 the two variants' energy and drift bit for bit."""
+    spec = _logpsi_spec(nop, "bench")
+    static = spec.static_spec
+    num_walkers = 8 if nop >= 1000 else 256
+    pos = torch.as_tensor(np.random.default_rng(nop + 1).uniform(
+        0, spec.supercell_size, (num_walkers, nop)), dtype=dtype,
+        device=cuda)
+    params = pairwise.pack_params(spec.cfc_params, dtype, cuda)
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    energy, drift = pairwise.energy_and_drift(pos, params, **kw)
+    lp, energy_l, drift_l = pairwise.energy_and_drift(
+        pos, params, with_log_psi=True, **kw)
+    torch.cuda.synchronize()
+    energy_p, drift_p = pairwise.energy_and_drift_plain(pos, params, **kw)
+    lp_p, energy_lp, drift_lp = pairwise.energy_and_drift_plain(
+        pos, params, with_log_psi=True, **kw)
+    for got, want in ((energy, energy_p), (energy_l, energy_lp)):
+        torch.testing.assert_close(got, want, rtol=rtol_e, atol=rtol_e)
+    for got, want in ((drift, drift_p), (drift_l, drift_lp)):
+        torch.testing.assert_close(got, want, rtol=rtol_d, atol=atol_d)
+    torch.testing.assert_close(lp, lp_p, rtol=rtol_lp, atol=rtol_lp)
+    if dtype == torch.float64:
+        assert torch.equal(energy, energy_l) and torch.equal(drift, drift_l)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_log_psi", [False, True])
+def test_pair_kernel_coincident_particles(cuda, with_log_psi, dtype):
+    """Particles at one position (f32 positions coincide about once per
+    2,000 walkers at the bench shape) both take the +ldz drift term, as
+    sign(0) = +1 in the plain version, though the term is odd."""
+    spec = _logpsi_spec(33, "bench")
+    static = spec.static_spec
+    pos = np.random.default_rng(4).uniform(0, 33.0, (64, 33))
+    pos[:, 1::3] = pos[:, 0:-1:3]
+    pos = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    params = pairwise.pack_params(spec.cfc_params, dtype, cuda)
+    kw = dict(nop=33, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep, with_log_psi=with_log_psi)
+    got = pairwise.energy_and_drift(pos, params, **kw)
+    want = pairwise.energy_and_drift_plain(pos, params, **kw)
+    # (rtol, atol) of log|psi|, the energy and the drift, as above.
+    tols = ([(1e-5, 1e-5), (2e-5, 2e-5), (1e-3, 1e-4)]
+            if dtype == torch.float32 else [(1e-10, 1e-10)] * 3)
+    for g, w, (rtol, atol) in zip(got, want, tols[-len(got):]):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+def test_pair_kernel_wraps_positions_outside_the_supercell(cuda):
+    """Positions outside [0, L) are wrapped into it for the pair terms:
+    the same energy and drift as the plain version's rounded minimum
+    image, f64."""
+    spec = _logpsi_spec(64, "bench")
+    static = spec.static_spec
+    rng = np.random.default_rng(3)
+    pos = (rng.uniform(0, 64.0, (64, 64))
+           + 64.0 * rng.integers(-2, 3, (64, 64)))
+    pos = torch.as_tensor(pos, dtype=torch.float64, device=cuda)
+    params = pairwise.pack_params(spec.cfc_params, torch.float64, cuda)
+    kw = dict(nop=64, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    for got, want in zip(
+            pairwise.energy_and_drift(pos, params, with_log_psi=True, **kw),
+            pairwise.energy_and_drift_plain(pos, params, with_log_psi=True,
+                                            **kw)):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
 
 
 def _diffuse_inputs(nop, num_walkers, dtype, device, seed=0):
@@ -382,8 +468,8 @@ def test_vmc_on_the_card_matches_the_cpu_replay(cuda, gaussian):
     moves = (spread * rng.standard_normal((10, 64, 16)) if gaussian
              else rng.random((10, 64, 16)))
     accept_u = rng.random((10, 64))
-    on_cpu = sampling.replay_chain(sampling.build_state(confs), moves,
-                                   accept_u)
+    on_cpu = sampling.replay_chain(
+        sampling.build_state(confs, device="cpu"), moves, accept_u)
     count = pairwise.energy_and_drift.log_psi_launch_count
     on_card = sampling.replay_chain(sampling.build_state(confs, device=cuda),
                                     moves, accept_u)

@@ -54,8 +54,8 @@ def test_build_state_matches_jax():
     jsampling = jdmc.Sampling(jmrbp.Spec(**SPEC), **SAMPLING)
     tsampling = tdmc.Sampling(tmrbp.Spec(**SPEC), **SAMPLING)
     confs = _confs(60)
-    want = tdmc.state_from_numpy(jsampling.build_state(confs))
-    got = tsampling.build_state(confs)
+    want = tdmc.state_from_numpy(jsampling.build_state(confs), device="cpu")
+    got = tsampling.build_state(confs, device="cpu")
     assert got.num_walkers.dtype == torch.int64
     assert int(got.num_walkers) == int(want.num_walkers) == 48
     assert got.cmd_accum is None and want.cmd_accum is None
@@ -81,8 +81,8 @@ def test_replay_matches_jax(ref_compat):
     xi = jsampling.sigma_spread * rng.standard_normal((nts, 64, 16))
 
     want = jsampling.replay_states(jstate, comb_u, xi)
-    got = tsampling.replay_states(tdmc.state_from_numpy(jstate), comb_u,
-                                  xi)
+    got = tsampling.replay_states(tdmc.state_from_numpy(jstate, device="cpu"),
+                                  comb_u, xi)
     np.testing.assert_array_equal(got["parent"].numpy(),
                                   np.asarray(want["parent"]))
     np.testing.assert_array_equal(got["num_walkers"].numpy(),
@@ -101,7 +101,7 @@ def test_blocks_run_on_cpu():
     sampling = tdmc.Sampling(tmrbp.Spec(**SPEC), time_step=1e-3,
                              max_num_walkers=64, target_num_walkers=48,
                              rng_seed=5)
-    state = sampling.build_state(_confs(48))
+    state = sampling.build_state(_confs(48), device="cpu")
     blocks = sampling.blocks(state, num_time_steps_block=8,
                              burn_in_blocks=1)
     ratios = []
@@ -135,7 +135,7 @@ def test_a_run_packs_the_kernel_parameters_once(monkeypatch):
     per step."""
     from phd_qmclib_torch.ops import pairwise
     sampling = tdmc.Sampling(tmrbp.Spec(**SPEC), **SAMPLING)
-    state = sampling.build_state(_confs(48))
+    state = sampling.build_state(_confs(48), device="cpu")
     packs = []
     pack_params = pairwise.pack_params
     monkeypatch.setattr(pairwise, "pack_params",
@@ -155,4 +155,4 @@ def test_state_from_numpy_rejects_sharded_states():
     jstate = jsampling.build_state(_confs(48))
     sharded = jstate._replace(num_walkers=np.array([24, 24]))
     with pytest.raises(ValueError, match="one-shard"):
-        tdmc.state_from_numpy(sharded)
+        tdmc.state_from_numpy(sharded, device="cpu")

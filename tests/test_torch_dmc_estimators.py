@@ -139,11 +139,11 @@ def test_replay_estimators_match_jax(case):
     comb_u, xi = _draws(jsampling, nts, seed=7)
     want, want_aux, _ = _jax_replay(jsampling, jstate, comb_u, xi)
     got, got_aux = tsampling.replay_estimators(
-        tdmc.state_from_numpy(jstate), comb_u, xi)
+        tdmc.state_from_numpy(jstate, device="cpu"), comb_u, xi)
     _check(got, want, got_aux, want_aux)
     # The run branched, and measured as many rows as the cadence says.
-    nw = tsampling.replay_states(tdmc.state_from_numpy(jstate), comb_u,
-                                 xi)["num_walkers"]
+    nw = tsampling.replay_states(tdmc.state_from_numpy(jstate, device="cpu"),
+                                 comb_u, xi)["num_walkers"]
     assert len(set(nw.tolist())) > 1
     for name, rows in got.items():
         every = tsampling.est_every * getattr(
@@ -172,14 +172,16 @@ def test_pfw_window_across_blocks_resumes_from_jax_aux_carry():
     want, want_aux, _ = _jax_replay(jsampling, first.last_state, comb_u, xi,
                                     aux=first.aux_carry, step_offset=nts)
     got, got_aux = tsampling.replay_estimators(
-        tdmc.state_from_numpy(first.last_state), comb_u, xi,
-        aux_in=tdmc.aux_from_numpy(first.aux_carry), step_offset=nts)
+        tdmc.state_from_numpy(first.last_state, device="cpu"), comb_u, xi,
+        aux_in=tdmc.aux_from_numpy(first.aux_carry, device="cpu"),
+        step_offset=nts)
     _check(got, want, got_aux, want_aux)
     # The window spans both blocks: the divisor counts the measured
     # steps of both, so the density still integrates to N per walker
     # (to the round-off of dividing each bin by 5, 6, 7 and 8).
-    nw = tsampling.replay_states(tdmc.state_from_numpy(first.last_state),
-                                 comb_u, xi)["num_walkers"]
+    nw = tsampling.replay_states(
+        tdmc.state_from_numpy(first.last_state, device="cpu"), comb_u,
+        xi)["num_walkers"]
     np.testing.assert_allclose(got["density"].sum(-1).numpy(),
                                NOP * nw[1::2].numpy(), rtol=1e-12)
 
@@ -194,8 +196,9 @@ PRODUCTION_LIKE = dict(
 def test_blocks_sum_rules_burn_and_cadence():
     nts, burn = 16, 1
     _, sampling = _samplings(est_every=4, **PRODUCTION_LIKE)
-    blocks = sampling.blocks(sampling.build_state(_confs(TARGET)), nts,
-                             burn_in_blocks=burn)
+    blocks = sampling.blocks(
+        sampling.build_state(_confs(TARGET), device="cpu"), nts,
+        burn_in_blocks=burn)
     first = next(blocks)
     assert first.iter_props.num_walkers.shape == (nts,)
     assert all(getattr(first, name) is None for name in (
@@ -233,7 +236,8 @@ def test_blocks_cadence_leaves_the_dynamics_alone():
     props = []
     for every in (1, 4):
         _, sampling = _samplings(est_every=every, **PRODUCTION_LIKE)
-        blocks = sampling.blocks(sampling.build_state(_confs(TARGET)), nts)
+        blocks = sampling.blocks(
+            sampling.build_state(_confs(TARGET), device="cpu"), nts)
         props.append([next(blocks).iter_props for _ in range(2)])
     for a, b in zip(*props):
         for x, y in zip(a, b):
@@ -242,7 +246,7 @@ def test_blocks_cadence_leaves_the_dynamics_alone():
 
 def test_blocks_check_the_block_length():
     _, sampling = _samplings(est_every=4, **PRODUCTION_LIKE)
-    state = sampling.build_state(_confs(TARGET))
+    state = sampling.build_state(_confs(TARGET), device="cpu")
     with pytest.raises(ValueError, match="obd est_every_mult"):
         next(sampling.blocks(state, 12))
     _, sampling = _samplings(est_every=4)
@@ -259,7 +263,8 @@ def test_blocks_carry_a_pfw_window_across_blocks():
     nts = 8
     _, sampling = _samplings(est_every=2, density_est_spec=dict(
         num_bins=8, pfw_num_time_steps=3 * nts))
-    blocks = sampling.blocks(sampling.build_state(_confs(TARGET)), nts)
+    blocks = sampling.blocks(
+        sampling.build_state(_confs(TARGET), device="cpu"), nts)
     for _ in range(4):
         block = next(blocks)
         assert set(block.aux_carry) == {"aux_density"}

@@ -41,7 +41,7 @@ def _kernel_kw(spec):
 
 def _plain(spec, pos, dtype, with_log_psi=False):
     params = tpairwise.pack_params(
-        tmrbp.cfc_params_from_numpy(spec.cfc_params), dtype)
+        tmrbp.cfc_params_from_numpy(spec.cfc_params), dtype, device="cpu")
     return tpairwise.energy_and_drift_plain(
         torch.as_tensor(pos, dtype=dtype), params,
         with_log_psi=with_log_psi, **_kernel_kw(spec))
@@ -111,7 +111,7 @@ def test_plain_f64_matches_xla(variant):
 def test_pack_params_matches_jax(variant):
     spec = jmrbp.Spec(**VARIANTS[variant])
     cfc = tmrbp.cfc_params_from_numpy(spec.cfc_params)
-    vec = tpairwise.pack_params(cfc, torch.float32)
+    vec = tpairwise.pack_params(cfc, torch.float32, device="cpu")
     assert vec.shape == (tpairwise.PARAMS_SIZE,)
     assert vec.dtype == torch.float32
     np.testing.assert_array_equal(vec[:13].numpy(),
@@ -133,13 +133,14 @@ def test_pack_params_matches_jax(variant):
     # Leaves cast to 0-d tensors pack to the same vector.
     cast = tmrbp.cast_params(cfc, torch.float64, "cpu")
     np.testing.assert_array_equal(
-        tpairwise.pack_params(cast, torch.float64).numpy(),
-        tpairwise.pack_params(cfc, torch.float64).numpy())
+        tpairwise.pack_params(cast, torch.float64, device="cpu").numpy(),
+        tpairwise.pack_params(cfc, torch.float64, device="cpu").numpy())
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():
     spec = tmrbp.Spec(**BENCH32)
-    params = tpairwise.pack_params(spec.cfc_params, torch.float64)
+    params = tpairwise.pack_params(spec.cfc_params, torch.float64,
+                                   device="cpu")
     pos = torch.as_tensor(
         np.random.default_rng(2).uniform(0, 32.0, (4, 32)))
     count = tpairwise.energy_and_drift.launch_count
@@ -231,7 +232,8 @@ def test_plain_diffuse_matches_jax_composition(variant):
                           - inp["e_ref"]))
     t = {k: torch.as_tensor(v, dtype=torch.float64) for k, v in inp.items()}
     params = tpairwise.pack_params(
-        tmrbp.cfc_params_from_numpy(spec.cfc_params), torch.float64)
+        tmrbp.cfc_params_from_numpy(spec.cfc_params), torch.float64,
+        device="cpu")
     out = tpairwise.diffuse_energy_drift_plain(
         t["cpos"], t["cdrift"], t["cenergy"], params, dt, sigma, t["e_ref"],
         7, 3, xi=t["xi"], **_kernel_kw(spec))
@@ -254,7 +256,8 @@ def test_plain_diffuse_draws_the_normals_stream():
     dt, sigma = sampling.time_step, sampling.sigma_spread
     inp = _diffuse_inputs(spec, 6, num_walkers=7)
     t = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in inp.items()}
-    params = tpairwise.pack_params(spec.cfc_params, torch.float32)
+    params = tpairwise.pack_params(spec.cfc_params, torch.float32,
+                                   device="cpu")
     kw = _kernel_kw(spec)
     drawn = tpairwise.diffuse_energy_drift(
         t["cpos"], t["cdrift"], t["cenergy"], params, dt, sigma,
@@ -274,7 +277,8 @@ def test_plain_diffuse_draws_the_normals_stream():
 
 def test_log_psi_and_diffuse_wrappers_take_plain_version_only_on_cpu():
     spec = tmrbp.Spec(**BENCH32)
-    params = tpairwise.pack_params(spec.cfc_params, torch.float64)
+    params = tpairwise.pack_params(spec.cfc_params, torch.float64,
+                                   device="cpu")
     pos = torch.as_tensor(
         np.random.default_rng(7).uniform(0, 32.0, (4, 32)))
     kw = _kernel_kw(spec)

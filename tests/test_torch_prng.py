@@ -117,18 +117,18 @@ def test_normals_are_standard_normal():
 
 
 def test_normals_are_a_function_of_key_and_step():
-    a = tprng.normal(5, 17, (6, 10))
-    assert torch.equal(a, tprng.normal(5, 17, (6, 10)))
-    assert not torch.equal(a, tprng.normal(5, 18, (6, 10)))
-    assert not torch.equal(a, tprng.normal(6, 17, (6, 10)))
+    a = tprng.normal(5, 17, (6, 10), device="cpu")
+    assert torch.equal(a, tprng.normal(5, 17, (6, 10), device="cpu"))
+    assert not torch.equal(a, tprng.normal(5, 18, (6, 10), device="cpu"))
+    assert not torch.equal(a, tprng.normal(6, 17, (6, 10), device="cpu"))
     # Element i does not depend on the shape it was drawn in.
-    flat = tprng.normal(5, 17, (63,))
+    flat = tprng.normal(5, 17, (63,), device="cpu")
     assert torch.equal(a.reshape(-1)[:60], flat[:60])
-    wide = tprng.normal(5, 17, (6, 10), dtype=torch.float64)
+    wide = tprng.normal(5, 17, (6, 10), dtype=torch.float64, device="cpu")
     assert wide.dtype == torch.float64
     assert torch.equal(wide, a.to(torch.float64))
     count = tprng.normal.launch_count
-    tprng.normal(5, 17, (6, 10))
+    tprng.normal(5, 17, (6, 10), device="cpu")
     assert tprng.normal.launch_count == count
     with pytest.raises(ValueError, match="no kernel"):
         tprng.normal(5, 17, (6, 10), device="meta")

@@ -82,14 +82,14 @@ def test_build_state_matches_jax(variant):
                obd_est_spec=tvmc.OBDEstSpec(num_pos=5)))
     confs = _confs(2)
     want = jax_sampling.build_state(confs)
-    got = torch_sampling.build_state(confs)
+    got = torch_sampling.build_state(confs, device="cpu")
     assert got.pos.dtype == torch.float64
     assert torch.equal(got.pos, torch.as_tensor(confs))
     for name in ("wf_abs_log", "energy", "ssf_parts", "obd_parts"):
         _close(getattr(got, name), getattr(want, name))
     assert bool(got.move_stat.all())
     # One configuration starts every chain.
-    one = torch_sampling.build_state(confs[0])
+    one = torch_sampling.build_state(confs[0], device="cpu")
     assert one.pos.shape == (NUM_WALKERS, 16)
     _close(one.wf_abs_log, np.full(NUM_WALKERS, float(got.wf_abs_log[0])))
 
@@ -115,7 +115,7 @@ def test_replay_chain_matches_jax(variant, gaussian):
     j_pos, j_lp, j_acc = jax_sampling.replay_chain(
         jax_sampling.build_state(confs), moves, accept_u)
     t_pos, t_lp, t_acc = torch_sampling.replay_chain(
-        torch_sampling.build_state(confs), moves, accept_u)
+        torch_sampling.build_state(confs, device="cpu"), moves, accept_u)
     assert t_acc.dtype == torch.bool and t_pos.shape == (nts, NUM_WALKERS,
                                                           16)
     np.testing.assert_array_equal(t_acc.numpy(), np.asarray(j_acc))
@@ -135,8 +135,8 @@ def test_replay_chain_single_chain_broadcasts():
     moves, accept_u = rng.random((12, 16)), rng.random(12)
     want = jax_sampling.replay_chain(jax_sampling.build_state(conf), moves,
                                      accept_u)
-    got = torch_sampling.replay_chain(torch_sampling.build_state(conf),
-                                      moves, accept_u)
+    got = torch_sampling.replay_chain(
+        torch_sampling.build_state(conf, device="cpu"), moves, accept_u)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     for a, b in zip(got[:2], want[:2]):
         _close(a, b)
@@ -148,7 +148,7 @@ def test_state_from_numpy_continues_a_jax_chain():
         ssf_est_spec=None)
     jax_state = next(jax_sampling.blocks(
         16, jax_sampling.build_state(_confs(11)))).last_state
-    state = tvmc.state_from_numpy(jax_state)
+    state = tvmc.state_from_numpy(jax_state, device="cpu")
     assert state.move_stat.dtype == torch.bool and state.ssf_parts is None
     rng = np.random.default_rng(12)
     moves, accept_u = rng.random((8, NUM_WALKERS, 16)), rng.random(
@@ -182,8 +182,8 @@ def test_cadence_leaves_the_chains_unchanged(gaussian):
         **dict(est, obd_est_spec=tvmc.OBDEstSpec(num_pos=5,
                                                  est_every_mult=2)))
     confs = _confs(13)
-    a = _run_blocks(every, every.build_state(confs))
-    b = _run_blocks(chunked, chunked.build_state(confs))
+    a = _run_blocks(every, every.build_state(confs, device="cpu"))
+    b = _run_blocks(chunked, chunked.build_state(confs, device="cpu"))
     for x, y in zip(a, b):
         for name in ("wf_abs_log", "energy", "move_stat"):
             assert torch.equal(getattr(x.iter_props, name),
@@ -213,8 +213,8 @@ def test_g2_cadence():
                          pair_corr_est_spec=tvmc.PairCorrEstSpec(
                              12, est_every_mult=2), **kw)
     confs = _confs(14)
-    a = _run_blocks(one, one.build_state(confs))
-    b = _run_blocks(four, four.build_state(confs))
+    a = _run_blocks(one, one.build_state(confs, device="cpu"))
+    b = _run_blocks(four, four.build_state(confs, device="cpu"))
     for x, y in zip(a, b):
         assert torch.equal(x.iter_props.energy, y.iter_props.energy)
         assert x.iter_g2.shape == (16, 12) and y.iter_g2.shape == (2, 12)
@@ -229,7 +229,7 @@ def test_block_stream_and_offset():
     spec = tmrbp.Spec(**BASE)
     sampling = tvmc.Sampling(spec, move_spread=0.4, rng_seed=23,
                              num_walkers=NUM_WALKERS)
-    ini = sampling.build_state(_confs(15))
+    ini = sampling.build_state(_confs(15), device="cpu")
     first, second = _run_blocks(sampling, ini)
     again = next(sampling.blocks(16, first.last_state, block_offset=1))
     assert torch.equal(again.iter_props.energy, second.iter_props.energy)
@@ -258,7 +258,7 @@ def test_a_run_packs_the_kernel_parameters_once(monkeypatch):
     sampling = tvmc.Sampling(tmrbp.Spec(**BASE), move_spread=0.4,
                              rng_seed=23, num_walkers=NUM_WALKERS,
                              ssf_est_spec=tvmc.SSFEstSpec(num_modes=4))
-    ini = sampling.build_state(_confs(15))
+    ini = sampling.build_state(_confs(15), device="cpu")
     assert len(packs) == 1
     blocks = sampling.blocks(16, ini)
     next(blocks)
@@ -270,7 +270,7 @@ def test_state_data_blocks_and_states():
     sampling = tvmc.Sampling(tmrbp.Spec(**BASE), move_spread=0.4,
                              rng_seed=25, num_walkers=NUM_WALKERS,
                              ssf_est_spec=tvmc.SSFEstSpec(num_modes=4))
-    ini = sampling.build_state(_confs(16))
+    ini = sampling.build_state(_confs(16), device="cpu")
     confs, block = next(sampling.state_data_blocks(16, ini, thin=4))
     assert confs.shape == (4, NUM_WALKERS, 16)
     assert torch.equal(confs[-1], block.last_state.pos)
@@ -291,7 +291,8 @@ def test_free_ideal_limit_accepts_every_move():
     sampling = tvmc.Sampling(
         tmrbp.Spec(**dict(BASE, lattice_depth=0.0, interaction_strength=0.0)),
         move_spread=1.0, rng_seed=26, num_walkers=8)
-    block = sampling.as_chain(32, sampling.build_state(_confs(17, 8)))
+    block = sampling.as_chain(
+        32, sampling.build_state(_confs(17, 8), device="cpu"))
     assert block.accept_rate == 1.0
     assert not block.iter_props.energy.any()
     pos = block.last_state.pos
@@ -309,4 +310,5 @@ def test_invalid_cadence_raises():
                              num_walkers=2, est_every=4,
                              ssf_est_spec=tvmc.SSFEstSpec(3))
     with pytest.raises(ValueError, match="divisible"):
-        next(sampling.blocks(6, sampling.build_state(_confs(18, 2))))
+        next(sampling.blocks(
+            6, sampling.build_state(_confs(18, 2), device="cpu")))
