@@ -14,16 +14,22 @@ A. the card's name and power limit; the kernels' build (``-Xptxas -v``);
 B. the pair energy/drift kernel (K1) against its plain torch version,
    f32 at the main path's shape and f64;
 C. the Philox normals kernel (K2) against its plain torch version: equal
-   integer words, normals equal to f32 rounding, and their moments;
+   integer words, normals equal to f32 rounding, and their moments; its
+   scaled ``out=`` form bit for bit ``scale *`` its unscaled output, f32
+   and f64; its Box-Muller radius and unit cos/sin bit for bit those of
+   the accurate ``logf``/``sqrtf`` form over all 2^24 values of each
+   uniform;
 D. a small f64 replay on the card against the same replay on the CPU,
    then the DMC run: 6 burn blocks and 2 timed blocks of 512 steps;
    E/N must land within 0.02 of the stored 8.41614 and inside the
-   physical bracket (8.0107, 8.5089), and both kernels must have been
-   launched on every step;
+   physical bracket (8.0107, 8.5089), K1 must have been launched on
+   every step and K2 exactly once per step (the noise comes scaled);
 F. the histogram kernel (K4) against its plain torch version, bit for
    bit: the density shape (17408 x 128, 128 bins, f32 and f64), the g2
    shape (the 17408 x 128 rows of 128 pair distances, 128 bins of L/256)
-   and the bin edges;
+   and the bin edges: those of a unit bin, and those of a bin size that
+   is not a power of two (127.3/256: every k bs and the floats just below
+   and above it, +-0, negatives, NaN, +-inf, values past B bs);
 G. DMC with estimators from phase D's last state: a small f64 estimator
    replay on the card against the CPU, then G1, the bench estimator load
    (pure 128-bin density and pure 64-mode S(k) every step), and G2, the
@@ -56,7 +62,12 @@ E. each kernel's time against its plain version at the main path's
    shapes, alternating plain, kernel, kernel, plain (K3 also against the
    step's own diffusion), beside its bound: the larger of its flops over
    the FP32 peak and its bytes over the HBM rate, counted from the
-   shapes; K2 also beside ``torch.randn`` (another stream).
+   shapes.  K2 and K4 also give their device time (the profiler's kernel
+   time), and K2 stands beside ``torch.randn`` (another stream), like for
+   like, per call and on the device: the allocating form against
+   ``torch.randn(shape, generator=gen)``, the ``out=`` form (scaled by
+   sigma, as the DMC step draws it) against ``torch.randn(shape,
+   generator=gen, out=buf)``, in turns.
 
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
 V1 and V2, in all and per step of each run; K1 must run on every DMC
@@ -76,6 +87,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
@@ -151,13 +163,14 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 #: (``csrc/pair_terms.cuh::walker_terms``; the O(N) one-body terms and
 #: reductions left out); one Box-Muller per pair of normals
 #: (``csrc/philox.cuh::box_muller``: ~40 flops, 20 per normal; the
-#: Philox rounds are integer ops); K4 per element (the floor division of
-#: ``csrc/histogram.cu``: fmod, subtract, divide, floor); K3 per element
-#: its move (4) and the Box-Muller of its element's pair, which each
-#: thread recomputes (40), per unordered pair K1's.
+#: Philox rounds are integer ops); K4 per element (the exact floor of
+#: ``csrc/histogram.cu::FastBin``: the multiply by the reciprocal, the
+#: floor, the fma of the remainder and the one correction); K3 per
+#: element its move (4) and the Box-Muller of its element's pair, which
+#: each thread recomputes (40), per unordered pair K1's.
 K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
 K2_FLOPS_PER_NORMAL = 20
-K4_FLOPS_PER_ELEMENT = 4
+K4_FLOPS_PER_ELEMENT = 5
 K3_FLOPS_PER_ELEMENT = 44
 F32_BYTES = 4
 
@@ -215,6 +228,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, attempts: int = 3):
+    """Mean device time of ``fn()``'s kernels per call: the profiler's
+    kernel time over ``reps`` calls after a warm-up, or None (not
+    measured) if the profiler sees no device time in any of
+    ``attempts`` sessions (a session now and then records nothing)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for event in prof.key_averages():
+            if event.device_type.name == "CUDA":
+                total_us += getattr(event, "self_device_time_total",
+                                    getattr(event, "self_cuda_time_total",
+                                            0.0))
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    return None
 
 
 def pair_inputs(spec_kwargs, num_walkers, dtype, device, seed=0):
@@ -292,9 +328,26 @@ def check_k2(device) -> float:
     require(abs(mean) < 5 / math.sqrt(n) and abs(std - 1) < 5 / math.sqrt(
         2 * n), "K2 normals: mean 0, std 1")
     err = float((z - z_p).abs().max())
+    # The scaled out= form, as the samplers draw: bit for bit scale times
+    # the unscaled kernel's output (torch's multiply by the scalar).
+    scale = math.sqrt(2 * TIME_STEP)
+    for dtype in (torch.float32, torch.float64):
+        buf = torch.empty(shape, dtype=dtype, device=device)
+        got = prng.normal(key, step, shape, dtype, device, scale=scale,
+                          out=buf)
+        want = scale * prng.normal(key, step, shape, dtype, device)
+        torch.cuda.synchronize()
+        require(got is buf and torch.equal(got, want),
+                f"K2 scale/out= {dtype} equal to scale * normal")
+    # The kernels' Box-Muller against the accurate logf/sqrtf form over
+    # every value of each 24-bit uniform.
+    mismatches = prng.box_muller_mismatches(device)
+    require(mismatches == 0, f"K2 transform bit for bit the accurate "
+            f"logf's over all 2^24 uniforms: {mismatches} differ")
     phase("C", check="K2 vs plain", shape=list(shape), words_equal=True,
           max_abs_err=err, mean=mean, std=std, skew=skew,
-          excess_kurtosis=kurt, ok=True)
+          excess_kurtosis=kurt, scaled_out_equal=True,
+          transform_mismatches_of_2_24=mismatches, ok=True)
     return err
 
 
@@ -384,8 +437,9 @@ def run_dmc(device, card: str):
             "final state finite, of the buffer's shape")
     require(0 < int(last.num_walkers) <= MAX_WALKERS, "walkers alive")
     e_per_boson = check_energy(props_list, "D")
-    require(launches["K1"] >= steps_run and launches["K2"] >= steps_run,
-            f"kernel launches {launches} cover {steps_run} steps")
+    require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
+            f"kernel launches {launches}: K1 on each of {steps_run} steps, "
+            f"K2 once per step")
     step_ms = start.elapsed_time(end) / (TIMED_BLOCKS * NTS)
     phase("D", check="DMC bench config", card=card, steps_run=steps_run,
           burn_s=burn_s, timed_wall_s=wall_s,
@@ -417,6 +471,9 @@ def check_k4(device) -> float:
                       torch.as_tensor(np.tile(edges, (4, 1)), dtype=dtype,
                                       device=device),
                       torch.tensor(1.0, dtype=dtype, device=device), 16))
+        bin_size = torch.tensor(K4_EDGE_BIN_SIZE, dtype=dtype, device=device)
+        cases.append((f"edges of {K4_EDGE_BIN_SIZE} {dtype}",
+                      bin_edge_values(bin_size, NOP), bin_size, NOP))
     err = 0.0
     for label, pos, bin_size, num_bins in cases:
         count = histogram.walker_histogram.launch_count
@@ -434,6 +491,34 @@ def check_k4(device) -> float:
         phase("F", check=f"K4 {label}", shape=list(pos.shape),
               num_bins=num_bins, equal=equal, max_abs_err=diff, ok=True)
     return err
+
+
+#: A bin size that is not a power of two, for K4's exact floor: L/256 of
+#: a supercell of 127.3.
+K4_EDGE_BIN_SIZE = 127.3 / 256
+
+
+def bin_edge_values(bin_size: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Rows of K4 edge cases for ``bin_size`` (in its dtype, on its
+    device): every edge ``k bs`` (k = 0 .. B + 1, multiplied in that
+    dtype) and the floats just below and above it, +-0, negatives, NaN,
+    +-inf, and values past ``B bs``; 128 per row, the last row padded
+    with bin centres."""
+    k = torch.arange(num_bins + 2, dtype=bin_size.dtype,
+                     device=bin_size.device)
+    edges = k * bin_size
+    inf = torch.full_like(edges, math.inf)
+    special = torch.tensor(
+        [0.0, -0.0, -1e-30, -0.5, -1e30, math.nan, math.inf, -math.inf,
+         1e30, 3e38], dtype=bin_size.dtype, device=bin_size.device)
+    past = (num_bins + torch.arange(1, 9, dtype=bin_size.dtype,
+                                    device=bin_size.device)) * bin_size
+    vals = torch.cat([edges, torch.nextafter(edges, -inf),
+                      torch.nextafter(edges, inf), special, past])
+    pad = torch.arange((-vals.numel()) % 128, dtype=bin_size.dtype,
+                       device=bin_size.device)
+    vals = torch.cat([vals, (pad % num_bins + 0.5) * bin_size])
+    return vals.reshape(-1, 128)
 
 
 def pair_distances(device) -> torch.Tensor:
@@ -542,8 +627,9 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
     require(launches["K4"] >= hist_steps,
             f"K4 launches {launches['K4']} cover the {hist_steps} density "
             f"and g2 measurements")
-    require(launches["K1"] >= steps_run and launches["K2"] >= steps_run,
-            f"kernel launches {launches} cover {steps_run} steps")
+    require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
+            f"kernel launches {launches}: K1 on each of {steps_run} steps, "
+            f"K2 once per step")
     last = done[-1].last_state
     require(bool(torch.isfinite(last.pos).all()), "final state finite")
     if sampling.cm_diffusion_est:
@@ -943,15 +1029,52 @@ def time_kernels(device, card: str) -> dict:
     # K2's yardstick: torch.randn draws standard normals of the same shape
     # on a CUDA generator, but from another stream (the generator's own
     # Philox offsets, not (seed, step)): timed, never used by the port.
+    # Like for like, in turns: the allocating forms, and the out= forms
+    # (K2 scaled by sigma, as the DMC step draws its noise).  Per call
+    # first, the device times after: a profiler session slows the host's
+    # next launches.
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    library = [cuda_ms(lambda: torch.randn(shape, device=device,
-                                           generator=gen), 500)
-               for _ in range(2)]
-    times["K2"]["library_ms"] = sum(library) / 2
-    phase("E", kernel="K2 yardstick", card=card, shape=list(shape),
-          library_call="torch.randn, another stream", library_ms=library,
-          ok=True)
+    noise, buf = (torch.empty(shape, device=device) for _ in range(2))
+    sigma = math.sqrt(2 * TIME_STEP)
+    forms = {
+        "allocating": (
+            lambda: prng.normal(1, 7, shape, torch.float32, device),
+            lambda: torch.randn(shape, device=device, generator=gen)),
+        "out": (lambda: prng.normal(1, 7, shape, torch.float32, device,
+                                    scale=sigma, out=noise),
+                lambda: torch.randn(shape, generator=gen, out=buf)),
+    }
+    per_call = {}
+    for form, (kernel, library) in forms.items():
+        k1 = cuda_ms(kernel, 500)
+        l1 = cuda_ms(library, 500)
+        l2 = cuda_ms(library, 500)
+        k2 = cuda_ms(kernel, 500)
+        per_call[form] = [k1, k2], [l1, l2]
+    # Device time (the kernels' own time, without the host's launch
+    # path) of K2 and K4 at the main path's shapes.
+    for name, reps in (("K2", 200), ("K4", 200), ("K4 g2", 20)):
+        ms = device_ms(cases[name][1], reps)
+        times[name]["device_ms"] = ms
+        phase("E", kernel=name, card=card, device_ms=ms,
+              bound_ms=times[name]["bound_ms"],
+              bound_share_of_device_time=(times[name]["bound_ms"] / ms
+                                          if ms else None), ok=True)
+    for form, (kernel, library) in forms.items():
+        k_ms, l_ms = per_call[form]
+        k_dev = device_ms(kernel, 200)
+        l_dev = device_ms(library, 200)
+        prefix = "out_" if form == "out" else ""
+        if form == "out":
+            times["K2"].update(out_ms=sum(k_ms) / 2, out_device_ms=k_dev)
+        times["K2"].update({f"library_{prefix}ms": sum(l_ms) / 2,
+                            f"library_{prefix}device_ms": l_dev})
+        phase("E", kernel="K2 vs torch.randn", form=form, card=card,
+              shape=list(shape), library_call="torch.randn, another stream",
+              kernel_ms=k_ms, library_ms=l_ms, device_ms=k_dev,
+              library_device_ms=l_dev,
+              per_call_no_slower=sum(k_ms) <= sum(l_ms), ok=True)
     return times
 
 
@@ -1018,6 +1141,10 @@ def main() -> None:
 
     def row(name, key, source, replaces, err, **extra):
         # No single PyTorch call computes K1, K3 or K4: library_ms null.
+        # (K4 bins and counts every row on its own; torch.histc and
+        # torch.bincount count one flat tensor, so a per-row histogram
+        # takes a scatter_add_ of ones into (rows, bins), K4's plain
+        # version.)
         return {"name": name, "route": "cuda",
                 "source": f"phd_qmclib_torch/csrc/{source}",
                 "replaces": f"phd_qmclib_tpu/ops/{replaces}",
@@ -1037,7 +1164,7 @@ def main() -> None:
             library_call="torch.randn, another stream"),
         row("walker_histogram", "K4", "histogram.cu", "histogram.py:81",
             err_k4, g2_ms=g2["ms"], g2_plain_ms=g2["plain_ms"],
-            g2_bound_ms=g2["bound_ms"]),
+            g2_bound_ms=g2["bound_ms"], g2_device_ms=g2["device_ms"]),
         row("diffuse_energy_drift", "K3", "diffuse.cu", "pairwise.py:210",
             err_k3, on_main_path=False,
             step_ms=times["K3 vs step"]["plain_ms"]),

@@ -107,7 +107,7 @@ diffuse_kernel(const T* __restrict__ cpos, const T* __restrict__ cdrift,
 template <typename T>
 int launch(const void* cpos, const void* cdrift, const void* cenergy,
            const void* params, const void* xi, const void* e_ref, double dt,
-           double sigma, int key_lo, int key_hi, int step_lo, int step_hi,
+           double sigma, unsigned long long key, unsigned long long step,
            void* npos, void* nenergy, void* ndrift, void* nweight,
            int num_walkers, int nop, int is_free, int is_ideal,
            int defects_sep, void* stream) {
@@ -123,8 +123,8 @@ int launch(const void* cpos, const void* cdrift, const void* cenergy,
           static_cast<const T*>(cenergy), static_cast<const T*>(params),
           static_cast<const T*>(xi), static_cast<const T*>(e_ref),
           static_cast<T>(dt), static_cast<T>(sigma),
-          static_cast<uint32_t>(key_lo), static_cast<uint32_t>(key_hi),
-          static_cast<uint32_t>(step_lo), static_cast<uint32_t>(step_hi),
+          static_cast<uint32_t>(key), static_cast<uint32_t>(key >> 32),
+          static_cast<uint32_t>(step), static_cast<uint32_t>(step >> 32),
           static_cast<T*>(npos), static_cast<T*>(nenergy),
           static_cast<T*>(ndrift), static_cast<T*>(nweight), nop, is_free,
           is_ideal, defects_sep);
@@ -136,23 +136,21 @@ int launch(const void* cpos, const void* cdrift, const void* cenergy,
 extern "C" int qmc_diffuse_energy_drift_f32(
     const void* cpos, const void* cdrift, const void* cenergy,
     const void* params, const void* xi, const void* e_ref, double dt,
-    double sigma, int key_lo, int key_hi, int step_lo, int step_hi,
+    double sigma, unsigned long long key, unsigned long long step,
     void* npos, void* nenergy, void* ndrift, void* nweight, int num_walkers,
     int nop, int is_free, int is_ideal, int defects_sep, void* stream) {
   return launch<float>(cpos, cdrift, cenergy, params, xi, e_ref, dt, sigma,
-                       key_lo, key_hi, step_lo, step_hi, npos, nenergy,
-                       ndrift, nweight, num_walkers, nop, is_free, is_ideal,
-                       defects_sep, stream);
+                       key, step, npos, nenergy, ndrift, nweight, num_walkers,
+                       nop, is_free, is_ideal, defects_sep, stream);
 }
 
 extern "C" int qmc_diffuse_energy_drift_f64(
     const void* cpos, const void* cdrift, const void* cenergy,
     const void* params, const void* xi, const void* e_ref, double dt,
-    double sigma, int key_lo, int key_hi, int step_lo, int step_hi,
+    double sigma, unsigned long long key, unsigned long long step,
     void* npos, void* nenergy, void* ndrift, void* nweight, int num_walkers,
     int nop, int is_free, int is_ideal, int defects_sep, void* stream) {
   return launch<double>(cpos, cdrift, cenergy, params, xi, e_ref, dt, sigma,
-                        key_lo, key_hi, step_lo, step_hi, npos, nenergy,
-                        ndrift, nweight, num_walkers, nop, is_free, is_ideal,
-                        defects_sep, stream);
+                        key, step, npos, nenergy, ndrift, nweight, num_walkers,
+                        nop, is_free, is_ideal, defects_sep, stream);
 }

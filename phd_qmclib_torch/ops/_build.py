@@ -7,8 +7,16 @@ a kernel is launched (or again when a source or header is newer than
 the library).  Each source compiles in its own ``nvcc`` process,
 all started together, and one more links the objects.  The library is
 loaded with ``ctypes``: every pointer and the stream pass as
-``c_void_p``, every integer as ``c_int``, and every launch function
-returns its ``cudaGetLastError()``.
+``c_void_p``, every integer as ``c_int`` (a 64-bit key or step as
+``c_uint64``), and every launch function returns its
+``cudaGetLastError()``.
+
+The launch path (:func:`functions`, :func:`call`, :func:`sm_count`,
+:func:`persistent_grid`) costs about what a PyTorch op's dispatch does:
+the ctypes function objects are looked up once, when the library loads;
+the stream is the device's current raw stream, an int, without a
+``torch.cuda.Stream`` object; the device guard is entered only when the
+tensor's device is not the current one.
 
 Nothing here runs at import time: the CPU tests import every module on
 a host without ``nvcc`` or a GPU.
@@ -21,7 +29,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "check", "library", "BUILD_DIR", "HEADERS", "SOURCES"]
+import torch
+
+__all__ = ["build", "call", "functions", "library", "persistent_grid",
+           "sm_count", "BUILD_DIR", "HEADERS", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu",
@@ -39,8 +50,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_DIFFUSE = (_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _P, _P, _P,
+_L, _U64 = ctypes.c_longlong, ctypes.c_uint64
+_DIFFUSE = (_P, _P, _P, _P, _P, _P, _D, _D, _U64, _U64, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _P)
+_NORMALS = (_P, _I, _U64, _U64, _D, _I, _P)
+_HISTOGRAM = (_P, _P, _P, _L, _I, _I, _I, _I, _P)
 #: Signatures of the exported launch functions (all return an int).
 SIGNATURES = {
     # pos, params, energy, drift, num_walkers, nop, is_free, is_ideal,
@@ -54,21 +68,24 @@ SIGNATURES = {
     "qmc_pair_logpsi_energy_drift_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P),
     # cpos, cdrift, cenergy, params, xi (or NULL), e_ref (0-d, on the
-    # device), dt, sigma, key_lo, key_hi, step_lo, step_hi, npos,
-    # nenergy, ndrift, nweight, num_walkers, nop, is_free, is_ideal,
-    # defects_sep, stream
+    # device), dt, sigma, key, step, npos, nenergy, ndrift, nweight,
+    # num_walkers, nop, is_free, is_ideal, defects_sep, stream
     "qmc_diffuse_energy_drift_f32": _DIFFUSE,
     "qmc_diffuse_energy_drift_f64": _DIFFUSE,
-    # out, num_elements, key_lo, key_hi, step_lo, step_hi, stream
-    "qmc_philox_normals_f32": (_P, _I, _I, _I, _I, _I, _P),
-    "qmc_philox_normals_f64": (_P, _I, _I, _I, _I, _I, _P),
-    # out (uint32 words), num_quads, key_lo, key_hi, step_lo, step_hi,
-    # stream
-    "qmc_philox_words": (_P, _I, _I, _I, _I, _I, _P),
+    # out, num_elements, key, step, scale, grid, stream
+    "qmc_philox_normals_f32": _NORMALS,
+    "qmc_philox_normals_f64": _NORMALS,
+    # out (uint32 words), num_quads, key, step, grid, stream
+    "qmc_philox_words": (_P, _I, _U64, _U64, _I, _P),
     # pos, bin_size (0-d, on the device), out, num_rows, row_len,
-    # num_bins, stream
-    "qmc_walker_histogram_f32": (_P, _P, _P, _I, _I, _I, _P),
-    "qmc_walker_histogram_f64": (_P, _P, _P, _I, _I, _I, _P),
+    # num_bins, warps per CTA, grid, stream
+    "qmc_walker_histogram_f32": _HISTOGRAM,
+    "qmc_walker_histogram_f64": _HISTOGRAM,
+    # mismatches (one int32 on the device, added to), stream
+    "qmc_check_box_muller": (_P, _P),
+    # The CTAs per SM that a kernel's launch bounds keep resident.
+    "qmc_philox_ctas_per_sm": (),
+    "qmc_walker_histogram_ctas_per_sm": (),
 }
 
 
@@ -140,7 +157,42 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error code."""
+@functools.lru_cache(maxsize=None)
+def functions() -> dict:
+    """The launch functions by exported name, looked up once."""
+    lib = library()
+    return {name: getattr(lib, name) for name in SIGNATURES}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def persistent_grid(num_tiles: int, sms: int, ctas_per_sm: int) -> int:
+    """CTAs of a persistent kernel whose CTA ``c`` takes the tiles ``c,
+    c + grid, c + 2 grid, ...``: every SM's resident CTAs, but no CTA
+    without a tile."""
+    return max(1, min(num_tiles, sms * ctas_per_sm))
+
+
+# Bound when the module loads (None on a build of torch without CUDA,
+# whose tensors never reach call()).
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def call(fn, device: torch.device, *args) -> None:
+    """Launch ``fn(*args, stream)`` on the current stream of ``device``
+    (a CUDA ``torch.device`` with an index, as a tensor's is), entering
+    the device only when it is not the current one; raise if the launch
+    function returned a CUDA error."""
+    index = device.index
+    if _get_device() == index:
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err} at launch")

@@ -11,15 +11,54 @@ here).  Counts are exact integers in ``pos``'s dtype.
 ``csrc/histogram.cu`` on a CUDA tensor and runs
 :func:`walker_histogram_plain` on a CPU tensor.
 """
+import functools
+
 import torch
 
 from . import _build
 
-__all__ = ["MAX_BINS", "walker_histogram", "walker_histogram_plain"]
+__all__ = ["MAX_BINS", "launch_shape", "walker_histogram",
+           "walker_histogram_plain"]
 
 #: Most bins the kernel takes: one warp's int counts in 48 KB of shared
 #: memory.
-MAX_BINS = 48 * 1024 // 4
+SHARED_BYTES = 48 * 1024
+MAX_BINS = SHARED_BYTES // 4
+#: Most warps per CTA of the kernel (``csrc/histogram.cu`` kMaxWarps).
+MAX_WARPS = 8
+#: Shared memory of one H100 SM, and what each resident CTA reserves of
+#: it.
+SM_SHARED_BYTES, CTA_RESERVED_BYTES = 228 * 1024, 1024
+
+#: Launch functions by dtype.
+_LAUNCH = {torch.float32: "qmc_walker_histogram_f32",
+           torch.float64: "qmc_walker_histogram_f64"}
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(num_rows: int, num_bins: int, sms: int,
+                 ctas_per_sm: int) -> tuple:
+    """``(warps per CTA, CTAs)`` of the kernel: as many warps (one row
+    each at a time, their int bins in shared memory) as fit 48 KB, and a
+    persistent grid of the CTAs that fit on ``sms`` SMs, at most
+    ``ctas_per_sm`` each (the kernel's launch bounds), and no CTA without
+    a tile of rows: CTA ``c`` takes the tiles ``c, c + grid, ...`` of
+    ``warps`` contiguous rows."""
+    warps = max(1, min(MAX_WARPS, SHARED_BYTES // (4 * num_bins)))
+    per_cta = warps * num_bins * 4 + CTA_RESERVED_BYTES
+    resident = max(1, min(ctas_per_sm, SM_SHARED_BYTES // per_cta))
+    return warps, _build.persistent_grid(-(-num_rows // warps), sms, resident)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch(dtype, num_rows: int, num_bins: int, index: int):
+    """The launch function, warps per CTA and grid of the kernel for
+    ``num_rows`` rows of ``dtype`` into ``num_bins`` bins on CUDA device
+    ``index``."""
+    fns = _build.functions()
+    warps, grid = launch_shape(num_rows, num_bins, _build.sm_count(index),
+                               fns["qmc_walker_histogram_ctas_per_sm"]())
+    return fns[_LAUNCH[dtype]], warps, grid
 
 
 def _bin_ids(pos: torch.Tensor, bin_size: torch.Tensor,
@@ -54,46 +93,42 @@ def walker_histogram(pos: torch.Tensor, bin_size: torch.Tensor,
     ``bin_size`` is a 0-d tensor of ``pos``'s dtype on ``pos``'s device;
     the kernel reads it there, so no value crosses to the host.  A CUDA
     tensor launches the kernel of ``csrc/histogram.cu`` (f32 or f64,
-    ``num_bins <= MAX_BINS``); a CPU tensor runs
-    :func:`walker_histogram_plain`.
+    ``num_bins <= MAX_BINS``, any row length and row count; rows that are
+    not 16-byte aligned, as in a view with a storage offset, take its
+    scalar path); a CPU tensor runs :func:`walker_histogram_plain`.
     """
-    if pos.device.type == "cpu":
-        return walker_histogram_plain(pos, bin_size, num_bins)
-    if pos.device.type != "cuda":
-        raise ValueError(f"no kernel for device {pos.device}")
-    if pos.dtype not in (torch.float32, torch.float64):
+    dev = pos.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return walker_histogram_plain(pos, bin_size, num_bins)
+        raise ValueError(f"no kernel for device {dev}")
+    if pos.dtype not in _LAUNCH:
         raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
     if not 0 < num_bins <= MAX_BINS:
         raise ValueError(f"num_bins must be in [1, {MAX_BINS}], got "
                          f"{num_bins}")
-    if bin_size.shape != () or bin_size.dtype != pos.dtype \
-            or bin_size.device != pos.device:
+    if bin_size.dim() != 0 or bin_size.dtype != pos.dtype \
+            or bin_size.device != dev:
         raise ValueError("bin_size must be a 0-d tensor in pos' dtype on "
                          "pos' device")
     if pos.dim() < 1 or pos.shape[-1] == 0:
         raise ValueError(f"pos must have a non-empty last axis, got "
                          f"{tuple(pos.shape)}")
-    rows = pos.reshape(-1, pos.shape[-1])
+    rows_2d = pos.dim() == 2
+    rows = pos if rows_2d else pos.reshape(-1, pos.shape[-1])
     if not rows.is_contiguous():
         raise ValueError("pos must be contiguous")
     num_rows, row_len = rows.shape
     if num_rows >= 1 << 31:
         raise ValueError(f"{num_rows} rows exceed the kernel's int range")
-    out = torch.empty((num_rows, num_bins), dtype=pos.dtype,
-                      device=pos.device)
-    if num_rows == 0:
-        return out.reshape(pos.shape[:-1] + (num_bins,))
-    lib = _build.library()
-    launch = (lib.qmc_walker_histogram_f32 if pos.dtype == torch.float32
-              else lib.qmc_walker_histogram_f64)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(launch(rows.data_ptr(), bin_size.data_ptr(),
-                            out.data_ptr(), num_rows, row_len, num_bins,
-                            stream),
-                     "walker histogram kernel")
-    walker_histogram.launch_count += 1
-    return out.reshape(pos.shape[:-1] + (num_bins,))
+    out = pos.new_empty((num_rows, num_bins))
+    if num_rows > 0:
+        fn, warps, grid = _launch(pos.dtype, num_rows, num_bins, dev.index)
+        _build.call(fn, dev, rows.data_ptr(), bin_size.data_ptr(),
+                    out.data_ptr(), num_rows, row_len, num_bins, warps,
+                    grid)
+        walker_histogram.launch_count += 1
+    return out if rows_2d else out.reshape(pos.shape[:-1] + (num_bins,))
 
 
 #: Kernel launches since the last reset (set it to 0 to reset).

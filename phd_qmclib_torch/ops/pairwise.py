@@ -189,32 +189,24 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
                                       with_log_psi=with_log_psi)
     _check_params(pos, params, nop, defects_sep)
     num_walkers = pos.shape[0]
-    energy = torch.empty(num_walkers, dtype=pos.dtype, device=pos.device)
+    energy = pos.new_empty(num_walkers)
     drift = torch.empty_like(pos)
     log_psi = torch.empty_like(energy) if with_log_psi else None
     if num_walkers == 0:
         return (energy, drift) if log_psi is None else (log_psi, energy,
                                                         drift)
-    lib = _build.library()
-    f32 = pos.dtype == torch.float32
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        flags = (num_walkers, nop, int(is_free), int(is_ideal), defects_sep,
-                 stream)
-        if with_log_psi:
-            launch = (lib.qmc_pair_logpsi_energy_drift_f32 if f32
-                      else lib.qmc_pair_logpsi_energy_drift_f64)
-            _build.check(launch(pos.data_ptr(), params.data_ptr(),
-                                log_psi.data_ptr(), energy.data_ptr(),
-                                drift.data_ptr(), *flags),
-                         "pair log|psi|/energy/drift kernel")
-            energy_and_drift.log_psi_launch_count += 1
-            return log_psi, energy, drift
-        launch = (lib.qmc_pair_energy_drift_f32 if f32
-                  else lib.qmc_pair_energy_drift_f64)
-        _build.check(launch(pos.data_ptr(), params.data_ptr(),
-                            energy.data_ptr(), drift.data_ptr(), *flags),
-                     "pair energy/drift kernel")
+    suffix = "f32" if pos.dtype == torch.float32 else "f64"
+    args = (num_walkers, nop, int(is_free), int(is_ideal), defects_sep)
+    if with_log_psi:
+        fn = _build.functions()[f"qmc_pair_logpsi_energy_drift_{suffix}"]
+        _build.call(fn, pos.device, pos.data_ptr(), params.data_ptr(),
+                    log_psi.data_ptr(), energy.data_ptr(), drift.data_ptr(),
+                    *args)
+        energy_and_drift.log_psi_launch_count += 1
+        return log_psi, energy, drift
+    _build.call(_build.functions()[f"qmc_pair_energy_drift_{suffix}"],
+                pos.device, pos.data_ptr(), params.data_ptr(),
+                energy.data_ptr(), drift.data_ptr(), *args)
     energy_and_drift.launch_count += 1
     return energy, drift
 
@@ -286,24 +278,19 @@ def diffuse_energy_drift(cpos, cdrift, cenergy, params, dt: float,
                              f"tensor in cpos' dtype on cpos' device")
     npos = torch.empty_like(cpos)
     ndrift = torch.empty_like(cpos)
-    nenergy = torch.empty(num_walkers, dtype=cpos.dtype, device=cpos.device)
+    nenergy = cpos.new_empty(num_walkers)
     nweight = torch.empty_like(nenergy)
     if num_walkers == 0:
         return npos, nenergy, ndrift, nweight
-    lib = _build.library()
-    launch = (lib.qmc_diffuse_energy_drift_f32
-              if cpos.dtype == torch.float32
-              else lib.qmc_diffuse_energy_drift_f64)
-    with torch.cuda.device(cpos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(launch(
-            cpos.data_ptr(), cdrift.data_ptr(), cenergy.data_ptr(),
-            params.data_ptr(), None if xi is None else xi.data_ptr(),
-            e_ref.data_ptr(), float(dt), float(sigma),
-            *prng.launch_args(rng_seed, step), npos.data_ptr(),
-            nenergy.data_ptr(), ndrift.data_ptr(), nweight.data_ptr(),
-            num_walkers, nop, int(is_free), int(is_ideal), defects_sep,
-            stream), "fused diffusion kernel")
+    suffix = "f32" if cpos.dtype == torch.float32 else "f64"
+    _build.call(
+        _build.functions()[f"qmc_diffuse_energy_drift_{suffix}"],
+        cpos.device, cpos.data_ptr(), cdrift.data_ptr(), cenergy.data_ptr(),
+        params.data_ptr(), None if xi is None else xi.data_ptr(),
+        e_ref.data_ptr(), float(dt), float(sigma),
+        *prng.check_key(rng_seed, step), npos.data_ptr(),
+        nenergy.data_ptr(), ndrift.data_ptr(), nweight.data_ptr(),
+        num_walkers, nop, int(is_free), int(is_ideal), defects_sep)
     diffuse_energy_drift.launch_count += 1
     return npos, nenergy, ndrift, nweight
 

@@ -16,15 +16,22 @@ uniforms, ``u1 = (w >> 8) 2^-24 + 2^-24`` in (0, 1] and
 polynomial cos/sin turns each pair into ``r cos`` and ``r sin``:
 elements ``4q, 4q+1`` from ``(w0, w1)`` and ``4q+2, 4q+3`` from
 ``(w2, w3)``.  The transform runs in f32 whatever the output dtype.
+
+:func:`normal` scales the normals as it draws them (``scale=``, bit for
+bit ``scale * z``: torch's multiply of the f32 normal by the scale cast
+to f32, or of the normal cast to f64 by the scale) and can write into a
+buffer the caller keeps (``out=``), so that a sampler's noise costs one
+launch and no allocation per step.
 """
+import functools
 import math
 
 import torch
 
 from . import _build, trig
 
-__all__ = ["box_muller", "launch_args", "normal", "normal_plain",
-           "philox_words", "philox_words_plain"]
+__all__ = ["box_muller", "box_muller_mismatches", "check_key", "normal",
+           "normal_plain", "philox_words", "philox_words_plain"]
 
 _MASK32 = 0xFFFFFFFF
 #: Philox4x32 round multipliers and Weyl key increments (Salmon et al.,
@@ -41,9 +48,13 @@ def _split64(value: int):
     return value & _MASK32, value >> 32
 
 
-def _as_c_int(word: int) -> int:
-    """A 32-bit word as the signed int the C interface takes."""
-    return word - (1 << 32) if word >= 1 << 31 else word
+def check_key(key: int, step: int):
+    """``(key, step)`` for the kernels' 64-bit C arguments; raises unless
+    both are integers in [0, 2^64)."""
+    if not (0 <= key < 1 << 64 and 0 <= step < 1 << 64):
+        raise ValueError(f"key {key} and step {step} must be 64-bit "
+                         f"unsigned integers")
+    return key, step
 
 
 # -- plain torch version ----------------------------------------------------
@@ -138,46 +149,115 @@ def normal_plain(key: int, step: int, shape, dtype=torch.float32,
 
 # -- kernel wrappers ---------------------------------------------------------
 
-def launch_args(key: int, step: int):
-    """``(key_lo, key_hi, step_lo, step_hi)`` as the C interface's ints."""
-    return [_as_c_int(w) for w in (*_split64(key), *_split64(step))]
+#: Launch functions by output dtype.
+_NORMALS = {torch.float32: "qmc_philox_normals_f32",
+            torch.float64: "qmc_philox_normals_f64"}
+#: Threads per CTA of the kernels of ``csrc/prng.cu`` (kThreads).
+THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_per_sm() -> int:
+    return _build.functions()["qmc_philox_ctas_per_sm"]()
+
+
+def _grid(num_quads: int, index: int) -> int:
+    return _build.persistent_grid(-(-num_quads // THREADS),
+                                  _build.sm_count(index), _ctas_per_sm())
+
+
+@functools.lru_cache(maxsize=64)
+def _like(dtype, device):
+    """An empty tensor of ``dtype`` on ``device``, whose ``new_empty``
+    allocates an output: on the card half the host time of
+    ``torch.empty(shape, dtype=..., device=...)``, which parses its
+    keyword arguments on every call.  None for a CUDA device without an
+    index, which names whatever device is current at the call."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return None
+    return torch.empty(0, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch(dtype, numel: int, index: int):
+    """The launch function and grid of the normals kernel for ``numel``
+    elements of ``dtype`` on CUDA device ``index``."""
+    name = _NORMALS.get(dtype)
+    if name is None:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if numel >= 1 << 31:
+        raise ValueError(f"{numel} elements exceed the kernel's int range")
+    return _build.functions()[name], _grid(-(-numel // 4), index)
+
+
+def _check_out(out: torch.Tensor, shape, dtype, device) -> None:
+    """Raise unless ``out`` is a contiguous tensor of ``shape`` and
+    ``dtype`` on ``device``."""
+    want = device if isinstance(device, torch.device) else torch.device(
+        device)
+    if out.shape != tuple(shape) or out.dtype != dtype \
+            or out.device.type != want.type \
+            or want.index not in (None, out.device.index) \
+            or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {tuple(shape)} tensor "
+                         f"of {dtype} on {want}, got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
 
 
 def normal(key: int, step: int, shape, dtype=torch.float32,
-           device="cuda") -> torch.Tensor:
-    """Standard normals of ``shape`` for ``(key, step)``.
+           device="cuda", *, scale: float = 1.0,
+           out: torch.Tensor = None) -> torch.Tensor:
+    """``scale`` times standard normals of ``shape`` for ``(key, step)``.
 
     On a CUDA device (the default) this launches the kernel of
-    ``csrc/prng.cu``; on ``device="cpu"`` it runs :func:`normal_plain`.  ``dtype`` is float32 or
-    float64 (the values are f32 normals either way).
+    ``csrc/prng.cu``; on ``device="cpu"`` it runs :func:`normal_plain`
+    and the same multiply.  ``dtype`` is float32 or float64 (the values
+    are f32 normals either way).  The result is bit for bit ``scale *
+    z``.  With ``out`` (a contiguous tensor of ``shape``, ``dtype`` and
+    ``device``) the values are written there and ``out`` is returned; no
+    tensor is allocated.
     """
-    device = torch.device(device)
-    if device.type == "cpu":
-        return normal_plain(key, step, shape, dtype, device)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-    numel = math.prod(shape)
-    if numel >= 1 << 31:
-        raise ValueError(f"{numel} elements exceed the kernel's int range")
-    out = torch.empty(shape, dtype=dtype, device=device)
+    if out is None:
+        like = _like(dtype, device)
+        out = (torch.empty(shape, dtype=dtype, device=device) if like is None
+               else like.new_empty(shape))
+    else:
+        _check_out(out, shape, dtype, device)
+    dev = out.device
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"no kernel for device {dev}")
+        z = normal_plain(key, step, out.shape, out.dtype, dev)
+        return torch.mul(z, scale, out=out)
+    numel = out.numel()
+    fn, grid = _launch(out.dtype, numel, dev.index)
+    check_key(key, step)
     if numel == 0:
         return out
-    lib = _build.library()
-    launch = (lib.qmc_philox_normals_f32 if dtype == torch.float32
-              else lib.qmc_philox_normals_f64)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(launch(out.data_ptr(), numel,
-                            *launch_args(key, step), stream),
-                     "Philox normals kernel")
+    _build.call(fn, dev, out.data_ptr(), numel, key, step, scale, grid)
     normal.launch_count += 1
     return out
 
 
 #: Kernel launches since the last reset (set it to 0 to reset).
 normal.launch_count = 0
+
+
+def box_muller_mismatches(device="cuda") -> int:
+    """How many of the 2^24 values of a 24-bit uniform the kernels'
+    Box-Muller (``csrc/philox.cuh``: the log without its branches for
+    arguments it never sees, the folding with conditional negations)
+    turn into another radius, cosine or sine, in any bit, than the plain
+    CUDA form (``sqrtf(-2 logf(u1))``, the +-1 multiplies) does: 0 when
+    the kernels draw the accurate ``logf``'s numbers.  Runs the check
+    kernel of ``csrc/prng.cu`` on a CUDA ``device``."""
+    count = torch.zeros((), dtype=torch.int32, device=device)
+    if count.device.type != "cuda":
+        raise ValueError(f"no kernel for device {count.device}")
+    _build.call(_build.functions()["qmc_check_box_muller"], count.device,
+                count.data_ptr())
+    return int(count)
 
 
 def philox_words(key: int, step: int, num_quads: int,
@@ -191,9 +271,7 @@ def philox_words(key: int, step: int, num_quads: int,
     if not 0 < num_quads < 1 << 29:
         raise ValueError(f"num_quads out of range: {num_quads}")
     out = torch.empty((num_quads, 4), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(_build.library().qmc_philox_words(
-            out.data_ptr(), num_quads, *launch_args(key, step), stream),
-            "Philox words kernel")
+    _build.call(_build.functions()["qmc_philox_words"], out.device,
+                out.data_ptr(), num_quads, *check_key(key, step),
+                _grid(num_quads, out.device.index))
     return out.to(torch.int64) & _MASK32

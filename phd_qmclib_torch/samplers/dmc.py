@@ -669,19 +669,22 @@ class Sampling:
         return state, aux, props, est
 
     def _block_draws(self, block_index: int, num_time_steps_block: int,
-                     state: State):
+                     state: State, noise: torch.Tensor):
         """The comb uniforms and diffusion noise of one block, drawn on
-        the state's device as the steps consume them."""
+        the state's device as the steps consume them.  The noise, already
+        scaled by sigma, is written into the run's buffer ``noise`` of
+        ``state.pos``' shape: each step consumes it before the next draw,
+        in stream order."""
         dtype, device = state.pos.dtype, state.pos.device
         gen = torch.Generator(device=device)
         gen.manual_seed(utils.block_seed(self.rng_seed, block_index))
-        sigma = self.sigma_spread
         for step in range(num_time_steps_block):
             comb_u = torch.rand(state.weights.shape, generator=gen,
                                 dtype=dtype, device=device)
-            xi = sigma * prng.normal(
+            xi = prng.normal(
                 self.rng_seed, block_index * num_time_steps_block + step,
-                state.pos.shape, dtype, device)
+                noise.shape, dtype, device, scale=self.sigma_spread,
+                out=noise)
             yield comb_u, xi
 
     # -- public sampling APIs -------------------------------------------------
@@ -712,6 +715,7 @@ class Sampling:
         consts = self._consts(dtype, device)
         window = self.pfw_window_blocks(nts)
         cmd_window = self.cm_window_blocks
+        noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
         aux = None
         block = 0
         while True:
@@ -730,7 +734,8 @@ class Sampling:
                 if win_pos == 0:
                     aux = self._fresh_aux(dtype, device)
                 step_offset = win_pos * nts
-            draws = self._block_draws(block_offset + block, nts, state)
+            draws = self._block_draws(block_offset + block, nts, state,
+                                      noise)
             state, aux, steps, est = self._run(state, draws, consts,
                                                measuring, aux, step_offset)
             props = PropsData(*(torch.stack(column).cpu()

@@ -352,18 +352,21 @@ class Sampling:
         return state, props, rows, confs
 
     def _block_draws(self, block_index: int, num_steps_block: int,
-                     state: State):
+                     state: State, noise: t.Optional[torch.Tensor]):
         """The displacements and acceptance uniforms of one block, drawn
-        on the state's device as the steps consume them."""
+        on the state's device as the steps consume them.  Gaussian
+        displacements, already scaled by ``move_spread``, are written into
+        the run's buffer ``noise``: each step consumes them before the
+        next draw, in stream order."""
         shape, dtype, device = (state.pos.shape, state.pos.dtype,
                                 state.pos.device)
         gen = torch.Generator(device=device)
         gen.manual_seed(utils.block_seed(self.rng_seed, block_index))
         for step in range(num_steps_block):
             if self.gaussian:
-                disp = self.move_spread * prng.normal(
+                disp = prng.normal(
                     self.rng_seed, block_index * num_steps_block + step,
-                    shape, dtype, device)
+                    shape, dtype, device, scale=self.move_spread, out=noise)
             else:
                 disp = self.move_spread * (torch.rand(
                     shape, generator=gen, dtype=dtype, device=device) - 0.5)
@@ -388,8 +391,12 @@ class Sampling:
                                         state.obd_parts)
             state = state._replace(ssf_parts=ssf, obd_parts=obd)
         block_index = int(block_offset)
+        noise = (torch.empty(state.pos.shape, dtype=state.pos.dtype,
+                             device=state.pos.device)
+                 if self.gaussian else None)
         while True:
-            draws = self._block_draws(block_index, num_steps_block, state)
+            draws = self._block_draws(block_index, num_steps_block, state,
+                                      noise)
             state, props, rows, confs = self._run(state, draws, consts, thin)
             iter_props = PropsData(*(torch.stack(column)
                                      for column in zip(*props)))

@@ -103,6 +103,49 @@ def test_normals_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(z, z_p, rtol=1e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("numel", [1, 3, 5, 4097, 17408 * 128 + 3])
+def test_normals_scale_and_out_equal_scale_times_unscaled(cuda, numel,
+                                                          dtype):
+    """``scale`` and ``out=`` (the samplers' form) give bit for bit
+    ``scale *`` the unscaled kernel's output (torch's multiply by the
+    scalar); an out with a storage offset (not 16-byte aligned) takes
+    the kernel's scalar stores."""
+    key, step = 0x1234_5678_9ABC, (1 << 33) + 5
+    z = prng.normal(key, step, (numel,), dtype, cuda)
+    for scale in (float(np.sqrt(2e-3)), 0.4, 1.0):
+        buf = torch.full((numel,), float("nan"), dtype=dtype, device=cuda)
+        count = prng.normal.launch_count
+        got = prng.normal(key, step, (numel,), dtype, cuda, scale=scale,
+                          out=buf)
+        torch.cuda.synchronize()
+        assert got is buf and prng.normal.launch_count == count + 1
+        assert torch.equal(got, scale * z)
+    flat = torch.full((numel + 1,), float("nan"), dtype=dtype, device=cuda)
+    got = prng.normal(key, step, (numel,), dtype, cuda, scale=0.4,
+                      out=flat[1:])
+    assert torch.equal(got, 0.4 * z)
+    assert torch.isnan(flat[0])
+
+
+def test_box_muller_is_the_accurate_logf_form_for_every_uniform(cuda):
+    """The kernels' branch-free log and folding (csrc/philox.cuh) give the
+    radius, cosine and sine of the plain CUDA form (``sqrtf(-2
+    logf(u1))``, +-1 multiplies) bit for bit, over all 2^24 values of
+    each 24-bit uniform."""
+    assert prng.box_muller_mismatches(cuda) == 0
+
+
+def test_normals_rejects_bad_out(cuda):
+    shape = (6, 10)
+    for bad in (torch.empty((6, 11), device=cuda),
+                torch.empty(shape, dtype=torch.float64, device=cuda),
+                torch.empty(shape),
+                torch.empty((10, 6), device=cuda).t()):
+        with pytest.raises(ValueError, match="out must be"):
+            prng.normal(5, 17, shape, torch.float32, cuda, out=bad)
+
+
 def test_dmc_on_the_card_matches_the_cpu_replay(cuda):
     """The sampler's step with both kernels on the card against the same
     step with the plain versions on the CPU, in f64, under the same
@@ -178,11 +221,93 @@ def test_histogram_kernel_edges(cuda, dtype):
                                              -0.5, -0.0, 16.0, 1e30,
                                              np.inf, -np.inf, np.nan]])
     pos = torch.as_tensor(np.tile(vals, (4, 1)), dtype=dtype, device=cuda)
-    for bin_size, num_bins in ((1.0, 16), (16.0 / 7, 7), (0.1, 160)):
+    # The last five bin sizes have no finite positive reciprocal: the
+    # kernel's fmod form bins them.
+    subnormal = torch.finfo(dtype).smallest_normal / 2 ** 20
+    for bin_size, num_bins in ((1.0, 16), (16.0 / 7, 7), (0.1, 160),
+                               (0.0, 16), (-1.5, 16), (np.inf, 16),
+                               (np.nan, 16), (subnormal, 16)):
         bs = torch.tensor(bin_size, dtype=dtype, device=cuda)
         assert torch.equal(
             histogram.walker_histogram(pos, bs, num_bins),
             histogram.walker_histogram_plain(pos, bs, num_bins))
+
+
+#: A bin size that is not a power of two: L/256 of a supercell of 127.3.
+EDGE_BIN_SIZE = 127.3 / 256
+
+
+def _edge_values(bin_size: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Every edge ``k bs`` (k = 0 .. B + 1, in the bin size's dtype) and
+    the floats just below and above it, +-0, negatives, NaN, +-inf and
+    values past ``B bs``, in rows of 16."""
+    k = torch.arange(num_bins + 2, dtype=bin_size.dtype,
+                     device=bin_size.device)
+    edges = k * bin_size
+    inf = torch.full_like(edges, float("inf"))
+    special = torch.tensor(
+        [0.0, -0.0, -1e-30, -0.5, -1e30, float("nan"), float("inf"),
+         -float("inf"), 1e30, 3e38], dtype=bin_size.dtype,
+        device=bin_size.device)
+    past = (num_bins + torch.arange(1, 7, dtype=bin_size.dtype,
+                                    device=bin_size.device)) * bin_size
+    vals = torch.cat([edges, torch.nextafter(edges, -inf),
+                      torch.nextafter(edges, inf), special, past])
+    pad = torch.arange((-vals.numel()) % 16, dtype=bin_size.dtype,
+                       device=bin_size.device)
+    vals = torch.cat([vals, (pad % num_bins + 0.5) * bin_size])
+    return vals.reshape(-1, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_bins", [1, 7, 128, 129])
+def test_histogram_kernel_non_power_of_two_edges(cuda, num_bins, dtype):
+    """The exact floor at and around every edge of a bin size that is not
+    a power of two, bit-equal to the plain version's ``//``, through the
+    16-byte loads and, from a view one element off, the scalar ones."""
+    bin_size = torch.tensor(EDGE_BIN_SIZE, dtype=dtype, device=cuda)
+    pos = _edge_values(bin_size, num_bins)
+    flat = torch.cat([pos.new_zeros(1), pos.reshape(-1)])
+    for rows in (pos, flat[1:].view(pos.shape)):
+        hist = histogram.walker_histogram(rows, bin_size, num_bins)
+        assert torch.equal(hist, histogram.walker_histogram_plain(
+            rows, bin_size, num_bins))
+        assert bool((hist.sum(-1) == rows.shape[-1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_bins", [1, 7, 128, 129, 12288])
+@pytest.mark.parametrize("row_len", [1, 3, 31, 32, 33, 127, 128, 129, 1000])
+def test_histogram_kernel_shapes(cuda, row_len, num_bins, dtype):
+    """Row lengths across the 16-byte path's limits, bin counts from one
+    to one warp's 48 KB, and row counts below the persistent grid and
+    not a multiple of its tile of rows."""
+    sc = num_bins * EDGE_BIN_SIZE
+    bin_size = torch.tensor(EDGE_BIN_SIZE, dtype=dtype, device=cuda)
+    for num_rows in (37, 2053):
+        pos = torch.as_tensor(np.random.default_rng(row_len).uniform(
+            -0.05 * sc, 1.05 * sc, (num_rows, row_len)), dtype=dtype,
+            device=cuda)
+        hist = histogram.walker_histogram(pos, bin_size, num_bins)
+        assert hist.shape == (num_rows, num_bins)
+        assert torch.equal(hist, histogram.walker_histogram_plain(
+            pos, bin_size, num_bins))
+        assert bool((hist.sum(-1) == row_len).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+def test_histogram_kernel_views_with_a_storage_offset(cuda, offset, dtype):
+    """Rows that start off a 16-byte boundary take the scalar path; an
+    offset of 16 bytes keeps the vector one.  Both count as the plain
+    version does."""
+    rows, row_len = 1000, 128
+    flat = torch.as_tensor(np.random.default_rng(offset).uniform(
+        0, 128.0, rows * row_len + offset), dtype=dtype, device=cuda)
+    pos = flat[offset:].view(rows, row_len)
+    bin_size = torch.tensor(1.0, dtype=dtype, device=cuda)
+    assert torch.equal(histogram.walker_histogram(pos, bin_size, 128),
+                       histogram.walker_histogram_plain(pos, bin_size, 128))
 
 
 def test_histogram_kernel_rejects_bad_inputs(cuda):

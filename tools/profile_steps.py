@@ -4,8 +4,9 @@
     PYTHONPATH=. python tools/profile_steps.py
 
 Prints the card's name and power limit, then for each window one JSON
-line with the profiled block's device time per step, the kernels that
-take the most of it, and the host time per step of two more blocks
+line with the profiled block's device time and kernel launches per
+step, the kernels that take the most of it, and the host time per step
+of two more blocks
 without the profiler; the device's busy share is the profiled device
 time over that unprofiled time.  Last come the device times of the VMC
 step's items at the V1 shape (CUDA events).  Needs a CUDA device; it
@@ -70,6 +71,7 @@ def profile_window(label: str, blocks) -> None:
     print(json.dumps({
         "window": label, "steps": STEPS,
         "device_ms_per_step": device_ms_step,
+        "kernel_launches_per_step": sum(r[2] for r in rows) / STEPS,
         "unprofiled_ms_per_step": host_ms_step,
         "device_busy_share": [device_ms_step / h for h in host_ms_step],
         "top_kernels_ms_per_step": [
