@@ -29,15 +29,32 @@ F. the histogram kernel (K4) against its plain torch version, bit for
    shape (the 17408 x 128 rows of 128 pair distances, 128 bins of L/256)
    and the bin edges: those of a unit bin, and those of a bin size that
    is not a power of two (127.3/256: every k bs and the floats just below
-   and above it, +-0, negatives, NaN, +-inf, values past B bs);
-G. DMC with estimators from phase D's last state: a small f64 estimator
-   replay on the card against the CPU, then G1, the bench estimator load
-   (pure 128-bin density and pure 64-mode S(k) every step), and G2, the
-   production example without ITC (``est_every`` 8; pure density, S(k)
-   with a 512-step window, 32-point OBDM and 128-bin g2 every 64th
-   step; CM diffusion with an 8-block window), 2 timed blocks of 512
-   steps each: the E/N band, the sum rules at every measured step, and
-   the kernels' launch counts;
+   and above it, +-0, negatives, NaN, +-inf, values past B bs); and its
+   tiled kernel for more bins than one warp's shared memory holds, at
+   12,289 and 65,536 bins, on random rows and on those edges;
+G. DMC with estimators from phase D's last state: small f64 replays of
+   the estimators, and of the ITC estimator (mixed and pure, cadence
+   multiplier 2), on the card against the CPU; then G1, the bench
+   estimator load (pure 128-bin density and pure 64-mode S(k) every
+   step), G2, the production example without ITC (``est_every`` 8; pure
+   density, S(k) with a 512-step window, 32-point OBDM and 128-bin g2
+   every 64th step; CM diffusion with an 8-block window), and G3, the
+   production example whole, with its pure ITC estimator (32 modes, 64
+   lags, every 256th step), 2 timed blocks of 512 steps each: the E/N
+   band, the sum rules at every measured step, and the kernels' launch
+   counts.  G3 starts from G2's state on G2's random streams: its
+   per-step ensemble scalars and final positions must equal G2's bit for
+   bit (the estimator must not touch the dynamics); at every ITC row
+   the k = 0 column is N^2 times the counts, lags beyond the fill carry
+   zero sums and counts, and the fill counter ends at 4.  One ITC
+   measuring step is timed on its own (the buffer gather, the
+   amplitudes, the products and sums, the shift);
+P. physics through the port's own statistics layer: the free ideal gas's
+   F(k, tau) / F(k, 0) = exp(-k^2 tau), mixed and pure, at 16,384
+   walkers, within 5 reblocked errors of its block-to-block spread (k = 0
+   exactly 1); and the Tonks-Girardeau energy (N=5, L=5, gamma=5000,
+   8,192 walkers, dt=4e-5) within 5 reblocked errors of the analytic
+   pi^2/3 (1 - 1/N^2) (1 - 4/gamma);
 H. the log|psi| variant of the pair kernel (K1 log) against its plain
    version: f32 at the VMC shape (16384 x 64) and the DMC shape
    (17408 x 128), f64 at 256 walkers, on the bench, free, ideal and
@@ -70,7 +87,7 @@ E. each kernel's time against its plain version at the main path's
    generator=gen, out=buf)``, in turns.
 
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-V1 and V2, in all and per step of each run; K1 must run on every DMC
+G3, V1 and V2, in all and per step of each run; K1 must run on every DMC
 step and K1 log on every VMC step.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
 there must stay 0.
@@ -84,14 +101,17 @@ import json
 import math
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from phd_qmclib_torch import lieb_liniger
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
 from phd_qmclib_torch.samplers import dmc, vmc
+from phd_qmclib_torch.stats import reblock
 
 NOP = 128
 TARGET_WALKERS = 16384
@@ -188,6 +208,17 @@ G2_ESTIMATORS = dict(
     pair_corr_est_spec=dmc.PairCorrEstSpec(num_bins=128, as_pure_est=True,
                                            est_every_mult=8),
     cm_diffusion_est=True, cm_window_blocks=8)
+#: The production example whole (``examples/dmc_production.yml``): G2 and
+#: its pure ITC estimator, measured every 8 x 32 = 256th step.
+G3_ITC = dmc.ITCEstSpec(num_modes=32, num_lags=64, est_every_mult=32,
+                        as_pure_est=True)
+G3_ESTIMATORS = dict(G2_ESTIMATORS, itc_est_spec=G3_ITC)
+#: K4's tiled kernel: the first bin count beyond one warp's shared memory
+#: and a power of two well beyond it.
+K4_TILED_BINS = (12289, 65536)
+#: How many reblocked errors of its own a physics check may lie from its
+#: exact value.
+PHYSICS_SIGMAS = 5.0
 
 
 def phase(name: str, **fields) -> None:
@@ -474,6 +505,16 @@ def check_k4(device) -> float:
         bin_size = torch.tensor(K4_EDGE_BIN_SIZE, dtype=dtype, device=device)
         cases.append((f"edges of {K4_EDGE_BIN_SIZE} {dtype}",
                       bin_edge_values(bin_size, NOP), bin_size, NOP))
+        # The tiled kernel: random rows past both ends of the bins, and
+        # every 16th row of the edges (each row a run of 128 edges).
+        for num_bins in K4_TILED_BINS:
+            sc = num_bins * K4_EDGE_BIN_SIZE
+            cases.append((f"tiled random {dtype}", torch.as_tensor(
+                rng.uniform(-0.05 * sc, 1.05 * sc, (2048, NOP)), dtype=dtype,
+                device=device), bin_size, num_bins))
+            cases.append((f"tiled edges of {K4_EDGE_BIN_SIZE} {dtype}",
+                          bin_edge_values(bin_size, num_bins)[::16]
+                          .contiguous(), bin_size, num_bins))
     err = 0.0
     for label, pos, bin_size, num_bins in cases:
         count = histogram.walker_histogram.launch_count
@@ -548,9 +589,9 @@ def check_estimator_replay(device) -> None:
     confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
     comb_u = rng.random((12, 64))
     xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
-    on_cpu, _ = sampling.replay_estimators(
+    on_cpu, _, _ = sampling.replay_estimators(
         sampling.build_state(confs, device="cpu"), comb_u, xi)
-    on_card, _ = sampling.replay_estimators(
+    on_card, _, _ = sampling.replay_estimators(
         sampling.build_state(confs, device=device), comb_u, xi)
     errs = {}
     for name, rows in on_cpu.items():
@@ -562,6 +603,77 @@ def check_estimator_replay(device) -> None:
         errs[name] = float((card - rows).abs().max())
     phase("G", check="f64 estimator replay card vs CPU", steps=12,
           max_abs_err=errs, ok=True)
+
+
+def check_itc_replay(device) -> None:
+    """Phase G: the ITC estimator on the card against the same
+    injected-noise replay on the CPU, f64, N=16, mixed and pure, cadence
+    multiplier 2: rows within 1e-12 of their scale, counts equal."""
+    spec = mrbp.Spec(**dict(BENCH_SPEC, boson_number=16,
+                            supercell_size=16.0))
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
+    comb_u = rng.random((24, 64))
+    for pure in (False, True):
+        sampling = dmc.Sampling(
+            spec, time_step=1e-2, max_num_walkers=64, target_num_walkers=48,
+            rng_seed=3, est_every=2,
+            ssf_est_spec=dmc.SSFEstSpec(num_modes=3),
+            itc_est_spec=dmc.ITCEstSpec(num_modes=5, num_lags=4,
+                                        est_every_mult=2, as_pure_est=pure))
+        xi = sampling.sigma_spread * rng.standard_normal((24, 64, 16))
+        on_cpu, aux_cpu, state_cpu = sampling.replay_estimators(
+            sampling.build_state(confs, device="cpu"), comb_u, xi)
+        on_card, aux_card, state_card = sampling.replay_estimators(
+            sampling.build_state(confs, device=device), comb_u, xi)
+        scale = 16 ** 2 * 48
+        errs = {}
+        for name in ("itc", "itc_nw"):
+            card, rows = on_card[name].cpu(), on_cpu[name]
+            require(rows.shape[0] == 6, "6 ITC rows in 24 steps")
+            errs[name] = float((card - rows).abs().max()) / scale
+            require(errs[name] < 1e-12, f"ITC replay {name} within 1e-12")
+        if not pure:
+            require(torch.equal(on_card["itc_nw"].cpu(), on_cpu["itc_nw"]),
+                    "ITC replay counts equal")
+        errs["itc_buf"] = float((state_card.itc_buf.cpu()
+                                 - state_cpu.itc_buf).abs().max())
+        require(errs["itc_buf"] < 1e-12
+                and int(state_card.itc_filled) == int(state_cpu.itc_filled)
+                == 4, "ITC replay ring buffer within 1e-12, fill 4")
+        for name, acc in aux_cpu.items():
+            err = float((aux_card[name].cpu() - acc).abs().max()) / 16 ** 2
+            require(err < 1e-12, f"ITC replay {name} within 1e-12")
+        phase("G", check="f64 ITC replay card vs CPU",
+              estimator="pure" if pure else "mixed", steps=24,
+              max_abs_err_over_scale=errs, ok=True)
+
+
+def check_itc_rows(blocks_done, filled_before: int) -> dict:
+    """The ITC rows of consecutive measured blocks whose first row saw
+    ``filled_before`` lag rows filled: the k = 0 column is N^2 times the
+    counts at every lag, the lags beyond the fill carry zero sums and
+    zero counts, and the equal-time count is positive."""
+    dev, row_idx = 0.0, filled_before
+    for block in blocks_done:
+        itc, nw = block.iter_itc.double(), block.iter_itc_nw.double()
+        require(bool(torch.isfinite(itc).all() and torch.isfinite(nw).all()),
+                "ITC rows finite")
+        for sums, counts in zip(itc, nw):
+            filled = min(row_idx, G3_ITC.num_lags)
+            require(float(counts[0]) > 0, "ITC equal-time count positive")
+            require(bool((counts[1:filled + 1] > 0).all()),
+                    f"ITC lags up to the fill {filled} counted")
+            require(not bool(counts[filled + 1:].any())
+                    and not bool(sums[filled + 1:].any()),
+                    f"ITC lags beyond the fill {filled} zero")
+            want = NOP ** 2 * counts[:filled + 1]
+            dev = max(dev, float(((sums[:filled + 1, 0] - want).abs()
+                                  / want).max()))
+            row_idx += 1
+    require(dev < SUM_RULE_RTOL,
+            f"ITC k=0 sum rule within {SUM_RULE_RTOL}: {dev}")
+    return {"itc_k0": dev, "itc_rows": row_idx - filled_before}
 
 
 def check_sum_rules(sampling: dmc.Sampling, block) -> dict:
@@ -595,8 +707,9 @@ def check_sum_rules(sampling: dmc.Sampling, block) -> dict:
 
 def run_estimators(device, card: str, state, label: str, estimators: dict,
                    block_offset: int, baseline: dict) -> dict:
-    """Phase G1/G2: 2 timed blocks with estimators from ``state``.
-    Returns the launch counts of the run."""
+    """Phase G1/G2/G3: 2 timed blocks with estimators from ``state``.
+    Returns the launch counts of the run, its per-step ensemble scalars
+    and its final state."""
     sampling = bench_sampling(**estimators)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -610,7 +723,10 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
     done, walker_steps = [], 0
     for _ in range(TIMED_BLOCKS):
         block = next(blocks)
-        done.append(block)
+        # Only the last block's state is kept: an earlier one would hold
+        # its ITC ring buffer alive and count in the peak.
+        last = block.last_state
+        done.append(block._replace(last_state=None))
         walker_steps += int(block.iter_props.num_walkers.sum())
     end.record()
     torch.cuda.synchronize()
@@ -630,12 +746,19 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
     require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
             f"kernel launches {launches}: K1 on each of {steps_run} steps, "
             f"K2 once per step")
-    last = done[-1].last_state
     require(bool(torch.isfinite(last.pos).all()), "final state finite")
     if sampling.cm_diffusion_est:
         cmd = torch.cat([b.iter_cmd for b in done])
         require(bool(torch.isfinite(cmd).all() and (cmd[:, 0] > 0).all()),
                 "CM diffusion rows finite and positive")
+    itc = {}
+    if sampling.itc_est_spec is not None:
+        itc = check_itc_rows(done, 0)
+        itc["itc_filled"] = int(last.itc_filled)
+        require(itc["itc_filled"] == itc["itc_rows"]
+                == steps_run // sampling._every(sampling.itc_est_spec),
+                f"ITC fill counter after {itc['itc_rows']} rows: "
+                f"{itc['itc_filled']}")
     step_ms = start.elapsed_time(end) / steps_run
     phase(label, check="DMC with estimators", card=card,
           estimators=sorted(k for k, v in estimators.items()
@@ -649,12 +772,211 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
           energy_dev=e_per_boson - ENERGY_REF,
           measured_rows={name: sum(len(getattr(b, f"iter_{name}"))
                                    for b in done)
-                         for name in ("density", "ssf", "obd", "g2", "cmd")
+                         for name in ("density", "ssf", "obd", "g2", "cmd",
+                                      "itc")
                          if getattr(done[0], f"iter_{name}") is not None},
           sum_rule_max_rel_dev={k: max(r[k] for r in sum_rules)
-                                for k in sum_rules[0]},
+                                for k in sum_rules[0]}, **itc,
           launches=launches, ok=True)
-    return launches
+    return {"launches": launches, "props": [b.iter_props for b in done],
+            "pos": last.pos, "step_ms": step_ms, "peak_gb": peak_gb}
+
+
+def check_same_trajectory(with_itc: dict, without: dict) -> None:
+    """G3 against G2, from the same state on the same random streams:
+    the ITC estimator must leave every per-step ensemble scalar and the
+    final positions bit-equal."""
+    for a, b in zip(with_itc["props"], without["props"]):
+        for name, x, y in zip(a._fields, a, b):
+            require(torch.equal(x, y), f"G3 {name} per step equal to G2's")
+    require(torch.equal(with_itc["pos"], without["pos"]),
+            "G3 final positions equal to G2's")
+    phase("G3", check="trajectory bit-equal to G2's",
+          steps=sum(len(p.energy) for p in with_itc["props"]), ok=True)
+
+
+def time_itc_step(device, card: str, state, g2_step_ms: float,
+                  g3: dict) -> None:
+    """One ITC measuring step at G3's shape, timed on its own (CUDA
+    events): the whole step of an ITC-only sampling, which computes its
+    amplitudes itself (G3 slices them from the S(k) parts of the step),
+    and its items, the ring buffer's gather, the amplitudes, the shift."""
+    sampling = bench_sampling(est_every=8, itc_est_spec=G3_ITC)
+    dtype = state.pos.dtype
+    consts = sampling._consts(dtype, device)
+    aux = sampling._fresh_aux(dtype, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    buf = torch.randn(sampling._itc_buf_shape, generator=gen, dtype=dtype,
+                      device=device)
+    filled = torch.tensor(G3_ITC.num_lags, dtype=torch.int32, device=device)
+    full = state._replace(itc_buf=buf, itc_filled=filled)
+    parent = torch.randint(0, int(state.num_walkers), (MAX_WALKERS,),
+                           generator=gen, device=device).sort().values
+    valid = torch.arange(MAX_WALKERS, device=device) < state.num_walkers
+    branch = dmc._Branch(parent, state.pos, valid)
+    period = sampling._every(G3_ITC)
+
+    def measure():
+        return sampling._estimate(consts, aux, None, parent, branch, full,
+                                  period - 1)[1]
+
+    require(measure()["itc"].shape == (G3_ITC.num_lags + 1,
+                                       G3_ITC.num_modes),
+            "the timed step measured the ITC rows")
+    funcs = sampling.core_funcs
+    reim = funcs.fourier_density_reim_harmonics(G3_ITC.num_modes, state.pos,
+                                                consts.cfc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    items = {
+        "itc_step_ms": cuda_ms(measure, 10),
+        "gather_ms": cuda_ms(lambda: buf[parent], 10),
+        "amplitudes_ms": cuda_ms(
+            lambda: funcs.fourier_density_reim_harmonics(
+                G3_ITC.num_modes, state.pos, consts.cfc), 10),
+        "shift_ms": cuda_ms(
+            lambda: torch.cat([reim[:, None], buf[:, :-1]], dim=1), 10),
+    }
+    items["products_and_sums_ms"] = items["itc_step_ms"] - sum(
+        items[name] for name in ("gather_ms", "amplitudes_ms", "shift_ms"))
+    extra_gb = (torch.cuda.max_memory_allocated(device) - before) / 1e9
+    phase("G3", check="one ITC measuring step", card=card,
+          shape=list(buf.shape), buffer_gb=buf.numel() * buf.element_size()
+          / 1e9, **items, step_extra_peak_memory_gb=extra_gb,
+          steps_between=period,
+          itc_ms_per_step_amortized=items["itc_step_ms"] / period,
+          g3_step_ms_cuda_events=g3["step_ms"],
+          g2_step_ms_cuda_events=g2_step_ms,
+          g3_peak_device_memory_gb=g3["peak_gb"], ok=True)
+
+
+def reblocked(series) -> tuple:
+    """Mean and reblocked error of a serially correlated series ``(n,
+    ...)``, each column on its own, through the port's ``stats.reblock``
+    (a short series cannot meet the optimum block size criterion and
+    falls back to the largest block size, with a warning that is
+    expected here)."""
+    series = np.asarray(series, dtype=np.float64)
+    flat = series.reshape(series.shape[0], -1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        stats = reblock.OTFSet.from_non_obj_data(flat)
+        mean, err = np.asarray(stats.mean), np.asarray(stats.mean_eff_error)
+    return mean.reshape(series.shape[1:]), err.reshape(series.shape[1:])
+
+
+def check_free_gas_itc(device, card: str) -> None:
+    """Phase P: the free ideal gas.  The trial function is constant, the
+    DMC dynamics is the exact imaginary-time propagator and rho_k |0> an
+    exact eigenstate, so F(k, tau) / F(k, 0) = exp(-k^2 tau) exactly, for
+    the mixed and the pure estimator alike.  Each block gives one
+    normalized F (the mixed sums over its rows, the pure window's last
+    row); the mean over the blocks must lie within PHYSICS_SIGMAS
+    reblocked errors of the exact decay at every lag and k > 0, and k = 0
+    must be 1."""
+    nop, lags, modes, walkers = 8, 8, 4, 16384
+    nts, burn, num_blocks = 256, 2, 24
+    spec = mrbp.Spec(lattice_depth=1e-6, lattice_ratio=1.0,
+                     interaction_strength=0.0, boson_number=nop,
+                     supercell_size=8.0, tbf_contact_cutoff=0.3)
+    rng = np.random.default_rng(2)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng)
+                      for _ in range(walkers)])
+    for pure in (False, True):
+        sampling = dmc.Sampling(
+            spec, time_step=5e-3, max_num_walkers=walkers + walkers // 16,
+            target_num_walkers=walkers, rng_seed=13, est_every=4,
+            itc_est_spec=dmc.ITCEstSpec(num_modes=modes, num_lags=lags,
+                                        as_pure_est=pure))
+        t0 = time.perf_counter()
+        blocks = sampling.blocks(
+            sampling.build_state(confs, dtype=np.float32, device=device),
+            nts, burn_in_blocks=burn)
+        for _ in range(burn):
+            next(blocks)
+        ratios = []
+        for _ in range(num_blocks):
+            block = next(blocks)
+            itc, nw = block.iter_itc.double(), block.iter_itc_nw.double()
+            if pure:
+                f = itc[-1] / nw[-1, :, None]
+            else:
+                f = itc.sum(dim=0) / nw.sum(dim=0)[:, None]
+            ratios.append((f / f[0]).numpy())
+        ratios = np.stack(ratios)  # (blocks, lags + 1, modes)
+        exact = np.exp(-sampling.itc_momenta[None, :] ** 2
+                       * sampling.itc_lag_times[:, None])
+        k0_dev = float(np.abs(ratios[:, :, 0] - 1.0).max())
+        require(k0_dev < SUM_RULE_RTOL, f"free gas k=0 ratio 1: {k0_dev}")
+        mean, err = reblocked(ratios[:, 1:, 1:])
+        dev = np.abs(mean - exact[1:, 1:])
+        require(bool((err > 0).all() and (dev < PHYSICS_SIGMAS * err).all()),
+                f"free gas F(k, tau)/F(k, 0) = {mean.tolist()} +- "
+                f"{err.tolist()} within {PHYSICS_SIGMAS} errors of "
+                f"{exact[1:, 1:].tolist()}")
+        at = np.unravel_index(np.argmax(dev / err), dev.shape)
+        worst, worst_err, worst_dev = (float(x[at])
+                                       for x in (dev / err, err, dev))
+        phase("P", check="free gas F(k,tau)/F(k,0) = exp(-k^2 tau)",
+              card=card, estimator="pure" if pure else "mixed",
+              walkers=walkers, blocks=num_blocks, steps_per_block=nts,
+              wall_s=time.perf_counter() - t0, k0_max_dev=k0_dev,
+              tolerance_sigmas=PHYSICS_SIGMAS, worst_dev_in_sigmas=worst,
+              worst_dev=worst_dev, worst_err=worst_err,
+              deepest_exact=float(exact[-1, -1]), ok=True)
+
+
+def check_tonks_girardeau(device, card: str) -> None:
+    """Phase P: the Tonks-Girardeau gas (N=5, L=5, gamma=5000).  At
+    infinite contact repulsion the gas maps to free fermions, E/N =
+    pi^2/3 (1 - 1/N^2), times (1 - 4/gamma) at a large finite coupling;
+    the phonon Jastrow family contains that state, so DMC must give the
+    analytic value within PHYSICS_SIGMAS of its own reblocked error."""
+    nop, gn, walkers = 5, 1e4, 8192
+    nts, burn, num_blocks = 256, 8, 32
+    spec = mrbp.Spec(lattice_depth=0.0, lattice_ratio=1.0,
+                     interaction_strength=gn, boson_number=nop,
+                     supercell_size=float(nop), tbf_contact_cutoff=2.0)
+    sampling = dmc.Sampling(spec, time_step=4e-5,
+                            max_num_walkers=walkers + walkers // 16,
+                            target_num_walkers=walkers, rng_seed=6)
+    rng = np.random.default_rng(1)
+    confs = np.stack([
+        spec.init_get_sys_conf(dist_type=mrbp.DIST_REGULAR,
+                               offset=rng.uniform(0, nop))
+        for _ in range(walkers)])
+    t0 = time.perf_counter()
+    blocks = sampling.blocks(
+        sampling.build_state(confs, dtype=np.float64, device=device), nts,
+        burn_in_blocks=burn)
+    for _ in range(burn):
+        next(blocks)
+    energy, weight = [], []
+    for _ in range(num_blocks):
+        props = next(blocks).iter_props
+        energy.append(props.energy.double().numpy())
+        weight.append(props.weight.double().numpy())
+    energy, weight = np.concatenate(energy), np.concatenate(weight)
+    # The per-step ensemble means, reblocked over the steps; the ratio of
+    # the sums is the estimate (the population varies by a fraction of a
+    # percent, so the two agree far inside the error).
+    err = float(reblocked(energy / weight / nop)[1])
+    e_per_n = float(energy.sum() / weight.sum()) / nop
+    gamma = gn / 2
+    exact = math.pi ** 2 / 3 * (1 - 1 / nop ** 2) * (1 - 4 / gamma)
+    bethe = lieb_liniger.ground_state_energy(gamma) * (1 - 1 / nop ** 2)
+    require(err > 0 and abs(e_per_n - exact) < PHYSICS_SIGMAS * err,
+            f"Tonks-Girardeau E/N {e_per_n} +- {err} within "
+            f"{PHYSICS_SIGMAS} errors of {exact}")
+    phase("P", check="Tonks-Girardeau E/N", card=card, walkers=walkers,
+          steps=num_blocks * nts, burn_steps=burn * nts,
+          wall_s=time.perf_counter() - t0, energy_per_boson=e_per_n,
+          reblocked_error=err, exact=exact,
+          bethe_ansatz_times_finite_size=bethe, dev=e_per_n - exact,
+          dev_in_sigmas=abs(e_per_n - exact) / err,
+          tolerance_sigmas=PHYSICS_SIGMAS, ok=True)
 
 
 def check_k1_log(device) -> float:
@@ -968,6 +1290,9 @@ def time_kernels(device, card: str) -> dict:
         0, NOP, shape), dtype=torch.float32, device=device)
     distances = pair_distances(device)
     unit, half = (torch.tensor(x, device=device) for x in (1.0, 0.5))
+    # The tiled kernel at the density shape and 65,536 bins of L/65536.
+    tiled_bins = K4_TILED_BINS[-1]
+    fine = torch.tensor(NOP / tiled_bins, device=device)
     vpos, vparams, vkw = pair_inputs(VMC_SPEC, VMC_CHAINS, torch.float32,
                                      device)
     dargs, dkw, dstep = diffuse_inputs(device)
@@ -992,6 +1317,11 @@ def time_kernels(device, card: str) -> dict:
                                                            NOP),
                   lambda: histogram.walker_histogram(distances, half, NOP),
                   5, 50, k4_bound(numel, NOP, NOP)),
+        "K4 tiled": (lambda: histogram.walker_histogram_plain(
+                         density, fine, tiled_bins),
+                     lambda: histogram.walker_histogram(density, fine,
+                                                        tiled_bins),
+                     3, 10, k4_bound(walkers, NOP, tiled_bins)),
         "K1 log": (lambda: pairwise.energy_and_drift_plain(
                        vpos, vparams, with_log_psi=True, **vkw),
                    lambda: pairwise.energy_and_drift(
@@ -1054,7 +1384,8 @@ def time_kernels(device, card: str) -> dict:
         per_call[form] = [k1, k2], [l1, l2]
     # Device time (the kernels' own time, without the host's launch
     # path) of K2 and K4 at the main path's shapes.
-    for name, reps in (("K2", 200), ("K4", 200), ("K4 g2", 20)):
+    for name, reps in (("K2", 200), ("K4", 200), ("K4 g2", 20),
+                       ("K4 tiled", 5)):
         ms = device_ms(cases[name][1], reps)
         times[name]["device_ms"] = ms
         phase("E", kernel=name, card=card, device_ms=ms,
@@ -1108,12 +1439,22 @@ def main() -> None:
     runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS)}
     err_k4 = check_k4(device)  # F
     check_estimator_replay(device)  # G
-    for i, (label, estimators) in enumerate(
-            (("G1", G1_ESTIMATORS), ("G2", G2_ESTIMATORS))):
-        runs[label] = (run_estimators(
-            device, smi, state, label, estimators,
-            BURN_BLOCKS + TIMED_BLOCKS * (i + 1), baseline),
-            TIMED_BLOCKS * NTS)
+    check_itc_replay(device)  # G
+    # G3 is G2 with the ITC estimator: the same start state and the same
+    # block offset, so that both consume the same random streams.
+    done = {}
+    for label, estimators, offset in (
+            ("G1", G1_ESTIMATORS, BURN_BLOCKS + TIMED_BLOCKS),
+            ("G2", G2_ESTIMATORS, BURN_BLOCKS + 2 * TIMED_BLOCKS),
+            ("G3", G3_ESTIMATORS, BURN_BLOCKS + 2 * TIMED_BLOCKS)):
+        done[label] = run_estimators(device, smi, state, label, estimators,
+                                     offset, baseline)
+        runs[label] = (done[label]["launches"], TIMED_BLOCKS * NTS)
+    check_same_trajectory(done["G3"], done["G2"])
+    time_itc_step(device, smi, state, done["G2"]["step_ms"], done["G3"])
+    del done
+    check_free_gas_itc(device, smi)  # P
+    check_tonks_girardeau(device, smi)  # P
     err_k1_log = check_k1_log(device)  # H
     check_vmc_replay(device)  # I
     runs["V1"] = run_vmc_bench(device, smi)
@@ -1121,8 +1462,8 @@ def main() -> None:
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
-    # The main path's launches: each run of D, G1, G2, V1 and V2 counts
-    # from 0.  K3 lies on no path (the DMC step keeps its own sequence,
+    # The main path's launches: each run of D, G1, G2, G3, V1 and V2
+    # counts from 0.  K3 lies on no path (the DMC step keeps its own sequence,
     # as in the JAX package): none of those runs may have launched it.
     launches = {name: sum(counts[name] for counts, _ in runs.values())
                 for name in COUNTERS}
@@ -1134,10 +1475,14 @@ def main() -> None:
             f"every kernel of the main path launched: {launches}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
     require(all(per_step["K1"].get(label, 0) >= 1
-                for label in ("D", "G1", "G2"))
+                for label in ("D", "G1", "G2", "G3"))
+            and all(per_step["K2"].get(label, 0) == 1
+                    for label in ("D", "G1", "G2", "G3"))
+            and per_step["K4"].get("G3", 0) > 0
             and all(per_step["K1 log"].get(label, 0) >= 1
                     for label in ("V1", "V2")),
-            f"K1 on every DMC step and K1 log on every VMC step: {per_step}")
+            f"K1 on every DMC step (K2 once, K4 on G3's density and g2 "
+            f"steps) and K1 log on every VMC step: {per_step}")
 
     def row(name, key, source, replaces, err, **extra):
         # No single PyTorch call computes K1, K3 or K4: library_ms null.
@@ -1153,6 +1498,7 @@ def main() -> None:
                 "library_ms": None, **times[key], **extra}
 
     log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
+    tiled = times["K4 tiled"]
     kernels = [
         row("pair_energy_drift", "K1", "pairwise.cu", "pairwise.py:84",
             err_k1),
@@ -1164,7 +1510,11 @@ def main() -> None:
             library_call="torch.randn, another stream"),
         row("walker_histogram", "K4", "histogram.cu", "histogram.py:81",
             err_k4, g2_ms=g2["ms"], g2_plain_ms=g2["plain_ms"],
-            g2_bound_ms=g2["bound_ms"], g2_device_ms=g2["device_ms"]),
+            g2_bound_ms=g2["bound_ms"], g2_device_ms=g2["device_ms"],
+            tiled_bins=K4_TILED_BINS[-1], tiled_ms=tiled["ms"],
+            tiled_plain_ms=tiled["plain_ms"],
+            tiled_bound_ms=tiled["bound_ms"],
+            tiled_device_ms=tiled["device_ms"]),
         row("diffuse_energy_drift", "K3", "diffuse.cu", "pairwise.py:210",
             err_k3, on_main_path=False,
             step_ms=times["K3 vs step"]["plain_ms"]),

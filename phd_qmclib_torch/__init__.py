@@ -13,9 +13,16 @@ of the same name there, and the tests hold each one against it.
   (``ops.histogram``).  On a CPU tensor each wrapper runs its plain
   PyTorch version instead.
 
+The statistics and analysis layers (``stats``, ``analysis``,
+``lieb_liniger``) are the port's own copies of the JAX package's NumPy
+modules, so a machine without JAX can put error bars on what it
+measures.
+
 Importing the package needs neither a GPU, nor ``nvcc``, nor ``triton``,
 and it never imports ``jax`` or ``phd_qmclib_tpu``.
 """
-from . import constants, ideal, models, ops, samplers, utils  # noqa: F401
+from . import (  # noqa: F401
+    analysis, constants, ideal, lieb_liniger, models, ops, samplers, stats,
+    utils)
 
 __version__ = "0.1.0"

@@ -45,8 +45,13 @@
 // and written with 16-byte streaming stores where the output rows are
 // 16-byte aligned, else element by element.  num_bins is a runtime
 // argument: the wrapper shrinks the warps per CTA so that the bins fit
-// the default 48 KB of shared memory and refuses more than one warp's
-// worth.
+// the default 48 KB of shared memory.
+//
+// More bins than one warp's 48 KB holds (12,288) take the tiled kernel
+// at the end of this file: a whole CTA counts one row at a time, the bins
+// cut into tiles that fit the shared memory, one pass over the row (from
+// L1 after the first) per tile.  Its work is the write of the counts,
+// num_bins values per row, so the re-read rows cost nothing beside it.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -293,6 +298,110 @@ walker_histogram_kernel(const T* __restrict__ pos,
   }
 }
 
+// --- more bins than one warp's shared memory holds ---------------------------
+//
+// The CTA's threads walk rows blockIdx.x, blockIdx.x + gridDim.x, ...; for
+// each tile [t0, t0 + width) of the bins they bin the whole row, count the
+// elements that fall into the tile into the CTA's shared counts, and
+// write and clear the tile.  Every element falls into one tile, so the
+// counts are the plain version's bit for bit.
+//
+// The bin rule is the same FastBin while its proof holds.  The computed
+// quotient z * (1 / bs) carries two roundings, a relative error below
+// 2^-22 in f32 (2^-51 in f64): an absolute error below 1 for every
+// quotient below 2^22, so that its floor is the true floor or one off,
+// and a computed quotient at or above B still means a true floor of at
+// least B - 1.  q < 2^24 is exact in T, and the fma's q bs is exact
+// whatever q, so the one correction gives the true floor as before.
+// 65,536 bins sit well inside; kFastBins = 2^22 is the most the tiled
+// kernel bins that way, and beyond it (as for a bin size without a
+// finite positive reciprocal) it takes the fmod form, exact for any
+// quotient.
+constexpr int kFastBins = 1 << 22;
+
+template <typename T>
+__device__ __forceinline__ void flush_tile(int* counts, T* dst, int width,
+                                           bool vec_out) {
+  if (vec_out) {
+    const int num_vecs = width / Vec16<T>::kLen;
+    for (int v = threadIdx.x; v < num_vecs; v += blockDim.x) {
+      store_counts(counts, dst, v);
+    }
+  } else {
+    for (int b = threadIdx.x; b < width; b += blockDim.x) {
+      dst[b] = static_cast<T>(counts[b]);
+      counts[b] = 0;
+    }
+  }
+}
+
+template <typename T, class Rule>
+__device__ __forceinline__ void walk_tiled(const Rule& rule, const T* pos,
+                                           T* out, int* counts,
+                                           int64_t num_rows, int row_len,
+                                           int num_bins, int tile,
+                                           bool vec_out) {
+  for (int64_t row = blockIdx.x; row < num_rows; row += gridDim.x) {
+    const T* z = pos + row * row_len;
+    T* dst = out + row * num_bins;
+    int width;
+    for (int t0 = 0; t0 < num_bins; t0 += width) {
+      width = num_bins - t0 < tile ? num_bins - t0 : tile;
+      for (int i = threadIdx.x; i < row_len; i += blockDim.x) {
+        const int b = rule(__ldg(z + i)) - t0;
+        if (b >= 0 && b < width) atomicAdd(&counts[b], 1);
+      }
+      __syncthreads();
+      flush_tile(counts, dst + t0, width, vec_out);
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxWarps * kWarpSize, kCtasPerSm)
+walker_histogram_tiled_kernel(const T* __restrict__ pos,
+                              const T* __restrict__ bin_size,
+                              T* __restrict__ out, int64_t num_rows,
+                              int row_len, int num_bins, int tile,
+                              int vec_out) {
+  extern __shared__ __align__(16) int counts[];
+  for (int b = threadIdx.x; b < tile; b += blockDim.x) counts[b] = 0;
+  __syncthreads();
+  const T bs = __ldg(bin_size);
+  const T inv = T(1) / bs;
+  if (num_bins <= kFastBins && FastBin<T>::takes(bs, inv)) {
+    walk_tiled(FastBin<T>(bs, inv, num_bins), pos, out, counts, num_rows,
+               row_len, num_bins, tile, vec_out != 0);
+  } else {
+    walk_tiled(FmodBin<T>{bs, num_bins - 1}, pos, out, counts, num_rows,
+               row_len, num_bins, tile, vec_out != 0);
+  }
+}
+
+// tile: bins per pass, a multiple of 4 (so that every tile of a 16-byte
+// aligned output row starts 16-byte aligned) that fits the shared memory.
+template <typename T>
+int launch_tiled(const void* pos, const void* bin_size, void* out,
+                 long long num_rows, int row_len, int num_bins, int tile,
+                 int grid, void* stream) {
+  const long long shared =
+      static_cast<long long>(tile) * static_cast<long long>(sizeof(int));
+  if (num_rows <= 0 || row_len <= 0 || num_bins <= 0 || tile < 4 ||
+      tile % 4 != 0 || grid < 1 || shared > kSharedBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vec_out =
+      reinterpret_cast<uintptr_t>(out) % kVecBytes == 0 &&
+      (static_cast<long long>(num_bins) * sizeof(T)) % kVecBytes == 0;
+  walker_histogram_tiled_kernel<T>
+      <<<grid, kMaxWarps * kWarpSize, shared,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(pos), static_cast<const T*>(bin_size),
+          static_cast<T*>(out), num_rows, row_len, num_bins, tile, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* pos, const void* bin_size, void* out,
            long long num_rows, int row_len, int num_bins, int warps,
@@ -341,4 +450,18 @@ extern "C" int qmc_walker_histogram_f64(const void* pos, const void* bin_size,
                                         int grid, void* stream) {
   return launch<double>(pos, bin_size, out, num_rows, row_len, num_bins,
                         warps, grid, stream);
+}
+
+extern "C" int qmc_walker_histogram_tiled_f32(
+    const void* pos, const void* bin_size, void* out, long long num_rows,
+    int row_len, int num_bins, int tile, int grid, void* stream) {
+  return launch_tiled<float>(pos, bin_size, out, num_rows, row_len, num_bins,
+                             tile, grid, stream);
+}
+
+extern "C" int qmc_walker_histogram_tiled_f64(
+    const void* pos, const void* bin_size, void* out, long long num_rows,
+    int row_len, int num_bins, int tile, int grid, void* stream) {
+  return launch_tiled<double>(pos, bin_size, out, num_rows, row_len, num_bins,
+                              tile, grid, stream);
 }

@@ -231,11 +231,10 @@ def build_core_funcs(*,
         im = torch.sin(phase).sum(dim=-2)
         return torch.stack([re ** 2 + im ** 2, re, im], dim=-1)
 
-    def fourier_density_parts_harmonics(num_modes: int, pos,
-                                        cfc: CFCParams):
-        """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for the
-        harmonic momenta ``k_j = j 2 pi / L``, ``j = 0..num_modes-1``,
-        shape ``(..., num_modes, 3)``.
+    def _harmonics_reim(num_modes: int, pos, cfc: CFCParams):
+        """``(Re rho_k, Im rho_k)`` for the harmonic momenta ``k_j = j 2
+        pi / L``, ``j = 0..num_modes-1``, as the pair of ``(num_modes,
+        ...)`` tensors both harmonics estimators build on.
 
         One sincos on ``(..., N)``, then the Chebyshev recurrence
         ``cos((j+1)t) = 2 cos t cos(jt) - cos((j-1)t)`` (the same for
@@ -256,9 +255,28 @@ def build_core_funcs(*,
             two_c1 = 2 * buf[1, 0]
         for j in range(2, num_modes):
             torch.sub(two_c1 * buf[j - 1], buf[j - 2], out=buf[j])
-        re, im = buf.sum(dim=-1).unbind(1)
+        return buf.sum(dim=-1).unbind(1)
+
+    def fourier_density_parts_harmonics(num_modes: int, pos,
+                                        cfc: CFCParams):
+        """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for the
+        harmonic momenta ``k_j = j 2 pi / L``, ``j = 0..num_modes-1``,
+        shape ``(..., num_modes, 3)``, by the Chebyshev recurrence of
+        :func:`_harmonics_reim`."""
+        re, im = _harmonics_reim(num_modes, pos, cfc)
         parts = torch.stack([re ** 2 + im ** 2, re, im], dim=-1)
         return torch.movedim(parts, 0, -2)
+
+    def fourier_density_reim_harmonics(num_modes: int, pos,
+                                       cfc: CFCParams):
+        """Per-configuration ``(Re rho_k, Im rho_k)`` for the harmonic
+        momenta, shape ``(..., num_modes, 2)``: the amplitude the
+        imaginary-time correlation estimator tags each walker with.
+        The same recurrence and particle sum as
+        :func:`fourier_density_parts_harmonics`, so the pair equals that
+        function's slots 1-2 bit for bit."""
+        re, im = _harmonics_reim(num_modes, pos, cfc)
+        return torch.movedim(torch.stack([re, im], dim=-1), 0, -2)
 
     def pair_dist_histogram(num_bins: int, pos, cfc: CFCParams):
         """Per-walker histogram of the unordered-pair minimum-image
@@ -290,4 +308,6 @@ def build_core_funcs(*,
                            fourier_density_parts=fourier_density_parts,
                            fourier_density_parts_harmonics=(
                                fourier_density_parts_harmonics),
+                           fourier_density_reim_harmonics=(
+                               fourier_density_reim_harmonics),
                            pair_dist_histogram=pair_dist_histogram)

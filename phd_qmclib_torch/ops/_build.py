@@ -81,6 +81,9 @@ SIGNATURES = {
     # num_bins, warps per CTA, grid, stream
     "qmc_walker_histogram_f32": _HISTOGRAM,
     "qmc_walker_histogram_f64": _HISTOGRAM,
+    # The same, with the bins per pass in place of the warps per CTA.
+    "qmc_walker_histogram_tiled_f32": _HISTOGRAM,
+    "qmc_walker_histogram_tiled_f64": _HISTOGRAM,
     # mismatches (one int32 on the device, added to), stream
     "qmc_check_box_muller": (_P, _P),
     # The CTAs per SM that a kernel's launch bounds keep resident.

@@ -26,9 +26,16 @@ accumulator transported through the branching ancestry every step,
 frozen after ``pfw_num_time_steps`` and divided by the number of
 contributions (forward walking).  ``est_every = K`` measures every K-th
 step; the steps in between only compose the ancestry permutation, which
-the next measured step applies to the accumulators in one gather.  The
-imaginary-time-correlation (ITC) estimator of the JAX package is not
-ported yet: :class:`Sampling` has no ``itc_est_spec``.
+the next measured step applies to the accumulators in one gather.
+
+The imaginary-time-correlation (ITC) estimator ``F(k, tau)`` keeps each
+walker's last ``num_lags`` measured ``rho_k`` amplitudes in a ring
+buffer in the :class:`State` (row 0 the newest).  The buffer rides the
+branching through its own composed permutation, which resets only at an
+ITC-measured step (every ``est_every * est_every_mult``-th); such a step
+gathers the buffer once, correlates the step's amplitudes with every
+lag row, and shifts them in.  Its pure variant accumulates the
+per-walker lag products and per-lag counts through the same permutation.
 
 :meth:`Sampling.blocks` is a Python loop over steps that never waits on
 the device inside a block: the walker count stays a 0-d device tensor,
@@ -51,6 +58,7 @@ from ..ops import histogram, pairwise, prng
 
 __all__ = [
     "DensityEstSpec",
+    "ITCEstSpec",
     "OBDEstSpec",
     "PairCorrEstSpec",
     "PropsData",
@@ -83,6 +91,13 @@ class State(t.NamedTuple):
     #: ancestry-transported centre-of-mass displacement since the
     #: measurement window opened, ``(Wm,)``; ``None`` when disabled.
     cmd_accum: t.Optional[torch.Tensor] = None
+    #: ITC lag ring buffer ``(Wm, num_lags, num_modes, 2)``: each
+    #: walker's ``(Re, Im) rho_k`` of its last ``num_lags`` ITC-measured
+    #: steps, row 0 the newest; ``None`` when disabled.
+    itc_buf: t.Optional[torch.Tensor] = None
+    #: Number of valid lag rows of ``itc_buf``, a 0-d int32 tensor that
+    #: saturates at ``num_lags``.
+    itc_filled: t.Optional[torch.Tensor] = None
 
 
 class PropsData(t.NamedTuple):
@@ -108,7 +123,11 @@ class SamplingBlock(t.NamedTuple):
     #: walkers, ``(nts // K, 2)``.
     iter_cmd: t.Optional[torch.Tensor] = None
     iter_g2: t.Optional[torch.Tensor] = None   # (nts // (K m), num_bins)
-    #: The JAX package's ITC rows; always ``None`` here.
+    #: ITC lag sums ``sum_w Re[rho_k(t) conj(rho_k(t - l))]`` per
+    #: ITC-measured step, ``(nts // (K m), num_lags + 1, num_modes)``,
+    #: row 0 the equal-time ``|rho_k|^2``; and the matching per-lag
+    #: contribution counts ``(nts // (K m), num_lags + 1)``, which
+    #: discount the initial fill of the ring buffer.
     iter_itc: t.Optional[torch.Tensor] = None
     iter_itc_nw: t.Optional[torch.Tensor] = None
     #: The pure estimators' accumulators after the block (on the
@@ -163,6 +182,43 @@ class PairCorrEstSpec:
     est_every_mult: int = 1
 
 
+@dataclass(frozen=True)
+class ITCEstSpec:
+    """Imaginary-time density-density correlation spec: ``F(k, tau) =
+    <rho_k(t + tau) rho_-k(t)> / N`` for the harmonic momenta ``k_j = j
+    2 pi / L``, ``j < num_modes``, at the lags ``tau_l = l * est_every *
+    est_every_mult * dt``, ``l = 0..num_lags``.
+
+    The mixed estimator (the default) sums each valid walker's product
+    of its current amplitude with the lag rows of its ring buffer; its
+    lag 0 is the S(k) estimator's mixed slot-0 sum.  ``as_pure_est``
+    forward-walks the per-walker products and per-lag counts like the
+    other pure estimators, with the same ``pfw_num_time_steps`` window
+    semantics.  ``est_every_mult`` measures and shifts the buffer only
+    every ``est_every * est_every_mult``-th step, which lengthens the
+    lag unit at a fixed buffer size.  The walker dynamics and the other
+    estimators are bit-identical for any value.
+    """
+    num_modes: int
+    num_lags: int
+    est_every_mult: int = 1
+    as_pure_est: bool = False
+    pfw_num_time_steps: t.Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_modes < 1:
+            raise ValueError("num_modes must be a positive integer")
+        if self.num_lags < 1:
+            raise ValueError("num_lags must be a positive integer")
+        if self.est_every_mult < 1:
+            raise ValueError(
+                "est_every_mult must be a positive integer")
+
+
+#: The pure ITC accumulators, which ride the ITC permutation.
+_ITC_AUX = ("aux_itc", "aux_itc_cnt")
+
+
 class _Branch(t.NamedTuple):
     """The post-branching ensemble of a step, which the estimators
     measure."""
@@ -206,13 +262,10 @@ def state_from_numpy(state, device="cuda") -> State:
     the same fields, as numpy-convertible arrays) on ``device``.
 
     The JAX ``num_walkers`` has one entry per shard; only one-shard
-    states convert.  ``cmd_accum`` converts when present; the ITC
-    fields (``itc_buf``, ``itc_filled``) must be ``None``.
+    states convert.  ``cmd_accum`` and the ITC ring buffer (``itc_buf``,
+    with row 0 the newest amplitude in both packages, and
+    ``itc_filled``) convert when present.
     """
-    for name in ("itc_buf", "itc_filled"):
-        if getattr(state, name, None) is not None:
-            raise ValueError(f"the port has no ITC estimator: {name} "
-                             f"must be None")
     fields = {}
     for name in State._fields:
         value = getattr(state, name, None)
@@ -260,6 +313,7 @@ class Sampling:
     ssf_est_spec: t.Optional[SSFEstSpec] = None
     obd_est_spec: t.Optional[OBDEstSpec] = None
     pair_corr_est_spec: t.Optional[PairCorrEstSpec] = None
+    itc_est_spec: t.Optional[ITCEstSpec] = None
     cm_diffusion_est: bool = False
     cm_window_blocks: t.Optional[int] = 1
     est_every: int = 1
@@ -281,7 +335,9 @@ class Sampling:
         if self.est_every > 1 or any(
                 spec is not None and spec.est_every_mult > 1
                 for spec in thinned):
-            for spec in self._est_specs:
+            # As in the JAX package, the rule leaves the ITC spec out.
+            for spec in (self.density_est_spec, self.ssf_est_spec,
+                         *thinned):
                 if spec is None or not spec.as_pure_est \
                         or not spec.pfw_num_time_steps:
                     continue
@@ -334,6 +390,31 @@ class Sampling:
                            self.obd_est_spec.num_pos)
 
     @property
+    def itc_momenta(self) -> np.ndarray:
+        if self.itc_est_spec is None:
+            raise TypeError("no imaginary-time-correlation spec was "
+                            "configured for this sampling")
+        num_modes = self.itc_est_spec.num_modes
+        return np.arange(num_modes) * 2 * np.pi \
+            / self.model_spec.supercell_size
+
+    @property
+    def itc_lag_times(self) -> np.ndarray:
+        """The imaginary-time lags ``tau_l = l * est_every *
+        est_every_mult * dt``, ``l = 0..num_lags`` (one leading
+        equal-time entry)."""
+        if self.itc_est_spec is None:
+            raise TypeError("no imaginary-time-correlation spec was "
+                            "configured for this sampling")
+        lags = np.arange(self.itc_est_spec.num_lags + 1)
+        return lags * self._every(self.itc_est_spec) * self.time_step
+
+    @property
+    def _itc_buf_shape(self) -> t.Tuple[int, ...]:
+        spec = self.itc_est_spec
+        return (self.max_num_walkers, spec.num_lags, spec.num_modes, 2)
+
+    @property
     def pair_corr_bin_edges(self) -> np.ndarray:
         if self.pair_corr_est_spec is None:
             raise TypeError(
@@ -345,7 +426,8 @@ class Sampling:
     @property
     def _est_specs(self):
         return (self.density_est_spec, self.ssf_est_spec,
-                self.obd_est_spec, self.pair_corr_est_spec)
+                self.obd_est_spec, self.pair_corr_est_spec,
+                self.itc_est_spec)
 
     def _every(self, spec) -> int:
         """Measuring period of an estimator, in steps."""
@@ -359,7 +441,7 @@ class Sampling:
     def _pure_aux_shapes(self) -> t.Dict[str, t.Tuple[int, ...]]:
         """Shapes of the pure estimators' forward-walking accumulators."""
         max_w = self.max_num_walkers
-        density, ssf, obd, g2 = (
+        density, ssf, obd, g2, itc = (
             spec if spec is not None and spec.as_pure_est else None
             for spec in self._est_specs)
         shapes = {}
@@ -371,6 +453,9 @@ class Sampling:
             shapes["aux_obd"] = (max_w, obd.num_pos)
         if g2:
             shapes["aux_g2"] = (max_w, g2.num_bins)
+        if itc:
+            shapes["aux_itc"] = (max_w, itc.num_lags + 1, itc.num_modes)
+            shapes["aux_itc_cnt"] = (max_w, itc.num_lags + 1)
         return shapes
 
     def pfw_window_blocks(self, num_time_steps_block: int) -> int:
@@ -397,7 +482,8 @@ class Sampling:
         """A measured block must end on a measured step of every
         estimator."""
         for spec, name in ((self.obd_est_spec, "obd"),
-                           (self.pair_corr_est_spec, "g2")):
+                           (self.pair_corr_est_spec, "g2"),
+                           (self.itc_est_spec, "itc")):
             if spec is not None and spec.est_every_mult > 1 \
                     and num_time_steps_block % self._every(spec):
                 raise ValueError(
@@ -410,6 +496,15 @@ class Sampling:
     def _fresh_aux(self, dtype, device) -> t.Dict[str, torch.Tensor]:
         return {name: torch.zeros(shape, dtype=dtype, device=device)
                 for name, shape in self._pure_aux_shapes().items()}
+
+    def _fresh_itc(self, dtype, device) -> t.Dict[str, torch.Tensor]:
+        """The :class:`State`'s ITC fields at the start of a fill."""
+        if self.itc_est_spec is None:
+            return {}
+        return {"itc_buf": torch.zeros(self._itc_buf_shape, dtype=dtype,
+                                       device=device),
+                "itc_filled": torch.zeros((), dtype=torch.int32,
+                                          device=device)}
 
     def _consts(self, dtype, device) -> _Consts:
         cfc = self._cast_params(dtype, device)
@@ -482,7 +577,8 @@ class Sampling:
             ref_energy=f(ref_energy), accum_energy=f(energy_mean),
             total_energy=f(0.0), total_weight=f(0.0),
             cmd_accum=(torch.zeros(max_w, dtype=dtype, device=device)
-                       if self.cm_diffusion_est else None))
+                       if self.cm_diffusion_est else None),
+            **self._fresh_itc(dtype, device))
 
     # -- the step -------------------------------------------------------------
 
@@ -547,7 +643,8 @@ class Sampling:
             masks=~valid, energy=state_energy, weight=state_weight,
             num_walkers=nw, ref_energy=new_ref, accum_energy=accum_energy,
             total_energy=total_energy, total_weight=total_weight,
-            cmd_accum=cmd_accum)
+            cmd_accum=cmd_accum, itc_buf=state.itc_buf,
+            itc_filled=state.itc_filled)
         return new_state, e_prev_slots, _Branch(parent, cpos, valid)
 
     def diffuse(self, cpos: torch.Tensor, cdrift: torch.Tensor,
@@ -570,40 +667,49 @@ class Sampling:
         return npos, nenergy, ndrift, nweight
 
     def _estimate(self, consts: _Consts, aux: dict,
-                  perm: t.Optional[torch.Tensor], branch: _Branch,
-                  cmd_accum: t.Optional[torch.Tensor], step_idx: int):
+                  perm: t.Optional[torch.Tensor],
+                  itc_perm: t.Optional[torch.Tensor], branch: _Branch,
+                  state: State, step_idx: int):
         """The estimators of one measured step.
 
         ``perm`` is the ancestry permutation composed over the
         transport-only steps since the last measured one (``None``: the
-        identity); every accumulator is gathered through ``perm[parent]``
-        once.  ``step_idx`` is the step's index in the forward-walking
-        window.  Returns ``(new_aux, est)`` with one row per estimator
+        identity); every accumulator but the ITC pair is gathered
+        through ``perm[parent]`` once.  ``itc_perm`` is the ITC
+        estimator's own composition, this step's parents included, over
+        the steps since the last ITC-measured one.  ``state`` is the
+        step's new state (its CM accumulator and ITC ring buffer), and
+        ``step_idx`` the step's index in the forward-walking window.
+        Returns ``(new_aux, est, new_state)`` with one row per estimator
         measured at this step.
         """
         funcs, cfc = self.core_funcs, consts.cfc
         cpos, valid = branch.pos, branch.valid
         anc = branch.parent if perm is None else perm[branch.parent]
-        aux = {name: acc[anc] for name, acc in aux.items()}
+        aux = {name: acc if name in _ITC_AUX else acc[anc]
+               for name, acc in aux.items()}
         est = {}
 
         def masked_sum(x):
             return torch.where(valid.view((-1,) + (1,) * (x.dim() - 1)),
                                x, 0.0).sum(dim=0)
 
-        def measure(name, spec, values):
-            if not spec.as_pure_est:
-                return masked_sum(values)
-            pfw, every = self._pfw_steps(spec), self._every(spec)
-            if step_idx < pfw:
-                aux[name] = aux[name] + values
-            total = masked_sum(aux[name])
+        def pure_divisor(spec, like):
             # A device tensor as the divisor: CUDA divides by a host
             # scalar as a multiply by its reciprocal, which may differ
             # from the CPU's (and the JAX package's) division in the
             # last bit.
-            return total / total.new_full(
+            pfw, every = self._pfw_steps(spec), self._every(spec)
+            return like.new_full(
                 (), min((step_idx + 1) // every, pfw // every))
+
+        def measure(name, spec, values):
+            if not spec.as_pure_est:
+                return masked_sum(values)
+            if step_idx < self._pfw_steps(spec):
+                aux[name] = aux[name] + values
+            total = masked_sum(aux[name])
+            return total / pure_divisor(spec, total)
 
         def due(spec):
             return (step_idx + 1) % self._every(spec) == 0
@@ -615,10 +721,11 @@ class Sampling:
             hist = torch.where(valid[:, None], hist, 0.0)
             est["density"] = measure("aux_density", spec, hist)
         spec = self.ssf_est_spec
+        ssf_parts = None
         if spec is not None:
-            est["ssf"] = measure("aux_ssf", spec,
-                                 funcs.fourier_density_parts_harmonics(
-                                     spec.num_modes, cpos, cfc))
+            ssf_parts = funcs.fourier_density_parts_harmonics(
+                spec.num_modes, cpos, cfc)
+            est["ssf"] = measure("aux_ssf", spec, ssf_parts)
         spec = self.obd_est_spec
         if spec is not None and due(spec):
             est["obd"] = measure("aux_obd", spec,
@@ -629,10 +736,60 @@ class Sampling:
             est["g2"] = measure("aux_g2", spec,
                                 funcs.pair_dist_histogram(
                                     spec.num_bins, cpos, cfc))
-        if cmd_accum is not None:
-            est["cmd"] = torch.stack([masked_sum(cmd_accum ** 2),
-                                      masked_sum(cmd_accum)])
-        return aux, est
+        if state.cmd_accum is not None:
+            est["cmd"] = torch.stack([masked_sum(state.cmd_accum ** 2),
+                                      masked_sum(state.cmd_accum)])
+
+        spec = self.itc_est_spec
+        if spec is not None and due(spec):
+            num_lags, num_modes = spec.num_lags, spec.num_modes
+            # One gather through the composed permutation: the same
+            # rows as a gather through the parents on every step.
+            buf = state.itc_buf[itc_perm]
+            # The amplitudes of the post-branching ensemble: the S(k)
+            # estimator's own (re, im) slots when it has the modes.
+            from_ssf = ssf_parts is not None \
+                and self.ssf_est_spec.num_modes >= num_modes
+            if from_ssf:
+                reim = ssf_parts[:, :num_modes, 1:3]
+            else:
+                reim = funcs.fourier_density_reim_harmonics(
+                    num_modes, cpos, cfc)
+            re, im = reim[..., 0], reim[..., 1]
+            maskf = valid.to(cpos.dtype)
+            lag_ok = (torch.arange(1, num_lags + 1, device=cpos.device)
+                      <= state.itc_filled).to(cpos.dtype)
+            # Re[rho_k(t) conj(rho_k(t - l))] per walker, lag and mode,
+            # as a multiply and add in the tensors' own precision (no
+            # matrix-product path whose precision a global flag sets).
+            prod_w = (buf[..., 0] * re[:, None] + buf[..., 1] * im[:, None]) \
+                * maskf[:, None, None]
+            if spec.as_pure_est:
+                sq_w = torch.where(valid[:, None], re ** 2 + im ** 2, 0.0)
+                contrib = torch.cat([sq_w[:, None], prod_w], dim=1)
+                cnt_row = torch.cat([lag_ok.new_ones(1), lag_ok])
+                acc = aux["aux_itc"][itc_perm]
+                cnt = aux["aux_itc_cnt"][itc_perm]
+                if step_idx < self._pfw_steps(spec):
+                    acc = acc + contrib
+                    cnt = cnt + maskf[:, None] * cnt_row
+                aux["aux_itc"], aux["aux_itc_cnt"] = acc, cnt
+                divisor = pure_divisor(spec, acc)
+                est["itc"] = masked_sum(acc) / divisor
+                est["itc_nw"] = masked_sum(cnt) / divisor
+            else:
+                # Lag 0 equals the S(k) estimator's mixed slot-0 sums bit
+                # for bit: a sum's order follows its tensor's shape, so
+                # take the walker sum over the S(k) parts themselves.
+                lag0 = masked_sum(ssf_parts)[:num_modes, 0] if from_ssf \
+                    else masked_sum(re ** 2 + im ** 2)
+                est["itc"] = torch.cat([lag0[None], prod_w.sum(dim=0)])
+                nwf = state.num_walkers.to(cpos.dtype)
+                est["itc_nw"] = torch.cat([nwf[None], nwf * lag_ok])
+            state = state._replace(
+                itc_buf=torch.cat([reim[:, None], buf[:, :-1]], dim=1),
+                itc_filled=torch.clamp(state.itc_filled + 1, max=num_lags))
+        return aux, est, state
 
     def _run(self, state: State, draws, consts: _Consts,
              measuring: bool, aux: t.Optional[dict], step_offset: int):
@@ -641,13 +798,16 @@ class Sampling:
         With ``measuring``, every ``est_every``-th step measures the
         estimators (step ``k`` of the run has index ``step_offset + k``
         in the forward-walking window) and the steps in between compose
-        the ancestry permutation.  Returns ``(state, aux, props, est)``:
-        the per-step ensemble scalars and estimator rows, as lists of
-        device tensors.
+        the ancestry permutation.  The ITC ring buffer's permutation
+        composes on every step and resets at the ITC-measured ones;
+        without ``measuring`` the buffer is neither transported nor
+        shifted.  Returns ``(state, aux, props, est)``: the per-step
+        ensemble scalars and estimator rows, as lists of device tensors.
         """
         e_prev_slots = state.energies if self.ref_compat else None
         cadence = self.est_every
-        perm = None
+        use_itc = measuring and self.itc_est_spec is not None
+        perm = itc_perm = None
         props, est = [], {}
         for step, (comb_u, xi) in enumerate(draws):
             state, e_prev_slots, branch = self._step(
@@ -656,14 +816,20 @@ class Sampling:
                           state.ref_energy, state.accum_energy))
             if not measuring:
                 continue
+            if use_itc:
+                itc_perm = (branch.parent if itc_perm is None
+                            else itc_perm[branch.parent])
             if (step + 1) % cadence:
-                if aux:
+                if any(name not in _ITC_AUX for name in aux):
                     perm = (branch.parent if perm is None
                             else perm[branch.parent])
                 continue
-            aux, rows = self._estimate(consts, aux, perm, branch,
-                                       state.cmd_accum, step_offset + step)
+            aux, rows, state = self._estimate(
+                consts, aux, perm, itc_perm, branch, state,
+                step_offset + step)
             perm = None
+            if "itc" in rows:
+                itc_perm = None
             for name, row in rows.items():
                 est.setdefault(name, []).append(row)
         return state, aux, props, est
@@ -697,10 +863,12 @@ class Sampling:
         The first ``burn_in_blocks`` blocks run the dynamics only: no
         estimator is measured and their rows are ``None`` (the CM
         accumulator still advances, and its first window opens with the
-        first measured block).  A forward-walking window longer than one
-        block carries the pure accumulators across blocks
-        (``aux_carry``), with the step index counted from the window's
-        start.  ``block_offset`` continues the random streams of a run
+        first measured block; the ITC ring buffer is neither
+        transported nor shifted there, so a run with burn-in blocks
+        restarts its fill, whatever the initial state carried).  A
+        forward-walking window longer than one block carries the pure
+        accumulators across blocks (``aux_carry``), with the step index
+        counted from the window's start.  ``block_offset`` continues the random streams of a run
         that already consumed that many blocks: the comb stream of block
         ``b`` is seeded from ``(rng_seed, block_offset + b)`` and the
         diffusion noise of its step ``t`` is keyed by ``(rng_seed,
@@ -711,6 +879,13 @@ class Sampling:
         if self.cm_diffusion_est and state.cmd_accum is None:
             state = state._replace(cmd_accum=torch.zeros(
                 state.pos.shape[0], dtype=dtype, device=device))
+        if self.itc_est_spec is not None and (
+                state.itc_buf is None or burn_in_blocks > 0):
+            # A state without the ring buffer starts an empty fill (the
+            # lag counts discount the unfilled rows).  A filled buffer
+            # would come out of the burn-in misaligned with its slots,
+            # walkers cloned and killed under it, yet counted as valid.
+            state = state._replace(**self._fresh_itc(dtype, device))
         nts = num_time_steps_block
         consts = self._consts(dtype, device)
         window = self.pfw_window_blocks(nts)
@@ -745,7 +920,8 @@ class Sampling:
             yield SamplingBlock(
                 props, rows.get("density"), rows.get("ssf"), state,
                 iter_obd=rows.get("obd"), iter_cmd=rows.get("cmd"),
-                iter_g2=rows.get("g2"),
+                iter_g2=rows.get("g2"), iter_itc=rows.get("itc"),
+                iter_itc_nw=rows.get("itc_nw"),
                 aux_carry=aux if measuring and window > 1 else None)
             block += 1
 
@@ -787,10 +963,12 @@ class Sampling:
         ``aux_in`` (e.g. from :func:`aux_from_numpy`) and
         ``step_offset`` continue a forward-walking window that started
         ``step_offset`` steps earlier; by default the window starts
-        here with zero accumulators.  Returns ``(est, aux)``: for each
+        here with zero accumulators.  The ITC ring buffer continues
+        from ``ini_state``'s.  Returns ``(est, aux, state)``: for each
         estimator its rows stacked over the steps where it measured
         (``(nts // K, ...)``, or ``nts // (K m)`` with a multiplier),
-        and the final accumulators.
+        the final accumulators, and the final state with its ring
+        buffer.
         """
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
         comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
@@ -799,7 +977,11 @@ class Sampling:
         if aux_in is not None:
             aux = {name: torch.as_tensor(aux_in[name], dtype=dtype,
                                          device=device) for name in aux}
-        _, aux, _, est = self._run(ini_state, zip(comb_u, xi),
-                                   self._consts(dtype, device), True,
-                                   aux, step_offset)
-        return {name: torch.stack(rows) for name, rows in est.items()}, aux
+        if self.itc_est_spec is not None and ini_state.itc_buf is None:
+            ini_state = ini_state._replace(
+                **self._fresh_itc(dtype, device))
+        state, aux, _, est = self._run(ini_state, zip(comb_u, xi),
+                                       self._consts(dtype, device), True,
+                                       aux, step_offset)
+        return ({name: torch.stack(rows) for name, rows in est.items()},
+                aux, state)

@@ -310,11 +310,57 @@ def test_histogram_kernel_views_with_a_storage_offset(cuda, offset, dtype):
                        histogram.walker_histogram_plain(pos, bin_size, 128))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_bins", [12288, 12289, 65536])
+def test_histogram_kernel_beyond_one_warps_bins(cuda, num_bins, dtype):
+    """The last size of the one-row-per-warp kernel and the tiled kernel
+    beyond it (two tiles with scalar stores at 12,289 bins, six with
+    16-byte stores at 65,536): bit-equal to the plain version at and
+    around every edge of a bin size that is not a power of two, on
+    random rows, and from a view one element off a 16-byte boundary."""
+    bin_size = torch.tensor(EDGE_BIN_SIZE, dtype=dtype, device=cuda)
+    edges = _edge_values(bin_size, num_bins)
+    sc = num_bins * EDGE_BIN_SIZE
+    random = torch.as_tensor(np.random.default_rng(num_bins).uniform(
+        -0.05 * sc, 1.05 * sc, (37, 1000)), dtype=dtype, device=cuda)
+    count = histogram.walker_histogram.launch_count
+    for pos in (edges[:256], edges[-256:], random):
+        flat = torch.cat([pos.new_zeros(1), pos.reshape(-1)])
+        for rows in (pos, flat[1:].view(pos.shape)):
+            hist = histogram.walker_histogram(rows, bin_size, num_bins)
+            assert hist.shape == (rows.shape[0], num_bins)
+            assert torch.equal(hist, histogram.walker_histogram_plain(
+                rows, bin_size, num_bins))
+            assert bool((hist.sum(-1) == rows.shape[-1]).all())
+    assert histogram.walker_histogram.launch_count == count + 6
+    # Every edge, in one call of many short rows.
+    hist = histogram.walker_histogram(edges, bin_size, num_bins)
+    assert torch.equal(hist, histogram.walker_histogram_plain(
+        edges, bin_size, num_bins))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_histogram_tiled_kernel_takes_any_bin_size(cuda, dtype):
+    """Bin sizes without a finite positive reciprocal take the fmod form
+    in the tiled kernel too."""
+    vals = np.concatenate([np.arange(16.0), [16 - 1e-6, 0.0, 15.9999990,
+                                             -0.5, -0.0, 16.0, 1e30,
+                                             np.inf, -np.inf, np.nan,
+                                             12288.5, 20000.0]])
+    pos = torch.as_tensor(np.tile(vals, (4, 1)), dtype=dtype, device=cuda)
+    subnormal = torch.finfo(dtype).smallest_normal / 2 ** 20
+    for bin_size in (1.0, 0.1, 0.0, -1.5, np.inf, np.nan, subnormal):
+        bs = torch.tensor(bin_size, dtype=dtype, device=cuda)
+        assert torch.equal(
+            histogram.walker_histogram(pos, bs, 12300),
+            histogram.walker_histogram_plain(pos, bs, 12300))
+
+
 def test_histogram_kernel_rejects_bad_inputs(cuda):
     pos = torch.zeros((4, 8), device=cuda)
     bs = torch.tensor(1.0, device=cuda)
     with pytest.raises(ValueError, match="num_bins"):
-        histogram.walker_histogram(pos, bs, histogram.MAX_BINS + 1)
+        histogram.walker_histogram(pos, bs, 0)
     with pytest.raises(ValueError, match="bin_size"):
         histogram.walker_histogram(pos, bs.double(), 4)
     with pytest.raises(ValueError, match="bin_size"):
@@ -338,10 +384,10 @@ def test_dmc_estimators_on_the_card_match_the_cpu_replay(cuda):
     confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
     comb_u = rng.random((12, 64))
     xi = sampling.sigma_spread * rng.standard_normal((12, 64, 16))
-    on_cpu, aux_cpu = sampling.replay_estimators(
+    on_cpu, aux_cpu, _ = sampling.replay_estimators(
         sampling.build_state(confs, device="cpu"), comb_u, xi)
     count = histogram.walker_histogram.launch_count
-    on_card, aux_card = sampling.replay_estimators(
+    on_card, aux_card, _ = sampling.replay_estimators(
         sampling.build_state(confs, device=cuda), comb_u, xi)
     # 6 density and 3 g2 measurements.
     assert histogram.walker_histogram.launch_count == count + 9

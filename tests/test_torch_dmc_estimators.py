@@ -51,7 +51,8 @@ CASES = {
 
 _SPEC_TYPES = {"density_est_spec": "DensityEstSpec",
                "ssf_est_spec": "SSFEstSpec", "obd_est_spec": "OBDEstSpec",
-               "pair_corr_est_spec": "PairCorrEstSpec"}
+               "pair_corr_est_spec": "PairCorrEstSpec",
+               "itc_est_spec": "ITCEstSpec"}
 
 
 def _samplings(**kwargs):
@@ -94,6 +95,8 @@ def _jax_replay(sampling, state, comb_u, xi, aux=None, step_offset=0):
     aux_keys = tuple(extra)
     if cadence > 1 and aux_keys:
         extra["anc_perm"] = jnp.arange(MAX_W, dtype=jnp.int32)
+    if sampling.itc_est_spec is not None:
+        extra["itc_perm"] = jnp.arange(MAX_W, dtype=jnp.int32)
     rows = {}
     for k in range(comb_u.shape[0]):
         measured = (k + 1) % cadence == 0
@@ -105,11 +108,13 @@ def _jax_replay(sampling, state, comb_u, xi, aux=None, step_offset=0):
             for name, value in est.items():
                 rows.setdefault(name, []).append(np.asarray(value))
     rows = {name: np.stack(values) for name, values in rows.items()}
-    for name, spec in (("obd", sampling.obd_est_spec),
-                       ("g2", sampling.pair_corr_est_spec)):
+    for names, spec in ((("obd",), sampling.obd_est_spec),
+                        (("g2",), sampling.pair_corr_est_spec),
+                        (("itc", "itc_nw"), sampling.itc_est_spec)):
         if spec is not None and spec.est_every_mult > 1:
             m = spec.est_every_mult
-            rows[name] = rows[name][m - 1::m]
+            for name in names:
+                rows[name] = rows[name][m - 1::m]
     return rows, {name: extra[name] for name in aux_keys}, state
 
 
@@ -138,7 +143,7 @@ def test_replay_estimators_match_jax(case):
     jstate = jsampling.build_state(_confs(TARGET))
     comb_u, xi = _draws(jsampling, nts, seed=7)
     want, want_aux, _ = _jax_replay(jsampling, jstate, comb_u, xi)
-    got, got_aux = tsampling.replay_estimators(
+    got, got_aux, _ = tsampling.replay_estimators(
         tdmc.state_from_numpy(jstate, device="cpu"), comb_u, xi)
     _check(got, want, got_aux, want_aux)
     # The run branched, and measured as many rows as the cadence says.
@@ -171,7 +176,7 @@ def test_pfw_window_across_blocks_resumes_from_jax_aux_carry():
     comb_u, xi = _draws(jsampling, nts, seed=9)
     want, want_aux, _ = _jax_replay(jsampling, first.last_state, comb_u, xi,
                                     aux=first.aux_carry, step_offset=nts)
-    got, got_aux = tsampling.replay_estimators(
+    got, got_aux, _ = tsampling.replay_estimators(
         tdmc.state_from_numpy(first.last_state, device="cpu"), comb_u, xi,
         aux_in=tdmc.aux_from_numpy(first.aux_carry, device="cpu"),
         step_offset=nts)

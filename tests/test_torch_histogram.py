@@ -94,3 +94,31 @@ def test_wrapper_launches_nothing_on_the_cpu():
     count = thg.walker_histogram.launch_count
     thg.walker_histogram(torch.zeros((2, 3)), torch.tensor(1.0), 4)
     assert thg.walker_histogram.launch_count == count
+
+
+@pytest.mark.parametrize("np_dtype,torch_dtype", DTYPES)
+@pytest.mark.parametrize("num_bins", [12289, 65536])
+def test_plain_matches_jax_beyond_one_warps_bins(num_bins, np_dtype,
+                                                 torch_dtype):
+    """More bins than the one-row-per-warp kernel holds: the plain
+    version, which the card tests hold the tiled kernel against, equals
+    the JAX sampler's ``walker_histogram`` on random rows and on a sample
+    of the bin edges with their float neighbours."""
+    rng = np.random.default_rng(num_bins)
+    bs = np_dtype(127.3 / 256)
+    sc = float(bs) * num_bins
+    k = rng.integers(0, num_bins + 2, 40).astype(np_dtype)
+    edges = k * bs
+    vals = np.concatenate([
+        edges, np.nextafter(edges, np_dtype(-np.inf)),
+        np.nextafter(edges, np_dtype(np.inf)),
+        np.array([0.0, -0.0, -0.5, -1e30, np.inf, -np.inf, 1e30],
+                 dtype=np_dtype), rng.uniform(-0.05 * sc, 1.05 * sc, 65)
+        .astype(np_dtype)])
+    pos = vals.reshape(4, -1)
+    got = thg.walker_histogram(torch.as_tensor(pos),
+                               torch.tensor(bs, dtype=torch_dtype), num_bins)
+    want = jhg.walker_histogram(jnp.asarray(pos), jnp.asarray(bs), num_bins)
+    assert got.shape == (4, num_bins) and got.dtype == torch_dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.sum(dim=1).numpy(), pos.shape[1])

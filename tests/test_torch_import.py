@@ -1,4 +1,4 @@
-"""The port imports without JAX, the JAX package, a GPU or Triton."""
+"""The port imports without JAX, the JAX package, a GPU, Triton or h5py."""
 import ast
 import subprocess
 import sys
@@ -7,7 +7,7 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parent.parent / "phd_qmclib_torch"
-FORBIDDEN = ("jax", "phd_qmclib_tpu", "triton")
+FORBIDDEN = ("jax", "phd_qmclib_tpu", "triton", "h5py")
 
 
 def test_import_pulls_in_no_jax_or_triton():
@@ -16,6 +16,10 @@ def test_import_pulls_in_no_jax_or_triton():
         "import phd_qmclib_torch\n"
         "from phd_qmclib_torch.samplers import dmc\n"
         "from phd_qmclib_torch.ops import pairwise, prng\n"
+        "from phd_qmclib_torch import analysis, lieb_liniger, stats\n"
+        "from phd_qmclib_torch.stats import reblock\n"
+        "reblock.OTFObject.from_non_obj_data(list(range(64))).mean\n"
+        "lieb_liniger.ground_state_energy(2.0, num_points=32)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -148,6 +148,49 @@ def test_histogram_launch_shape_at_the_main_path():
     assert histogram.launch_shape(5, 12288, 132, 8) == (1, 5)
 
 
+@pytest.mark.parametrize("num_rows", [1, 5, 527, 528, 529, 17408])
+@pytest.mark.parametrize("num_bins", [12289, 12290, 24576, 24577, 65536,
+                                      100003, 1 << 22])
+def test_histogram_tiled_launch_shape_takes_every_bin_once(num_rows,
+                                                           num_bins):
+    """K4 beyond one warp's bins: the tile's int counts fit 48 KB, the
+    tiles are the fewest that do, a multiple of 4 wide, and, walked as
+    the kernel walks them, cover every bin exactly once; the rows, one
+    CTA each at a time, are each taken exactly once."""
+    sms, ctas_per_sm = 132, 8
+    tile, grid = histogram.tiled_launch_shape(num_rows, num_bins, sms,
+                                              ctas_per_sm)
+    assert tile % 4 == 0 and 4 <= tile <= histogram.MAX_BINS
+    num_tiles = -(-num_bins // tile)
+    assert num_tiles == -(-num_bins // histogram.MAX_BINS)
+    covered = np.zeros(num_bins, dtype=np.int64)
+    t0 = 0
+    while t0 < num_bins:
+        width = min(tile, num_bins - t0)
+        covered[t0:t0 + width] += 1
+        t0 += width
+    assert (covered == 1).all()
+    per_cta = tile * 4 + histogram.CTA_RESERVED_BYTES
+    resident = min(ctas_per_sm, 2048 // 256,
+                   histogram.SM_SHARED_BYTES // per_cta)
+    assert resident >= 4
+    assert grid == min(num_rows, sms * resident)
+    taken = np.zeros(num_rows, dtype=np.int64)
+    for cta in range(grid):
+        taken[cta::grid] += 1
+    assert (taken == 1).all()
+
+
+def test_histogram_tiled_launch_shape_at_the_checked_sizes():
+    """12,289 bins: two tiles of 6,148 and 8 CTAs on each of 132 SMs;
+    65,536 bins: six tiles of 10,924 and 5 CTAs per SM by their shared
+    memory.  12,288 bins and fewer keep the one-row-per-warp plan."""
+    assert histogram.tiled_launch_shape(17408, 12289, 132, 8) == (6148, 1056)
+    assert histogram.tiled_launch_shape(17408, 65536, 132, 8) == (10924, 660)
+    assert histogram.tiled_launch_shape(64, 65536, 132, 8) == (10924, 64)
+    assert histogram.launch_shape(17408, 12288, 132, 8) == (1, 528)
+
+
 def _dmc_sampling():
     return dmc.Sampling(mrbp.Spec(**SPEC), time_step=1e-2,
                         max_num_walkers=8, target_num_walkers=6, rng_seed=3)

@@ -10,7 +10,7 @@
 #
 # Run from the root of this tree on the card's machine.  The full logs go
 # to the second argument's directory; the summary printed at the end is
-# each run's phase E lines for K1, K2 and K4 and its D, G1, G2, V1 and V2
+# each run's phase E lines for K1, K2 and K4 and its D, G1, G2, G3, V1 and V2
 # step rates and E/N, each profile's windows, and each kernel_times run.
 PARENT=${1:-build/parent}
 OUT=${2:-build/compare}
@@ -54,9 +54,9 @@ for f in "$OUT"/smoke_*.log; do
   echo "== $f"
   grep '"phase": "E", "kernel": "K[124]' "$f" | sed 's/"card": "[^"]*", //' \
     | cut -c1-330
-  grep -o '"phase": "[DGV][12]*", "check": "[DV][^,]*, "card[^}]*step_ms_cuda_events": [0-9.]*' "$f" \
+  grep -o '"phase": "[DGV][123]*", "check": "[DV][^,]*, "card[^}]*step_ms_cuda_events": [0-9.]*' "$f" \
     | sed 's/"card": "[^"]*", //' | cut -c1-300
-  grep -o '"phase": "[DGV][12]*", "check": "[^"]*"\|"energy_per_boson": [0-9.]*' "$f" \
+  grep -o '"phase": "[DGV][123]*", "check": "[^"]*"\|"energy_per_boson": [0-9.]*' "$f" \
     | paste -sd' ' | cut -c1-600
 done
 for f in "$OUT"/prof_*.log; do

@@ -18,28 +18,22 @@ Prints the card's name and power limit, then JSON lines:
   rows (17408 x 128 rows of 128 distances), per call and device time.
 
 It times whichever ``phd_qmclib_torch`` ``PYTHONPATH`` names, so the
-same script times an older checkout (``PYTHONPATH=<checkout>``); its
-timing helpers and shapes come from the ``chip_smoke.py`` beside this
-script.  Needs a CUDA device.
+same script times an older checkout (``PYTHONPATH=<checkout>``); like
+``tools/profile_steps.py`` it takes its timing helpers and shapes from
+the ``chip_smoke.py`` of that checkout.  Needs a CUDA device.
 """
 import ctypes
-import importlib.util
 import inspect
 import json
 import math
 import subprocess
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+import chip_smoke as cs
 from phd_qmclib_torch.ops import _build, histogram, prng
-
-_spec = importlib.util.spec_from_file_location(
-    "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-cs = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(cs)
 
 HOST_CALLS = 10_000
 SMALL = (64, 128)

@@ -1,5 +1,5 @@
 """Where the time of a DMC and a VMC step goes on the card: the runs of
-``chip_smoke.py`` (D, G1, G2, V1, V2), each profiled over one block.
+``chip_smoke.py`` (D, G1, G2, G3, V1, V2), each profiled over one block.
 
     PYTHONPATH=. python tools/profile_steps.py
 
@@ -12,7 +12,12 @@ time over that unprofiled time.  Last come the device times of the VMC
 step's items at the V1 shape (CUDA events).  Needs a CUDA device; it
 reads the configurations from ``chip_smoke`` next to the package it
 profiles, so the same script also profiles an older checkout
-(``PYTHONPATH=<checkout>``).
+(``PYTHONPATH=<checkout>``; a checkout without the ITC estimator has no
+G3 window).  G3's ITC estimator measures every 256th step, which a
+64-step block never reaches: the G3 window measures it every 64th step
+instead (cadence multiplier 8, the same ring buffer), once per block
+like the OBDM and g2, and the "ITC only" window runs that estimator
+alone, so that its kernels head the list.
 """
 import json
 import subprocess
@@ -90,8 +95,15 @@ def main() -> None:
     rng = np.random.default_rng(0)
     confs = np.stack([spec.init_get_sys_conf(rng=rng)
                       for _ in range(cs.TARGET_WALKERS)]).astype(np.float32)
-    for label, estimators in (("D", {}), ("G1", cs.G1_ESTIMATORS),
-                              ("G2", cs.G2_ESTIMATORS)):
+    windows = [("D", {}), ("G1", cs.G1_ESTIMATORS), ("G2", cs.G2_ESTIMATORS)]
+    if hasattr(cs, "G3_ITC"):
+        from dataclasses import replace
+        itc = replace(cs.G3_ITC, est_every_mult=8)
+        windows += [("G3, ITC every 64th step",
+                     dict(cs.G2_ESTIMATORS, itc_est_spec=itc)),
+                    ("ITC only, every 64th step",
+                     dict(est_every=8, itc_est_spec=itc))]
+    for label, estimators in windows:
         sampling = cs.bench_sampling(**estimators)
         state = sampling.build_state(confs, dtype=np.float32, device=device)
         profile_window(label, sampling.blocks(state,
