@@ -86,9 +86,36 @@ E. each kernel's time against its plain version at the main path's
    sigma, as the DMC step draws it) against ``torch.randn(shape,
    generator=gen, out=buf)``, in turns.
 
+R. the same paths through the execution layer (``qmc_exec``), from
+   config dicts to an in-memory ``ProcResult`` (a GPU machine need not
+   have ``h5py``, ``yaml`` or ``click``: files are the CPU tests' job; the
+   dicts are held equal to the shipped examples' ``proc`` stanzas by
+   ``tests/test_torch_cli.py``):
+   R0, the entry from nothing: ``dmc.Proc.from_config`` at the bench
+   configuration, ``ProcInput.from_model_sys_conf_spec(RANDOM)`` (16,384
+   configurations), ``exec`` with D's depth; E/N from
+   ``result.data.blocks.energy`` within 0.02 of 8.41614; its ms/step and
+   walker-steps/s beside D's;
+   R1, the production example through ``Proc.exec``: one block from the
+   state G3 starts from, on G3's streams and with G3's sampling (the
+   controller factor of ``bench.py``'s sampling, and a CM window of the
+   one block): the ``energy``, ``weight``, ``num_walkers``,
+   ``ref_energy`` and ``accum_energy`` series and every estimator series
+   must equal G3's first block bit for bit (after the same cast to f64),
+   the pure ITC window sample G3's last ITC row; the sum rules read from
+   ``result.data``; its ms/step beside G3's; and the host time of a
+   block's conversions and ``_BlockAccumulator.add`` at these shapes;
+   R2, the variational example through ``vmc.Proc.exec``: one burn block
+   and one block from the example's regular start, series bit-equal to
+   V2's block reduced the same way, the acceptance V2's;
+   R3, resume on the card: R0's configuration with a pure density over a
+   two-block window at a small depth, cut after block 1 by the in-memory
+   checkpoint ``exec`` hands to its ``checkpoint_hook``, resumed from it:
+   bit-equal to the uninterrupted run.
+
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-G3, V1 and V2, in all and per step of each run; K1 must run on every DMC
-step and K1 log on every VMC step.  K3 lies on none of them (the DMC
+G3, V1, V2, R0, R1 and R2, in all and per step of each run; K1 must run
+on every DMC step and K1 log on every VMC step.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
 there must stay 0.
 
@@ -110,6 +137,7 @@ from torch.profiler import ProfilerActivity, profile
 from phd_qmclib_torch import lieb_liniger
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
+from phd_qmclib_torch.qmc_exec import dmc as dmc_exec, vmc as vmc_exec
 from phd_qmclib_torch.samplers import dmc, vmc
 from phd_qmclib_torch.stats import reblock
 
@@ -213,6 +241,45 @@ G2_ESTIMATORS = dict(
 G3_ITC = dmc.ITCEstSpec(num_modes=32, num_lags=64, est_every_mult=32,
                         as_pure_est=True)
 G3_ESTIMATORS = dict(G2_ESTIMATORS, itc_est_spec=G3_ITC)
+#: Phase R's procedure configurations, as config dicts.  BENCH_PROC: the
+#: bench configuration at D's depth (``bench.py:99-111``; its sampling's
+#: controller factor is the sampler's default, 0.125).  PRODUCTION_PROC and
+#: VARIATIONAL_PROC: the ``proc`` stanzas of ``examples/dmc_production.yml``
+#: and ``examples/vmc_variational.yml`` without their checkpoint keys (a
+#: checkpoint is a file); ``tests/test_torch_cli.py`` holds them equal to
+#: the files.
+BENCH_PROC = dict(
+    model_spec=BENCH_SPEC, time_step=TIME_STEP, max_num_walkers=MAX_WALKERS,
+    target_num_walkers=TARGET_WALKERS, num_walkers_control_factor=0.125,
+    rng_seed=1, num_blocks=TIMED_BLOCKS, num_time_steps_block=NTS,
+    burn_in_blocks=BURN_BLOCKS, dtype="float32")
+PRODUCTION_PROC = dict(
+    model_spec=BENCH_SPEC, time_step=1e-3, max_num_walkers=17408,
+    target_num_walkers=16384, num_blocks=64, num_time_steps_block=512,
+    burn_in_blocks=8, rng_seed=1, dtype="float32", est_every=8,
+    density_spec=dict(num_bins=128, as_pure_est=True),
+    ssf_spec=dict(num_modes=64, as_pure_est=True, pfw_num_time_steps=512),
+    obd_spec=dict(num_pos=32, as_pure_est=True, est_every_mult=8),
+    pair_corr_spec=dict(num_bins=128, as_pure_est=True, est_every_mult=8),
+    cm_diffusion_spec=dict(window_blocks=8),
+    itc_spec=dict(num_modes=32, num_lags=64, est_every_mult=32,
+                  as_pure_est=True))
+VARIATIONAL_PROC = dict(
+    model_spec=dict(BENCH_SPEC, boson_number=64, supercell_size=64.0),
+    move_spread=0.25, num_walkers=16384, num_blocks=16, num_steps_block=512,
+    burn_in_blocks=2, rng_seed=7, dtype="float32", est_every=8,
+    ssf_spec=dict(num_modes=64),
+    obd_spec=dict(num_pos=32, est_every_mult=8))
+#: The keys of an example's ``proc`` stanza that phase R sets to its own
+#: depth or leaves out.
+PROC_DEPTH_KEYS = ("num_blocks", "burn_in_blocks", "block_offset",
+                   "checkpoint_file", "checkpoint_every", "checkpoint_light")
+#: What R1 sets besides the depth to run G3's sampling: ``bench.py``'s
+#: controller factor (a procedure's default is 0.5) and a CM-diffusion
+#: window that divides its one block.
+R1_SAMPLING_KEYS = ("num_walkers_control_factor", "cm_diffusion_spec")
+#: R3's depth: blocks, burn-in blocks, steps per block.
+R3_DEPTH = dict(num_blocks=4, burn_in_blocks=1, num_time_steps_block=64)
 #: K4's tiled kernel: the first bin count beyond one warp's shared memory
 #: and a power of two well beyond it.
 K4_TILED_BINS = (12289, 65536)
@@ -779,7 +846,8 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
                                 for k in sum_rules[0]}, **itc,
           launches=launches, ok=True)
     return {"launches": launches, "props": [b.iter_props for b in done],
-            "pos": last.pos, "step_ms": step_ms, "peak_gb": peak_gb}
+            "pos": last.pos, "step_ms": step_ms, "peak_gb": peak_gb,
+            "blocks": done}
 
 
 def check_same_trajectory(with_itc: dict, without: dict) -> None:
@@ -1131,7 +1199,7 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
           launches=launches, ok=True)
     return {"energy_per_boson": e_per_n, "accept_rate": accept,
             "chain_steps_per_s": rate, "launches": launches,
-            "steps_run": steps_run,
+            "steps_run": steps_run, "blocks": done, "step_ms": step_ms,
             "protocol": dict(move_spread=sampling.move_spread,
                              ssf_modes=getattr(sampling.ssf_est_spec,
                                                "num_modes", None),
@@ -1168,7 +1236,8 @@ def run_vmc_bench(device, card: str):
 
 
 def run_vmc_example(device, card: str):
-    """Phase V2; returns the launch counts and the steps run."""
+    """Phase V2; returns :func:`run_vmc`'s record, the timed block
+    included."""
     spec = mrbp.Spec(**VMC_SPEC)
     sampling = vmc.Sampling(
         spec, move_spread=0.25, rng_seed=7, num_walkers=VMC_CHAINS,
@@ -1176,7 +1245,295 @@ def run_vmc_example(device, card: str):
         obd_est_spec=vmc.OBDEstSpec(num_pos=32, est_every_mult=8))
     conf = spec.init_get_sys_conf(dist_type=mrbp.DIST_REGULAR)
     out = run_vmc(device, card, "V2", sampling, conf, 1)
-    return out["launches"], out["steps_run"]
+    return out
+
+
+def timed_exec(proc, proc_input, **kwargs):
+    """``proc.exec(proc_input)`` between CUDA events: the result, the
+    device-clock ms and the host's seconds of the whole call, and the
+    launch counts, from 0."""
+    torch.cuda.synchronize()
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    with warnings.catch_warnings():
+        # Two blocks are too few for the ITC's deepest lags and for a
+        # converged reblocking: both warn, neither matters here.
+        warnings.simplefilter("ignore")
+        result = proc.exec(proc_input, **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    return (result, start.elapsed_time(end), time.perf_counter() - t0,
+            read_counts())
+
+
+def f64(tensor) -> np.ndarray:
+    """The cast ``Proc.exec`` applies to a block's fetched tensors."""
+    return np.asarray(tensor.cpu(), dtype=np.float64)
+
+
+def require_equal(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    require(got.shape == want.shape and np.array_equal(got, want),
+            f"{what}: bit-equal")
+
+
+def run_proc_bench(device, card: str, baseline: dict):
+    """Phase R0: the bench configuration from nothing, through the
+    execution layer.  Returns the launch counts and the steps run."""
+    proc = dmc_exec.Proc.from_config(BENCH_PROC)
+    reset_counts()
+    t0 = time.perf_counter()
+    proc_input = dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    build_launches = read_counts()
+    result, exec_ms, wall_s, launches = timed_exec(proc, proc_input)
+    steps_run = (proc.burn_in_blocks + proc.num_blocks) * NTS
+    state, blocks = result.state, result.data.blocks
+    require(state.pos.device.type == "cuda"
+            and state.pos.shape == (MAX_WALKERS, NOP)
+            and state.pos.dtype == torch.float32
+            and bool(torch.isfinite(state.pos).all()),
+            "R0: final state on the card, finite, of the buffer's shape")
+    require(result.data.series is None
+            and blocks.energy.totals.shape == (proc.num_blocks,),
+            "R0: one reduced energy total per block")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # 2 blocks: no converged reblocking
+        e_per_boson = float(blocks.energy.mean) / NOP
+        e_err = float(blocks.energy.mean_error) / NOP
+    lo, hi = ENERGY_BRACKET
+    require(abs(e_per_boson - ENERGY_REF) < ENERGY_TOL
+            and lo < e_per_boson < hi,
+            f"R0: E/N {e_per_boson} within {ENERGY_TOL} of {ENERGY_REF}")
+    require(launches["K1"] >= steps_run and launches["K2"] == steps_run
+            and launches["K3"] == 0,
+            f"R0 kernel launches {launches}: K1 on each of {steps_run} "
+            f"steps, K2 once per step")
+    mean_nw = float(blocks.num_walkers.totals.sum()) / (proc.num_blocks * NTS)
+    phase("R0", check="bench configuration through Proc.exec", card=card,
+          steps_run=steps_run, start_configurations=TARGET_WALKERS,
+          from_model_sys_conf_spec_s=start_s,
+          build_state_launches=build_launches, exec_wall_s=wall_s,
+          step_ms_cuda_events=exec_ms / steps_run,
+          walker_steps_per_s=mean_nw * steps_run / wall_s,
+          D_timed_blocks=baseline, mean_num_walkers=mean_nw,
+          energy_per_boson=e_per_boson, energy_err_two_blocks=e_err,
+          energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
+    return launches, steps_run
+
+
+def proc_sum_rules(proc, data) -> dict:
+    """PERF.md section 2's estimator sum rules read from a one-block
+    ``SamplingData`` with its series: density N nw, S(0) N^2 nw, g2
+    N(N-1)/2 nw, OBDM(0) nw at every measured step, and the ITC window
+    sample's k = 0 column N^2 times its counts."""
+    series = data.series
+    nw = series.iter_props.num_walkers[0]
+    every = proc.est_every
+    rules = {
+        "density": (series.density[0].sum(-1), NOP, every, SUM_RULE_RTOL),
+        "ssf": (series.ssf[0][:, 0, 0], NOP ** 2, every, SUM_RULE_RTOL),
+        "g2": (series.g2[0].sum(-1), NOP * (NOP - 1) / 2,
+               every * proc.pair_corr_spec.est_every_mult, SUM_RULE_RTOL),
+        "obd": (series.obd[0][:, 0], 1,
+                every * proc.obd_spec.est_every_mult, OBDM_RTOL)}
+    devs = {}
+    for name, (got, per_walker, period, rtol) in rules.items():
+        want = per_walker * nw[period - 1::period]
+        require(got.shape == want.shape, f"R1 {name}: a row per measured step")
+        devs[name] = float((np.abs(got - want) / want).max())
+        require(devs[name] < rtol,
+                f"R1 {name} sum rule within {rtol}: {devs[name]}")
+    itc = data.blocks.itc
+    counts = itc.lag_counts[0]
+    filled = counts > 0
+    want = NOP ** 2 * counts[filled]
+    devs["itc_k0"] = float((np.abs(itc.lag_sums[0][filled, 0] - want)
+                            / want).max())
+    itc_rows = NTS // (every * proc.itc_spec.est_every_mult)
+    require(devs["itc_k0"] < SUM_RULE_RTOL and int(filled.sum()) == itc_rows
+            and not itc.lag_sums[0][~filled].any(),
+            f"R1 ITC: k = 0 column N^2 counts over the {itc_rows} filled "
+            f"lags, zero beyond: {devs['itc_k0']}")
+    return devs
+
+
+def accumulate_ms(proc, block, reps: int = 5) -> dict:
+    """Host ms of what ``Proc.exec`` adds to a block of
+    ``Sampling.blocks``: the f64 conversions of the fetched rows and
+    ``_BlockAccumulator.add``, for ``proc``'s way of keeping the data."""
+    times = []
+    for _ in range(reps):
+        accumulator = dmc_exec._BlockAccumulator(proc)
+        t0 = time.perf_counter()
+        props = [f64(x) for x in block.iter_props]
+        accumulator.add(
+            0, *props, iter_density=f64(block.iter_density),
+            iter_ssf=f64(block.iter_ssf), iter_obd=f64(block.iter_obd),
+            iter_cmd=f64(block.iter_cmd), iter_g2=f64(block.iter_g2),
+            iter_itc=f64(block.iter_itc), iter_itc_nw=f64(block.iter_itc_nw))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"min": min(times), "mean": sum(times) / reps}
+
+
+def run_proc_production(device, card: str, state, g3: dict,
+                        block_offset: int):
+    """Phase R1: the production example through ``Proc.exec``, one block
+    from G3's start on G3's streams, held against G3's first block bit
+    for bit.  Returns the launch counts and the steps run."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the ITC's lags outrun one block
+        proc = dmc_exec.Proc.from_config(PRODUCTION_PROC).evolve(dict(
+            num_blocks=1, burn_in_blocks=0, block_offset=block_offset,
+            keep_iter_data=True, num_walkers_control_factor=0.125,
+            cm_diffusion_spec=dmc_exec.CMDiffusionEstSpec(window_blocks=1)))
+    torch.cuda.reset_peak_memory_stats(device)
+    result, exec_ms, wall_s, launches = timed_exec(
+        proc, dmc_exec.ProcInput(state))
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    want = g3["blocks"][0]
+    series, blocks = result.data.series, result.data.blocks
+    for name in want.iter_props._fields:
+        require_equal(getattr(series.iter_props, name)[0],
+                      f64(getattr(want.iter_props, name)), f"R1 {name}")
+    for name, rows in (("density", want.iter_density),
+                       ("ssf", want.iter_ssf), ("obd", want.iter_obd),
+                       ("g2", want.iter_g2), ("cmd", want.iter_cmd)):
+        require_equal(getattr(series, name)[0], f64(rows), f"R1 {name} rows")
+    # Pure estimators: the window's sample is its last row, weighted by
+    # the last step's walker count; the ITC's pair likewise.
+    last_nw = f64(want.iter_props.num_walkers)[-1]
+    for name, rows in (("density", want.iter_density),
+                       ("one_body_dm", want.iter_obd),
+                       ("pair_corr", want.iter_g2)):
+        require_equal(getattr(blocks, name).totals[0], f64(rows)[-1],
+                      f"R1 {name} window sample")
+        require_equal(getattr(blocks, name).weight_totals[0], [last_nw],
+                      f"R1 {name} window weight")
+    require_equal(blocks.ss_factor.fdk_sqr_abs_part.totals[0],
+                  f64(want.iter_ssf)[-1, :, 0], "R1 S(k) window sample")
+    require_equal(blocks.itc.lag_sums[0], f64(want.iter_itc)[-1],
+                  "R1 ITC window sums")
+    require_equal(blocks.itc.lag_counts[0], f64(want.iter_itc_nw)[-1],
+                  "R1 ITC window counts")
+    nw_measured = f64(want.iter_props.num_walkers)[
+        proc.est_every - 1::proc.est_every]
+    require_equal(blocks.cm_diffusion.w2_series[0],
+                  f64(want.iter_cmd)[:, 0] / nw_measured, "R1 CM <W^2>")
+    require_equal(blocks.energy.totals,
+                  [f64(want.iter_props.energy).sum()], "R1 energy total")
+    require(int(result.state.itc_filled) == len(want.iter_itc),
+            "R1: the ring buffer holds the block's ITC rows")
+    devs = proc_sum_rules(proc, result.data)
+    require(launches["K1"] >= NTS and launches["K2"] == NTS
+            and launches["K4"] >= NTS // 8 + NTS // 64
+            and launches["K3"] == 0,
+            f"R1 kernel launches {launches}")
+    e_per_boson = float(series.iter_props.energy.sum()
+                        / series.iter_props.weight.sum()) / NOP
+    # The production way of keeping the data: reduced totals.
+    reduced = proc.evolve({"keep_iter_data": False})
+    phase("R1", check="production example through Proc.exec", card=card,
+          steps_run=NTS, block_offset=block_offset,
+          series_bit_equal_to_G3_block=0, exec_wall_s=wall_s,
+          step_ms_cuda_events=exec_ms / NTS, G3_step_ms=g3["step_ms"],
+          peak_device_memory_gb=peak_gb, energy_per_boson=e_per_boson,
+          sum_rule_max_rel_dev=devs,
+          convert_and_add_host_ms_per_block={
+              "keep_iter_data": accumulate_ms(proc, want),
+              "reduced": accumulate_ms(reduced, want)},
+          launches=launches, ok=True)
+    return launches, NTS
+
+
+def run_proc_vmc_example(device, card: str, v2: dict):
+    """Phase R2: the variational example through ``vmc.Proc.exec`` from
+    its regular start, held against V2's block bit for bit.  Returns the
+    launch counts and the steps run."""
+    proc = vmc_exec.Proc.from_config(VARIATIONAL_PROC).evolve(dict(
+        num_blocks=1, burn_in_blocks=1, keep_iter_data=True))
+    t0 = time.perf_counter()
+    proc_input = vmc_exec.ProcInput.from_model_sys_conf_spec(
+        vmc_exec.ModelSysConfSpec(dist_type="REGULAR"), proc, device=device)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    result, exec_ms, wall_s, launches = timed_exec(proc, proc_input)
+    steps_run = 2 * NTS
+    (want,) = v2["blocks"]
+    series = result.data.series
+    wf_log, energy, moves = vmc_exec._walker_means(*want.iter_props)
+    require_equal(series.iter_props.energy[0], f64(energy), "R2 energy")
+    require_equal(series.iter_props.wf_abs_log[0], f64(wf_log),
+                  "R2 log|psi|")
+    require_equal(series.iter_props.move_stat[0], f64(moves),
+                  "R2 acceptance per step")
+    require_equal(series.ssf[0], f64(want.iter_ssf) / VMC_CHAINS,
+                  "R2 S(k) rows")
+    require_equal(series.obd[0], f64(want.iter_obd) / VMC_CHAINS,
+                  "R2 OBDM rows")
+    require(torch.equal(result.state.pos, want.last_state.pos),
+            "R2 final positions equal to V2's")
+    accept = float(series.iter_props.move_stat[0].mean())
+    require(abs(accept - v2["accept_rate"]) < 1e-6,
+            f"R2 acceptance {accept} is V2's {v2['accept_rate']}")
+    require(launches["K1 log"] >= steps_run and launches["K3"] == 0,
+            f"R2 kernel launches {launches}")
+    e_per_n = float(result.data.blocks.energy.totals.mean()) / VMC_NOP
+    phase("R2", check="variational example through vmc.Proc.exec", card=card,
+          steps_run=steps_run, chains=VMC_CHAINS,
+          from_model_sys_conf_spec_s=start_s, exec_wall_s=wall_s,
+          step_ms_cuda_events=exec_ms / steps_run, V2_step_ms=v2["step_ms"],
+          series_bit_equal_to_V2_block=0, energy_per_boson=e_per_n,
+          accept_rate=accept, launches=launches, ok=True)
+    return launches, steps_run
+
+
+def check_proc_resume(device, card: str) -> None:
+    """Phase R3: a run cut after block 1 by the in-memory checkpoint and
+    resumed from it equals the uninterrupted run bit for bit."""
+    steps = R3_DEPTH["num_time_steps_block"]
+    proc = dmc_exec.Proc.from_config(dict(
+        BENCH_PROC, **R3_DEPTH, checkpoint_every=1,
+        density_spec=dict(num_bins=128, as_pure_est=True,
+                          pfw_num_time_steps=2 * steps)))
+    proc_input = dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
+    kept = []
+
+    def hook(resume_input):
+        if resume_input.resume["blocks_completed"] == 1:
+            kept.append(resume_input)
+
+    whole, _, _, _ = timed_exec(proc, proc_input, checkpoint_hook=hook)
+    (cut,) = kept
+    require(cut.state.pos.device.type == "cuda"
+            and cut.resume["aux"]["aux_density"].device.type == "cuda"
+            and cut.resume["it_next"] == 2,
+            "R3: the checkpoint after block 1 holds the state and the "
+            "window's accumulators on the card")
+    resumed, _, _, _ = timed_exec(proc, cut)
+    for name in ("pos", "energies", "weights", "num_walkers", "ref_energy"):
+        require(torch.equal(getattr(resumed.state, name),
+                            getattr(whole.state, name)),
+                f"R3 final {name} equal to the uninterrupted run's")
+    a, b = resumed.data.blocks, whole.data.blocks
+    for name in ("energy", "weight", "num_walkers", "density"):
+        require_equal(getattr(a, name).totals, getattr(b, name).totals,
+                      f"R3 {name} totals")
+    require(b.density.totals.shape == (2, 128)
+            and abs(float(b.density.totals[0].sum()
+                          / b.density.weight_totals[0, 0]) - NOP)
+            < NOP * SUM_RULE_RTOL,
+            "R3: one density sample per two-block window, summing to N")
+    phase("R3", check="resume from the in-memory checkpoint", card=card,
+          blocks=R3_DEPTH["num_blocks"], steps_per_block=steps,
+          cut_after_block=1, window_blocks=2, bit_equal=True, ok=True)
+
 
 
 def diffuse_inputs(device):
@@ -1437,6 +1794,8 @@ def main() -> None:
     dmc_launches, state, baseline = run_dmc(device, smi)  # D
     # Each run's launch counts and the steps it ran.
     runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS)}
+    runs["R0"] = run_proc_bench(device, smi, baseline)
+    check_proc_resume(device, smi)  # R3
     err_k4 = check_k4(device)  # F
     check_estimator_replay(device)  # G
     check_itc_replay(device)  # G
@@ -1451,6 +1810,8 @@ def main() -> None:
                                      offset, baseline)
         runs[label] = (done[label]["launches"], TIMED_BLOCKS * NTS)
     check_same_trajectory(done["G3"], done["G2"])
+    runs["R1"] = run_proc_production(device, smi, state, done["G3"],
+                                     BURN_BLOCKS + 2 * TIMED_BLOCKS)
     time_itc_step(device, smi, state, done["G2"]["step_ms"], done["G3"])
     del done
     check_free_gas_itc(device, smi)  # P
@@ -1458,12 +1819,15 @@ def main() -> None:
     err_k1_log = check_k1_log(device)  # H
     check_vmc_replay(device)  # I
     runs["V1"] = run_vmc_bench(device, smi)
-    runs["V2"] = run_vmc_example(device, smi)
+    v2 = run_vmc_example(device, smi)
+    runs["V2"] = (v2["launches"], v2["steps_run"])
+    runs["R2"] = run_proc_vmc_example(device, smi, v2)
+    del v2
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
-    # The main path's launches: each run of D, G1, G2, G3, V1 and V2
-    # counts from 0.  K3 lies on no path (the DMC step keeps its own sequence,
+    # The main path's launches: each run of D, G1, G2, G3, V1, V2 and, through
+    # the execution layer, R0, R1 and R2 counts from 0.  K3 lies on no path (the DMC step keeps its own sequence,
     # as in the JAX package): none of those runs may have launched it.
     launches = {name: sum(counts[name] for counts, _ in runs.values())
                 for name in COUNTERS}
@@ -1474,15 +1838,15 @@ def main() -> None:
     require(all(launches[name] > 0 for name in ("K1", "K1 log", "K2", "K4")),
             f"every kernel of the main path launched: {launches}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
-    require(all(per_step["K1"].get(label, 0) >= 1
-                for label in ("D", "G1", "G2", "G3"))
-            and all(per_step["K2"].get(label, 0) == 1
-                    for label in ("D", "G1", "G2", "G3"))
-            and per_step["K4"].get("G3", 0) > 0
+    dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1")
+    require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
+            and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)
+            and all(per_step["K4"].get(label, 0) > 0
+                    for label in ("G3", "R1"))
             and all(per_step["K1 log"].get(label, 0) >= 1
-                    for label in ("V1", "V2")),
-            f"K1 on every DMC step (K2 once, K4 on G3's density and g2 "
-            f"steps) and K1 log on every VMC step: {per_step}")
+                    for label in ("V1", "V2", "R2")),
+            f"K1 on every DMC step (K2 once, K4 on G3's and R1's density "
+            f"and g2 steps) and K1 log on every VMC step: {per_step}")
 
     def row(name, key, source, replaces, err, **extra):
         # No single PyTorch call computes K1, K3 or K4: library_ms null.

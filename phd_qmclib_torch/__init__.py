@@ -18,11 +18,18 @@ The statistics and analysis layers (``stats``, ``analysis``,
 modules, so a machine without JAX can put error bars on what it
 measures.
 
+The execution layer (``qmc_exec``: the DMC and VMC procedures, their
+block accumulators and result containers, the HDF5 handlers, the config
+loader and the CLI application objects) and ``mrbp_cli`` turn a config
+file into a run on the GPU and a result file that both packages read.
+
 Importing the package needs neither a GPU, nor ``nvcc``, nor ``triton``,
-and it never imports ``jax`` or ``phd_qmclib_tpu``.
+nor ``h5py``, ``yaml``, ``jinja2`` or ``click`` (each is imported by the
+function that needs it), and it never imports ``jax`` or
+``phd_qmclib_tpu``.
 """
 from . import (  # noqa: F401
-    analysis, constants, ideal, lieb_liniger, models, ops, samplers, stats,
-    utils)
+    analysis, constants, ideal, lieb_liniger, models, ops, qmc_exec,
+    samplers, stats, utils)
 
 __version__ = "0.1.0"

@@ -64,8 +64,10 @@ def build_core_funcs(*,
     corresponding terms when the functions are built.
 
     Returns a namespace with ``log_psi``, ``drift``, ``energy``,
-    ``energy_and_drift`` and ``log_psi_and_energy``, and the estimator
-    functions ``fourier_density`` and ``fourier_density_parts`` (S(k) at
+    ``energy_and_drift`` and ``log_psi_and_energy``, the
+    single-configuration ``wf_abs``, ``delta_log_psi_move`` and
+    ``delta_drift_move``, ``one_body_density`` (the OBDM at one
+    displacement), and the estimator functions ``fourier_density`` and ``fourier_density_parts`` (S(k) at
     explicit momenta), ``fourier_density_parts_harmonics`` (S(k)),
     ``one_body_density_grid`` (OBDM) and ``pair_dist_histogram`` (g2).
     """
@@ -167,6 +169,98 @@ def build_core_funcs(*,
                                             -1)
         energy_v = kin - (drift_v ** 2).sum(dim=-1) + pot
         return lp, energy_v
+
+    # -- single-particle moves and the single-offset OBDM --------------------
+
+    def _pair_log(r, cfc):
+        """``log f2(r)``."""
+        return two_body_pair_terms(r, cfc, need_log=True,
+                                   need_derivs=False)[0]
+
+    def _pair_log_dz(r, cfc):
+        """``f2'/f2`` at the distance ``r``."""
+        return two_body_pair_terms(r, cfc, need_log=False,
+                                   need_derivs=True)[1]
+
+    def wf_abs(pos, cfc: CFCParams):
+        """``|psi|``."""
+        return torch.exp(log_psi(pos, cfc))
+
+    def delta_log_psi_move(k: int, z_k_delta, pos, cfc: CFCParams):
+        """Change of ``log|psi|`` after moving particle ``k`` by
+        ``z_k_delta`` (an O(N) update).  ``pos`` is a single
+        configuration of shape ``(N,)``."""
+        sc = cfc.model_params.supercell_size
+        z_k = pos[k]
+        z_k_upd = z_k + z_k_delta
+        delta = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        if not is_free:
+            delta = delta + (one_body(z_k_upd, cfc)
+                             / one_body(z_k, cfc)).abs().log()
+        if not is_ideal:
+            others = torch.arange(nop, device=pos.device) != k
+            # The particle's own slot takes a safe distance, as the
+            # diagonal does in the pair functions.
+            r_ki = torch.where(others, min_image(z_k - pos, sc).abs(),
+                               0.25 * sc)
+            r_ki_upd = torch.where(others,
+                                   min_image(z_k_upd - pos, sc).abs(),
+                                   0.25 * sc)
+            delta = delta + _masked_sum(
+                _pair_log(r_ki_upd, cfc) - _pair_log(r_ki, cfc), others, -1)
+        return delta
+
+    def delta_drift_move(i: int, k: int, z_k_delta, pos, cfc: CFCParams):
+        """Change of the ``i``-th drift component after moving particle
+        ``k`` by ``z_k_delta`` (an O(N) update).  ``pos`` is a single
+        configuration of shape ``(N,)``."""
+        sc = cfc.model_params.supercell_size
+        z_k = pos[k]
+        z_k_upd = z_k + z_k_delta
+
+        def signed_log_dz(d):
+            return _pair_log_dz(d.abs(), cfc) * sign(d)
+
+        if i != k:
+            # Only the (i, k) pair term changes; the drift seen from i
+            # takes the displacement z_k - z_i with a minus sign.
+            if is_ideal:
+                return torch.zeros((), dtype=pos.dtype, device=pos.device)
+            z_i = pos[i]
+            return -(signed_log_dz(min_image(z_k_upd - z_i, sc))
+                     - signed_log_dz(min_image(z_k - z_i, sc)))
+        delta = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        if not is_free:
+            delta = delta + (one_body_log_dz(z_k_upd, cfc)
+                             - one_body_log_dz(z_k, cfc))
+        if not is_ideal:
+            others = torch.arange(nop, device=pos.device) != k
+            d = torch.where(others, min_image(z_k - pos, sc), 0.25 * sc)
+            d_upd = torch.where(others, min_image(z_k_upd - pos, sc),
+                                0.25 * sc)
+            delta = delta + _masked_sum(
+                signed_log_dz(d_upd) - signed_log_dz(d), others, -1)
+        return delta
+
+    def one_body_density(sz, pos, cfc: CFCParams):
+        """OBDM ``n1(sz)`` at one displacement: the average over
+        particles of the wavefunction ratio with particle ``i`` moved by
+        ``sz``.  ``pos (..., N)``, ``sz`` a scalar; returns ``(...)``."""
+        log_ratio = torch.zeros_like(pos)
+        if not is_free:
+            log_ratio = log_ratio + (one_body(pos + sz, cfc).log()
+                                     - one_body(pos, cfc).log())
+        if not is_ideal:
+            sc = cfc.model_params.supercell_size
+            off_diag = ~torch.eye(nop, dtype=torch.bool, device=pos.device)
+            d = min_image(pos[..., :, None] - pos[..., None, :], sc)
+            d_sft = min_image((pos + sz)[..., :, None] - pos[..., None, :],
+                              sc)
+            r = torch.where(off_diag, d.abs(), 0.25 * sc)
+            r_sft = torch.where(off_diag, d_sft.abs(), 0.25 * sc)
+            log_ratio = log_ratio + _masked_sum(
+                _pair_log(r_sft, cfc) - _pair_log(r, cfc), off_diag, -1)
+        return torch.exp(log_ratio).sum(dim=-1) / nop
 
     # -- estimators -----------------------------------------------------------
 
@@ -303,6 +397,10 @@ def build_core_funcs(*,
     return SimpleNamespace(log_psi=log_psi, drift=drift, energy=energy,
                            energy_and_drift=energy_and_drift,
                            log_psi_and_energy=log_psi_and_energy,
+                           wf_abs=wf_abs,
+                           delta_log_psi_move=delta_log_psi_move,
+                           delta_drift_move=delta_drift_move,
+                           one_body_density=one_body_density,
                            one_body_density_grid=one_body_density_grid,
                            fourier_density=fourier_density,
                            fourier_density_parts=fourier_density_parts,

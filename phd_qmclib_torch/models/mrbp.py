@@ -37,6 +37,7 @@ __all__ = [
     "CFCParams",
     "ModelParams",
     "OBFParams",
+    "PhysicalFuncs",
     "Spec",
     "StaticSpec",
     "SysConfDistType",
@@ -579,14 +580,73 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
             return fn(*lead, pos, cast_params(cfc, pos.dtype, pos.device))
         return wrapped
 
-    for name in ("log_psi", "drift", "one_body_density_grid",
-                 "fourier_density_parts_harmonics", "pair_dist_histogram"):
+    for name in ("log_psi", "drift", "wf_abs", "delta_log_psi_move",
+                 "delta_drift_move", "one_body_density",
+                 "one_body_density_grid", "fourier_density_parts_harmonics",
+                 "pair_dist_histogram"):
         setattr(funcs, name, with_cast(getattr(funcs, name)))
     funcs.energy_and_drift = energy_and_drift
     funcs.log_psi_and_energy = log_psi_and_energy
     funcs.energy = lambda pos, cfc: energy_and_drift(pos, cfc)[0]
     funcs.static_spec = static
     return funcs
+
+
+@dataclass(frozen=True)
+class PhysicalFuncs:
+    """Batch evaluation of the main physical properties for a model
+    spec: binds the spec's parameters to the functions of
+    :func:`core_funcs`.
+
+    Inputs may be single configurations ``(N,)``, packed ``(2, N)``
+    buffers, or batches with leading axes, as arrays or tensors.  An
+    array goes to ``device``; a tensor stays where it is.  The results
+    are tensors on the input's device.
+    """
+    spec: Spec
+    device: t.Union[str, torch.device] = "cuda"
+
+    @classmethod
+    def from_model_spec(cls, model_spec: Spec,
+                        device="cuda") -> "PhysicalFuncs":
+        return cls(model_spec, device)
+
+    @cached_property
+    def _funcs(self):
+        return core_funcs(self.spec)
+
+    @cached_property
+    def _cfc(self):
+        return self.spec.cfc_params
+
+    def _pos(self, sys_conf):
+        if not isinstance(sys_conf, torch.Tensor):
+            sys_conf = torch.as_tensor(np.asarray(sys_conf),
+                                       device=self.device)
+        nop = self.spec.boson_number
+        if sys_conf.dim() >= 2 and sys_conf.shape[-2] == 2 \
+                and sys_conf.shape[-1] == nop:
+            return sys_conf[..., SysConfSlot.pos, :]
+        return sys_conf
+
+    def wf_abs_log(self, sys_conf):
+        return self._funcs.log_psi(self._pos(sys_conf), self._cfc)
+
+    def energy(self, sys_conf):
+        return self._funcs.energy(self._pos(sys_conf), self._cfc)
+
+    def drift(self, sys_conf):
+        return self._funcs.drift(self._pos(sys_conf), self._cfc)
+
+    def one_body_density(self, sz, sys_conf):
+        return self._funcs.one_body_density(sz, self._pos(sys_conf),
+                                            self._cfc)
+
+    def fourier_density(self, kz_set, sys_conf):
+        pos = self._pos(sys_conf)
+        kz = torch.as_tensor(np.asarray(kz_set), dtype=pos.dtype,
+                             device=pos.device)
+        return self._funcs.fourier_density(kz, pos, self._cfc)
 
 
 def recast(z, cfc: CFCParams):

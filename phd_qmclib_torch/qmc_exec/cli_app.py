@@ -1,0 +1,192 @@
+"""Application layer: app specs, IO-handler dispatch, multi-procedure
+CLI runner.
+
+Counterpart of ``phd_qmclib_tpu.qmc_exec.cli_app``, after the upstream
+library's ``mrbp_qmc/dmc_exec/cli_app.py`` and ``qmc_exec/cli_app.py``.
+One config file holds ``meta`` plus one or
+more ``app_spec`` stanzas executed serially; each stanza wires a ``proc``
+to an input handler (fresh model configurations or an HDF5 restart) and
+an HDF5 output handler.  The procedures run on the ``device`` given to
+:meth:`CLIApp.exec`; a config never names one.
+
+Not here yet, and refused by name when a config asks for them: a
+``proc_type: wf_opt`` stanza (the wavefunction optimization) and
+``fused_sweep`` / ``fused_sweep_mesh`` (the procedures of one config
+advanced as a single fused sweep).
+"""
+import typing as t
+from dataclasses import dataclass, replace
+
+from . import dmc as dmc_proc, io as io_mod, vmc as vmc_proc
+from .logging import exec_logger
+from .proc import MODEL_SYS_CONF_TYPE, ModelSysConfSpec
+
+__all__ = ["AppMeta", "AppSpec", "CLIApp", "get_io_handler"]
+
+
+def proc_cli_tags_converter(tag_or_tags) -> str:
+    """(``mrbp_qmc/dmc_exec/cli_app.py:124-134``)."""
+    if isinstance(tag_or_tags, str):
+        return tag_or_tags
+    return " - ".join("#" + str(tag) for tag in tag_or_tags)
+
+
+@dataclass(frozen=True)
+class AppMeta:
+    """Metadata of the application
+    (``mrbp_qmc/dmc_exec/cli_app.py:140-164``)."""
+    name: str = ""
+    description: str = ""
+    author: str = ""
+    author_email: str = ""
+    institution: str = ""
+    category: str = ""
+    tags: str = ""
+
+    @classmethod
+    def from_config(cls, config: t.Mapping):
+        config = dict(config)
+        if "tags" in config:
+            config["tags"] = proc_cli_tags_converter(config["tags"])
+        return cls(**config)
+
+
+def get_io_handler(config: t.Mapping, sampling_type: str):
+    """Dispatch an IO handler on the ``type`` tag
+    (``mrbp_qmc/dmc_exec/cli_app.py:233-249``)."""
+    handler_config = dict(config)
+    handler_type = handler_config["type"]
+    if handler_type == MODEL_SYS_CONF_TYPE:
+        handler_config.pop("type", None)
+        return ModelSysConfSpec(**handler_config)
+    if handler_type == io_mod.HDF5_FILE_TYPE:
+        cls = (io_mod.DmcHDF5FileHandler if sampling_type == "dmc"
+               else io_mod.VmcHDF5FileHandler)
+        return cls.from_config(handler_config)
+    raise TypeError(f"unknown handler type {handler_type}")
+
+
+@dataclass(frozen=True)
+class AppSpec:
+    """One procedure + its input and output handlers
+    (``mrbp_qmc/dmc_exec/cli_app.py:33-121``)."""
+    proc: t.Any
+    proc_input: t.Any
+    proc_output: io_mod.HDF5FileHandler
+    proc_id: t.Optional[int] = None
+    sampling_type: str = "dmc"
+
+    @classmethod
+    def from_config(cls, config: t.Mapping, sampling_type: str):
+        self_config = dict(config)
+        if "input" in self_config:
+            self_config["proc_input"] = self_config.pop("input")
+        if "output" in self_config:
+            self_config["proc_output"] = self_config.pop("output")
+
+        proc_cls = dmc_proc.Proc if sampling_type == "dmc" \
+            else vmc_proc.Proc
+        proc = proc_cls.from_config(self_config["proc"])
+        proc_id = self_config.get("proc_id", 0)
+        input_handler = get_io_handler(self_config["proc_input"],
+                                       sampling_type)
+        output_handler = get_io_handler(self_config["proc_output"],
+                                        sampling_type)
+        if not isinstance(output_handler, io_mod.HDF5FileHandler):
+            raise TypeError("HDF5_FILE is the single accepted output "
+                            "handler")
+        return cls(proc=proc, proc_input=input_handler,
+                   proc_output=output_handler, proc_id=proc_id,
+                   sampling_type=sampling_type)
+
+    def _continuation_proc(self, prev_proc):
+        """RNG hygiene on restarts: when the continuation run reuses
+        the previous run's seed without advancing ``block_offset``, its
+        block keys would replay the blocks the previous run already
+        consumed, correlating the merged statistics.  Advance the
+        offset past the previous run's stream automatically."""
+        proc = self.proc
+        prev_seed = getattr(prev_proc, "rng_seed", None)
+        prev_offset = getattr(prev_proc, "block_offset", 0)
+        if (proc.rng_seed is not None and proc.rng_seed == prev_seed
+                and proc.block_offset <= prev_offset):
+            consumed = (prev_offset + prev_proc.burn_in_blocks
+                        + prev_proc.num_blocks)
+            exec_logger.info(
+                f"restart reuses rng_seed={proc.rng_seed}: advancing "
+                f"block_offset to {consumed} for an independent "
+                f"continuation stream")
+            proc = replace(proc, block_offset=consumed)
+        return proc
+
+    def build_input(self, device="cuda"):
+        """(proc, proc_input) ready for execution, the state on
+        ``device``; restarts from HDF5 get a stream-independent proc
+        (see ``_continuation_proc``)."""
+        proc_input_cls = dmc_proc.ProcInput \
+            if self.sampling_type == "dmc" else vmc_proc.ProcInput
+        if isinstance(self.proc_input, ModelSysConfSpec):
+            return self.proc, proc_input_cls.from_model_sys_conf_spec(
+                self.proc_input, self.proc, device=device)
+        if isinstance(self.proc_input, io_mod.HDF5FileHandler):
+            proc_result = self.proc_input.load(device=device)
+            proc = self._continuation_proc(proc_result.proc)
+            return proc, proc_input_cls.from_result(proc_result, proc)
+        raise TypeError(f"invalid proc_input {self.proc_input!r}")
+
+    def exec(self, dump_output: bool = True, device="cuda"):
+        proc, proc_input = self.build_input(device=device)
+        proc_result = proc.exec(proc_input)
+        if dump_output:
+            self.proc_output.dump(proc_result)
+        return proc_result
+
+
+@dataclass(frozen=True)
+class CLIApp:
+    """Entry point executing a sequence of procedures, one after the
+    other (``mrbp_qmc/dmc_exec/cli_app.py:167-230``)."""
+    meta: AppMeta
+    app_spec: t.Sequence[AppSpec]
+    sampling_type: str = "dmc"
+
+    @classmethod
+    def from_config(cls, config: t.Mapping, sampling_type: str):
+        self_config = dict(config.items())
+        app_meta = AppMeta.from_config(self_config.get("meta", {}))
+        for key in ("fused_sweep", "fused_sweep_mesh"):
+            if self_config.pop(key, None):
+                raise ValueError(
+                    f"{key}: fused sweeps are not available in this "
+                    f"package yet; remove the key to run the procedures "
+                    f"one after the other")
+        app_spec_data = self_config.pop("app_spec")
+        app_spec_set = []
+        for proc_num, app_spec_config in enumerate(app_spec_data):
+            app_spec_config = dict(app_spec_config)
+            if app_spec_config.get("proc_id") is None:
+                app_spec_config["proc_id"] = proc_num
+            if app_spec_config.get("proc_type") == "wf_opt":
+                raise ValueError(
+                    f"app_spec[{proc_num}]: proc_type 'wf_opt' (the "
+                    f"wavefunction optimization) is not available in "
+                    f"this package yet")
+            app_spec_set.append(
+                AppSpec.from_config(app_spec_config, sampling_type))
+        return cls(meta=app_meta, app_spec=app_spec_set,
+                   sampling_type=sampling_type)
+
+    def exec(self, device="cuda"):
+        """Run the procedures on ``device``, each dumping its result to
+        its output file."""
+        app_spec_set = self.app_spec
+        exec_logger.info("Starting the QMC calculations...")
+        exec_logger.info(f"Starting the execution of a set of "
+                         f"{len(app_spec_set)} QMC calculations...")
+        results = []
+        for proc_num, app_spec in enumerate(app_spec_set, 1):
+            exec_logger.info(f"Starting procedure ID{proc_num}...")
+            results.append(app_spec.exec(device=device))
+            exec_logger.info(f"Procedure ID{proc_num} completed.")
+        exec_logger.info("All the QMC calculations have completed.")
+        return results

@@ -99,6 +99,16 @@ class State(t.NamedTuple):
     #: saturates at ``num_lags``.
     itc_filled: t.Optional[torch.Tensor] = None
 
+    @property
+    def max_num_walkers(self) -> int:
+        return self.pos.shape[-2]
+
+    @property
+    def confs(self) -> torch.Tensor:
+        """Packed ``(Wm, 2, N)`` (pos, drift) buffer: the layout of the
+        state's configurations in a result file."""
+        return torch.stack([self.pos, self.drift], dim=-2)
+
 
 class PropsData(t.NamedTuple):
     """Per-step ensemble properties of a block, each ``(nts,)`` on the
@@ -792,7 +802,8 @@ class Sampling:
         return aux, est, state
 
     def _run(self, state: State, draws, consts: _Consts,
-             measuring: bool, aux: t.Optional[dict], step_offset: int):
+             measuring: bool, aux: t.Optional[dict], step_offset: int,
+             thin: int = 0):
         """Step through ``draws``, an iterable of ``(comb_u, xi)``.
 
         With ``measuring``, every ``est_every``-th step measures the
@@ -801,19 +812,23 @@ class Sampling:
         the ancestry permutation.  The ITC ring buffer's permutation
         composes on every step and resets at the ITC-measured ones;
         without ``measuring`` the buffer is neither transported nor
-        shifted.  Returns ``(state, aux, props, est)``: the per-step
-        ensemble scalars and estimator rows, as lists of device tensors.
+        shifted.  Returns ``(state, aux, props, est, ensembles)``: the
+        per-step ensemble scalars and estimator rows and, with ``thin``,
+        every ``thin``-th step's ``(pos, energies, weights)``, as lists
+        of device tensors.
         """
         e_prev_slots = state.energies if self.ref_compat else None
         cadence = self.est_every
         use_itc = measuring and self.itc_est_spec is not None
         perm = itc_perm = None
-        props, est = [], {}
+        props, est, ensembles = [], {}, []
         for step, (comb_u, xi) in enumerate(draws):
             state, e_prev_slots, branch = self._step(
                 state, e_prev_slots, comb_u, xi, consts)
             props.append((state.energy, state.weight, state.num_walkers,
                           state.ref_energy, state.accum_energy))
+            if thin and (step + 1) % thin == 0:
+                ensembles.append((state.pos, state.energies, state.weights))
             if not measuring:
                 continue
             if use_itc:
@@ -832,7 +847,7 @@ class Sampling:
                 itc_perm = None
             for name, row in rows.items():
                 est.setdefault(name, []).append(row)
-        return state, aux, props, est
+        return state, aux, props, est, ensembles
 
     def _block_draws(self, block_index: int, num_time_steps_block: int,
                      state: State, noise: torch.Tensor):
@@ -857,7 +872,10 @@ class Sampling:
 
     def blocks(self, ini_state: State, num_time_steps_block: int,
                burn_in_blocks: int = 0,
-               block_offset: int = 0) -> t.Iterator[SamplingBlock]:
+               block_offset: int = 0,
+               start_block_idx: int = 0,
+               aux_init: t.Optional[dict] = None
+               ) -> t.Iterator[SamplingBlock]:
         """Yield :class:`SamplingBlock` objects indefinitely.
 
         The first ``burn_in_blocks`` blocks run the dynamics only: no
@@ -868,19 +886,30 @@ class Sampling:
         restarts its fill, whatever the initial state carried).  A
         forward-walking window longer than one block carries the pure
         accumulators across blocks (``aux_carry``), with the step index
-        counted from the window's start.  ``block_offset`` continues the random streams of a run
-        that already consumed that many blocks: the comb stream of block
-        ``b`` is seeded from ``(rng_seed, block_offset + b)`` and the
-        diffusion noise of its step ``t`` is keyed by ``(rng_seed,
-        (block_offset + b) * nts + t)``.
+        counted from the window's start.  ``block_offset`` continues
+        the random streams of a run that already consumed that many
+        blocks: the comb stream of block ``b`` is seeded from
+        ``(rng_seed, block_offset + b)`` and the diffusion noise of its
+        step ``t`` is keyed by ``(rng_seed, (block_offset + b) * nts +
+        t)``.
+
+        A run interrupted after block ``b - 1`` resumes with
+        ``start_block_idx = b`` from the state that block left: the
+        block counter starts there, so the random streams, the position
+        in the forward-walking window and the CM window cadence are
+        those of the uninterrupted run, and past the burn-in the ITC
+        ring buffer keeps its fill.  ``aux_init`` (arrays or tensors by
+        accumulator name) are the pure accumulators of a window that
+        spans the cut; names it lacks start from zero.
         """
         state = ini_state
         dtype, device = state.pos.dtype, state.pos.device
         if self.cm_diffusion_est and state.cmd_accum is None:
             state = state._replace(cmd_accum=torch.zeros(
                 state.pos.shape[0], dtype=dtype, device=device))
+        start_block_idx = int(start_block_idx)
         if self.itc_est_spec is not None and (
-                state.itc_buf is None or burn_in_blocks > 0):
+                state.itc_buf is None or start_block_idx < burn_in_blocks):
             # A state without the ring buffer starts an empty fill (the
             # lag counts discount the unfilled rows).  A filled buffer
             # would come out of the burn-in misaligned with its slots,
@@ -892,7 +921,12 @@ class Sampling:
         cmd_window = self.cm_window_blocks
         noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
         aux = None
-        block = 0
+        if window > 1 and aux_init is not None:
+            aux = self._fresh_aux(dtype, device)
+            aux.update((name, torch.as_tensor(value, dtype=dtype,
+                                              device=device))
+                       for name, value in aux_init.items() if name in aux)
+        block = start_block_idx
         while True:
             measured_idx = block - burn_in_blocks
             measuring = measured_idx >= 0
@@ -906,13 +940,15 @@ class Sampling:
             if measuring:
                 self._check_block_length(nts)
                 win_pos = measured_idx % window
-                if win_pos == 0:
+                if win_pos == 0 or aux is None:
+                    # A window's start; or a resume inside a window
+                    # without its accumulators, which restart from zero.
                     aux = self._fresh_aux(dtype, device)
                 step_offset = win_pos * nts
             draws = self._block_draws(block_offset + block, nts, state,
                                       noise)
-            state, aux, steps, est = self._run(state, draws, consts,
-                                               measuring, aux, step_offset)
+            state, aux, steps, est, _ = self._run(
+                state, draws, consts, measuring, aux, step_offset)
             props = PropsData(*(torch.stack(column).cpu()
                                 for column in zip(*steps)))
             rows = {name: torch.stack(values).cpu()
@@ -923,6 +959,45 @@ class Sampling:
                 iter_g2=rows.get("g2"), iter_itc=rows.get("itc"),
                 iter_itc_nw=rows.get("itc_nw"),
                 aux_carry=aux if measuring and window > 1 else None)
+            block += 1
+
+    def states(self, ini_state: State) -> t.Iterator[State]:
+        """Step-by-step state generator (one block per step); use
+        :meth:`blocks` for production."""
+        for block in self.blocks(ini_state, num_time_steps_block=1):
+            yield block.last_state
+
+    def state_data_blocks(self, ini_state: State,
+                          num_time_steps_block: int, thin: int = 1,
+                          block_offset: int = 0):
+        """Yield blocks that also record the walker ensembles.
+
+        Yields ``(ensembles, block)``: ``ensembles`` is a dict with
+        ``pos (nts // thin, Wm, N)``, ``energies`` and ``weights``, every
+        ``thin``-th step's post-diffusion ensemble on the state's
+        device, and ``block`` the usual :class:`SamplingBlock`.  No
+        estimator is measured while recording, and the block streams are
+        those of :meth:`blocks` at the same ``block_offset``.
+        """
+        if num_time_steps_block % thin:
+            raise ValueError(
+                "num_time_steps_block must be divisible by thin")
+        state = ini_state
+        dtype, device = state.pos.dtype, state.pos.device
+        consts = self._consts(dtype, device)
+        noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
+        block = int(block_offset)
+        while True:
+            draws = self._block_draws(block, num_time_steps_block, state,
+                                      noise)
+            state, _, steps, _, kept = self._run(
+                state, draws, consts, False, None, 0, thin)
+            props = PropsData(*(torch.stack(column).cpu()
+                                for column in zip(*steps)))
+            ensembles = dict(zip(("pos", "energies", "weights"),
+                                 (torch.stack(column)
+                                  for column in zip(*kept))))
+            yield ensembles, SamplingBlock(props, None, None, state)
             block += 1
 
     def replay_states(self, ini_state: State, comb_u,
@@ -980,8 +1055,8 @@ class Sampling:
         if self.itc_est_spec is not None and ini_state.itc_buf is None:
             ini_state = ini_state._replace(
                 **self._fresh_itc(dtype, device))
-        state, aux, _, est = self._run(ini_state, zip(comb_u, xi),
-                                       self._consts(dtype, device), True,
-                                       aux, step_offset)
+        state, aux, _, est, _ = self._run(
+            ini_state, zip(comb_u, xi), self._consts(dtype, device), True,
+            aux, step_offset)
         return ({name: torch.stack(rows) for name, rows in est.items()},
                 aux, state)

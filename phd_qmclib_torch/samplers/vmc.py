@@ -114,7 +114,6 @@ class _Consts(t.NamedTuple):
     """What a run needs on the device, made once per run."""
     cfc: mrbp.CFCParams
     params: torch.Tensor  # pairwise.pack_params(cfc), the kernels' vector
-    ssf_momenta: t.Optional[torch.Tensor]  # (num_modes,)
     obd_offsets: t.Optional[torch.Tensor]  # (num_pos,)
 
 
@@ -204,15 +203,11 @@ class Sampling:
                 or self.pair_corr_est_spec is not None)
 
     def _consts(self, dtype, device) -> _Consts:
-        def as_tensor(values):
-            return torch.as_tensor(values, dtype=dtype, device=device)
-
         cfc = mrbp.cast_params(self.cfc_params, dtype, device)
         return _Consts(
             cfc, pairwise.pack_params(cfc, dtype, device),
-            (as_tensor(self.ssf_momenta) if self.ssf_est_spec is not None
-             else None),
-            (as_tensor(self.obd_pos_offsets)
+            (torch.as_tensor(self.obd_pos_offsets, dtype=dtype,
+                             device=device)
              if self.obd_est_spec is not None else None))
 
     def _check_block_length(self, num_steps_block: int) -> None:
@@ -229,13 +224,15 @@ class Sampling:
 
     def _seed_parts(self, consts: _Consts, pos: torch.Tensor, ssf=None,
                     obd=None):
-        """The S(k) parts at the explicit momenta and the OBDM grid of
-        ``pos``, as the every-step mode carries them; parts already
-        given are kept."""
+        """The S(k) parts and the OBDM grid of ``pos``, as the
+        every-step mode carries them, by the step's own functions: a
+        state stored without its parts (a result file, a checkpoint)
+        gets back, bit for bit, the parts its chains carried.  Parts
+        already given are kept."""
         funcs = self.core_funcs
-        if consts.ssf_momenta is not None and ssf is None:
-            ssf = funcs.fourier_density_parts(consts.ssf_momenta, pos,
-                                              consts.cfc)
+        if self.ssf_est_spec is not None and ssf is None:
+            ssf = funcs.fourier_density_parts_harmonics(
+                self.ssf_est_spec.num_modes, pos, consts.cfc)
         if consts.obd_offsets is not None and obd is None:
             obd = funcs.one_body_density_grid(consts.obd_offsets, pos,
                                               consts.cfc)
@@ -266,7 +263,10 @@ class Sampling:
             dtype = pos.dtype if np.issubdtype(pos.dtype, np.floating) \
                 else np.float64
         dtype = utils.torch_dtype(dtype)
-        pos = torch.as_tensor(np.array(pos), dtype=dtype, device=device)
+        # Row-major whatever the start's shape: a broadcast copy would
+        # keep the broadcast's strides, and the steps' sums their order.
+        pos = torch.as_tensor(np.array(pos, order="C"), dtype=dtype,
+                              device=device)
         consts = self._consts(dtype, device)
         wf_abs_log, energy = self.core_funcs.log_psi_and_energy(
             pos, consts.cfc, consts.params)

@@ -1,18 +1,24 @@
 """Foundation utilities: RNG seeding.
 
-Counterpart of ``phd_qmclib_tpu.utils`` (``get_random_rng_seed`` only),
-plus the per-block seeds of the samplers' ``torch.Generator`` streams.
+Counterpart of ``phd_qmclib_tpu.utils`` (``get_random_rng_seed`` and
+``now``), plus the per-block seeds of the samplers' ``torch.Generator`` streams.
 """
 import os
 import time
+from datetime import datetime, timezone
 
 import numpy as np
 import torch
 
-__all__ = ["block_seed", "get_random_rng_seed", "torch_dtype"]
+__all__ = ["block_seed", "get_random_rng_seed", "now", "torch_dtype"]
 
 #: Maximum seed value (uint32 range).
 MAX_SEED = 2 ** 32 - 1
+
+
+def now() -> datetime:
+    """Current date and time, timezone-aware (UTC offset of the host)."""
+    return datetime.now(timezone.utc).astimezone()
 
 
 def get_random_rng_seed() -> int:

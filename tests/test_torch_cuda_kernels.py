@@ -648,3 +648,62 @@ def test_vmc_on_the_card_matches_the_cpu_replay(cuda, gaussian):
     assert torch.equal(on_card[2].cpu(), on_cpu[2])
     for got, want in zip(on_card[:2], on_cpu[:2]):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+# -- the execution layer on the card -----------------------------------------------
+
+PROC_SMALL = dict(
+    model_spec=dict(BENCH, boson_number=16, supercell_size=16.0),
+    time_step=1e-3, max_num_walkers=96, target_num_walkers=64,
+    num_blocks=2, num_time_steps_block=16, burn_in_blocks=1, rng_seed=5,
+    dtype="float64", est_every=2,
+    density_spec=dict(num_bins=16), ssf_spec=dict(num_modes=4),
+    pair_corr_spec=dict(num_bins=8, est_every_mult=2),
+    itc_spec=dict(num_modes=3, num_lags=4))
+
+
+def test_proc_exec_runs_on_the_card_and_traces_it(cuda, tmp_path):
+    """No device named: the start state lies on the card and ``exec``
+    runs there, through the kernels; ``profile_dir`` writes the first
+    measured block's trace and changes nothing."""
+    from phd_qmclib_torch.qmc_exec import dmc as dmc_exec
+
+    proc = dmc_exec.Proc.from_config(PROC_SMALL)
+    start = dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(), proc)
+    assert start.state.pos.device.type == "cuda"
+    counts = (pairwise.energy_and_drift.launch_count,
+              prng.normal.launch_count,
+              histogram.walker_histogram.launch_count)
+    plain = proc.exec(start)
+    steps = 3 * 16
+    assert pairwise.energy_and_drift.launch_count >= counts[0] + steps
+    assert prng.normal.launch_count == counts[1] + steps
+    assert histogram.walker_histogram.launch_count > counts[2]
+    assert plain.state.pos.device.type == "cuda"
+    traced = proc.evolve({"profile_dir": str(tmp_path / "trace")}).exec(start)
+    assert (tmp_path / "trace" / "dmc_block0.trace.json").stat().st_size > 0
+    np.testing.assert_array_equal(traced.data.blocks.energy.totals,
+                                  plain.data.blocks.energy.totals)
+    assert torch.equal(traced.state.pos, plain.state.pos)
+    density = plain.data.blocks.density
+    np.testing.assert_allclose(density.mean.sum(), 16.0, rtol=1e-12)
+
+
+def test_vmc_proc_exec_runs_on_the_card(cuda):
+    from phd_qmclib_torch.qmc_exec import vmc as vmc_exec
+
+    proc = vmc_exec.Proc.from_config(dict(
+        model_spec=PROC_SMALL["model_spec"], move_spread=0.3, num_walkers=64,
+        num_blocks=2, num_steps_block=16, burn_in_blocks=1, rng_seed=3,
+        dtype="float64", ssf_spec=dict(num_modes=4)))
+    start = vmc_exec.ProcInput.from_model_sys_conf_spec(
+        vmc_exec.ModelSysConfSpec(dist_type="REGULAR"), proc)
+    assert start.state.pos.device.type == "cuda"
+    count = pairwise.energy_and_drift.log_psi_launch_count
+    result = proc.exec(start)
+    assert pairwise.energy_and_drift.log_psi_launch_count >= count + 48
+    assert result.state.pos.device.type == "cuda"
+    assert np.isfinite(result.data.blocks.energy.totals).all()
+    np.testing.assert_allclose(
+        result.data.blocks.ss_factor.fdk_sqr_abs_part.totals[:, 0], 16.0 ** 2)

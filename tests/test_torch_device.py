@@ -10,6 +10,8 @@ import torch
 
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import pairwise, prng
+from phd_qmclib_torch.qmc_exec import cli_app, dmc as dmc_exec, io as io_exec
+from phd_qmclib_torch.qmc_exec import vmc as vmc_exec
 from phd_qmclib_torch.samplers import dmc, vmc
 
 torch.set_num_threads(1)
@@ -23,6 +25,24 @@ ENTRY_POINTS = {
     "pairwise.pack_params": pairwise.pack_params,
     "prng.normal": prng.normal,
     "prng.philox_words": prng.philox_words,
+    "mrbp.PhysicalFuncs.from_model_spec":
+        mrbp.PhysicalFuncs.from_model_spec,
+    "qmc_exec.dmc.ProcInput.from_model_sys_conf_spec":
+        dmc_exec.ProcInput.from_model_sys_conf_spec,
+    "qmc_exec.vmc.ProcInput.from_model_sys_conf_spec":
+        vmc_exec.ProcInput.from_model_sys_conf_spec,
+    "qmc_exec.dmc.Proc.restore_checkpoint":
+        dmc_exec.Proc.restore_checkpoint,
+    "qmc_exec.vmc.Proc.restore_checkpoint":
+        vmc_exec.Proc.restore_checkpoint,
+    "qmc_exec.io.HDF5FileHandler.load": io_exec.HDF5FileHandler.load,
+    "qmc_exec.io.DmcHDF5FileHandler.load_state":
+        io_exec.DmcHDF5FileHandler.load_state,
+    "qmc_exec.io.VmcHDF5FileHandler.load_state":
+        io_exec.VmcHDF5FileHandler.load_state,
+    "qmc_exec.cli_app.AppSpec.build_input": cli_app.AppSpec.build_input,
+    "qmc_exec.cli_app.AppSpec.exec": cli_app.AppSpec.exec,
+    "qmc_exec.cli_app.CLIApp.exec": cli_app.CLIApp.exec,
 }
 PLAIN = {"prng.normal_plain": prng.normal_plain,
          "prng.philox_words_plain": prng.philox_words_plain}
@@ -58,7 +78,23 @@ def _vmc_build(confs, **kw):
     return sampling.build_state(confs, **kw).pos
 
 
+def _proc_input(mod, config):
+    def build(confs, **kw):
+        proc = mod.Proc.from_config(dict(config, model_spec=SPEC,
+                                         rng_seed=3, dtype="float64"))
+        return mod.ProcInput.from_model_sys_conf_spec(
+            mod.ModelSysConfSpec(), proc, **kw).state.pos
+    return build
+
+
 CALLS = {
+    "qmc_exec.dmc.ProcInput.from_model_sys_conf_spec": _proc_input(
+        dmc_exec, dict(time_step=1e-2, max_num_walkers=8,
+                       target_num_walkers=6)),
+    "qmc_exec.vmc.ProcInput.from_model_sys_conf_spec": _proc_input(
+        vmc_exec, dict(move_spread=0.4, num_walkers=6)),
+    "mrbp.PhysicalFuncs": lambda confs, **kw: mrbp.PhysicalFuncs(
+        mrbp.Spec(**SPEC), **kw).energy(confs),
     "dmc.Sampling.build_state": _dmc_build,
     "vmc.Sampling.build_state": _vmc_build,
     "pairwise.pack_params": lambda confs, **kw: pairwise.pack_params(

@@ -1,4 +1,7 @@
-"""The port imports without JAX, the JAX package, a GPU, Triton or h5py."""
+"""The port imports without JAX, the JAX package, a GPU, Triton, h5py,
+PyYAML, Jinja2 or click: the command line included.  (``tqdm`` cannot be
+held out of ``sys.modules``, since ``torch`` imports it; no module of the
+port imports it at its top.)"""
 import ast
 import subprocess
 import sys
@@ -7,7 +10,10 @@ from pathlib import Path
 import pytest
 
 PKG = Path(__file__).resolve().parent.parent / "phd_qmclib_torch"
-FORBIDDEN = ("jax", "phd_qmclib_tpu", "triton", "h5py")
+FORBIDDEN = ("jax", "phd_qmclib_tpu", "triton", "h5py", "yaml", "jinja2",
+             "click")
+#: Imported only by the function that needs them.
+LAZY = ("h5py", "yaml", "jinja2", "click", "tqdm", "triton")
 
 
 def test_import_pulls_in_no_jax_or_triton():
@@ -18,6 +24,16 @@ def test_import_pulls_in_no_jax_or_triton():
         "from phd_qmclib_torch.ops import pairwise, prng\n"
         "from phd_qmclib_torch import analysis, lieb_liniger, stats\n"
         "from phd_qmclib_torch.stats import reblock\n"
+        "from phd_qmclib_torch.qmc_exec import (cli_app, config, dmc as d,\n"
+        "                                       io, vmc)\n"
+        "from phd_qmclib_torch.qmc_exec.data import dmc as dd, vmc as dv\n"
+        "from phd_qmclib_torch import mrbp_cli\n"
+        "from phd_qmclib_torch.multirods_qmc import bloch_phonon\n"
+        "assert callable(mrbp_cli.dmc_cli)\n"
+        "d.Proc.from_config(dict(model_spec=dict(lattice_depth=10.0,\n"
+        "    lattice_ratio=1.0, interaction_strength=1.0, boson_number=5,\n"
+        "    supercell_size=5.0, tbf_contact_cutoff=0.3),\n"
+        "    time_step=1e-3)).sampling\n"
         "reblock.OTFObject.from_non_obj_data(list(range(64))).mean\n"
         "lieb_liniger.ground_state_energy(2.0, num_points=32)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -44,3 +60,33 @@ def test_no_module_imports_jax(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "phd_qmclib_tpu"), \
                 f"{path.name} imports {name}"
+
+
+def _imported(node):
+    if isinstance(node, ast.Import):
+        return [alias.name for alias in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module]
+    return []
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_optional_packages_are_imported_inside_functions(path):
+    """At the top of a module (also under an ``if`` or a ``try`` there)
+    nothing imports a package a GPU machine may lack."""
+    def top_level(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                if isinstance(node, ast.ClassDef):
+                    yield from top_level(node.body)
+                continue
+            yield node
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                yield from top_level(getattr(node, field, []) or [])
+
+    for node in top_level(ast.parse(path.read_text()).body):
+        for name in _imported(node):
+            assert name.split(".")[0] not in LAZY, \
+                f"{path.name} imports {name} at its top"
