@@ -113,17 +113,44 @@ R. the same paths through the execution layer (``qmc_exec``), from
    checkpoint ``exec`` hands to its ``checkpoint_hook``, resumed from it:
    bit-equal to the uninterrupted run.
 
+W. the wavefunction optimization:
+   W0, the parameter VJP of K1 log (the optimizer's backward kernel)
+   against autograd of the plain version: f64 at 256 walkers on the
+   bench, free, ideal and defected models at N = 5, 64 and 128, every slot
+   within rtol 1e-9; f32 at 4096 x 128 against the f64 plain version
+   (``K1_VJP_F32_TOL``); its time beside K1 log's at 4096 x 128 and
+   16384 x 64, alternating plain, kernel, kernel, plain, with its bound;
+   W1, the shipped pipeline ``examples/wf_opt_pipeline.yml`` from config
+   dicts (``tests/test_torch_wf_opt_cli.py`` holds them equal to the
+   file): ``WFOptAppSpec.exec`` (VMC at N=16, 512 chains, then the joint
+   gradient optimization), then the DMC ``Proc.exec`` at the optimum, in
+   memory: rm* and v0* inside their bounds, the variance at the optimum
+   <= the start's, the DMC E/N finite;
+   W2, ``benchmarks/wf_opt_compare.py --joint --equil-steps 1024`` in the
+   port, f32: VMC at the bench model with rm0 = 0.2, 4,096 chains from a
+   crystal start, then DE (its evaluations counted), the gradient
+   optimizer and the joint one, each timed, then fresh VMC at the
+   initial, the rm-only and the joint trial: DE and grad rm* within 0.01,
+   the joint variance <= the rm-only one (its ratio printed beside the
+   JAX run's), the rm-only trial's E/N below the initial's by more than 5
+   combined errors.
+   In W1 and W2 every gradient optimization must launch K1 log once per
+   grid point and per evaluation and the VJP kernel once per backward,
+   and no plain pair function may run on a CUDA tensor
+   (``watch_optimizer``).
+
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-G3, V1, V2, R0, R1 and R2, in all and per step of each run; K1 must run
-on every DMC step and K1 log on every VMC step.  K3 lies on none of them (the DMC
-step keeps its own sequence, as in the JAX package), and its count
-there must stay 0.
+G3, V1, V2, R0, R1, R2, W1 (and its DMC stage) and W2, in all and per
+step of each run; K1 must run on every DMC step and K1 log on every VMC
+step.  K3 lies on none of them (the DMC step keeps its own sequence, as
+in the JAX package), and its count there must stay 0.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  It needs a CUDA device and the
 repository's ``phd_qmclib_torch`` package next to it.
 """
+import dataclasses
 import json
 import math
 import subprocess
@@ -134,10 +161,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from phd_qmclib_torch import lieb_liniger
+from phd_qmclib_torch import lieb_liniger, wf_opt
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
-from phd_qmclib_torch.qmc_exec import dmc as dmc_exec, vmc as vmc_exec
+from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec,
+                                       vmc as vmc_exec)
 from phd_qmclib_torch.samplers import dmc, vmc
 from phd_qmclib_torch.stats import reblock
 
@@ -217,6 +245,14 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 #: element its move (4) and the Box-Muller of its element's pair, which
 #: each thread recomputes (40), per unordered pair K1's.
 K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
+#: K1 log's parameter VJP per unordered pair as written
+#: (``csrc/pair_terms_grad.cuh::pair_grad_terms``, counted the same way):
+#: 32 common to both branches (the difference, the image, the argument,
+#: the sin and cos polynomials 22, the ratio, 1 + v^2, the drift factor),
+#: then 25 inside the cutoff and 28 outside; the O(N) one-body terms and
+#: the reductions left out.  The bound counts each pair by its branch in
+#: the run's own positions.
+K1_VJP_FLOPS_IN_CUT, K1_VJP_FLOPS_OUTSIDE = 57, 60
 K2_FLOPS_PER_NORMAL = 20
 K4_FLOPS_PER_ELEMENT = 5
 K3_FLOPS_PER_ELEMENT = 44
@@ -280,6 +316,51 @@ PROC_DEPTH_KEYS = ("num_blocks", "burn_in_blocks", "block_offset",
 R1_SAMPLING_KEYS = ("num_walkers_control_factor", "cm_diffusion_spec")
 #: R3's depth: blocks, burn-in blocks, steps per block.
 R3_DEPTH = dict(num_blocks=4, burn_in_blocks=1, num_time_steps_block=64)
+#: Phase W1, the shipped pipeline ``examples/wf_opt_pipeline.yml``: its
+#: wf_opt stanza (VMC at N=16, 512 chains, then the joint gradient
+#: optimization over 512 configurations) and its DMC stanza's ``proc``
+#: (at the optimum), without the output handler (a file);
+#: ``tests/test_torch_wf_opt_cli.py`` holds them equal to the file.
+WF_OPT_MODEL = dict(lattice_depth=12.0, lattice_ratio=1,
+                    interaction_strength=4.0, boson_number=16,
+                    supercell_size=16.0, tbf_contact_cutoff=2.0)
+WF_OPT_STANZA = dict(
+    proc_type="wf_opt", method="grad", opt_obf_lattice_depth=True,
+    num_sys_confs=512,
+    proc=dict(model_spec=WF_OPT_MODEL, move_spread=0.25, num_blocks=4,
+              num_steps_block=512, burn_in_blocks=2, num_walkers=512,
+              rng_seed=101),
+    input=dict(type="MODEL_SYS_CONF", dist_type="RANDOM"))
+WF_OPT_DMC_PROC = dict(
+    model_spec=WF_OPT_MODEL, time_step=2.5e-4, max_num_walkers=544,
+    target_num_walkers=512, num_blocks=32, num_time_steps_block=128,
+    rng_seed=102, density_spec=dict(num_bins=32, as_pure_est=True))
+#: Phase W2, ``benchmarks/wf_opt_compare.py --joint --equil-steps 1024``
+#: in the port: the bench model at rm0 = 0.2, 4,096 chains of VMC
+#: (move_spread 0.12) from a crystal start, blocks of 1,024 steps.
+WF_OPT_AB = dict(rm0=0.2, chains=4096, move_spread=0.12, equil_steps=1024,
+                 sampling_seed=11, start_seed=5, fresh_seed=13)
+#: The JAX package's run of that protocol (``BASELINE.md:910-932``;
+#: physics, not times): rm* by DE and by the gradient, the variances at
+#: the rm-only and the joint optimum, and the fresh-VMC E/N (error) at
+#: the initial and the rm-only trial.
+WF_OPT_AB_JAX = dict(rm_de=0.4604, rm_grad=0.4631, variance_rm_only=27.418,
+                     variance_joint=26.073, e_initial=(8.42803, 0.00053),
+                     e_rm_only=(8.41897, 0.00040))
+#: W2's checks: DE and gradient optima within 0.01 in rm; the rm-only
+#: trial's fresh-VMC E/N below the initial trial's by more than 5
+#: combined errors.
+WF_OPT_RM_TOL, WF_OPT_SIGMAS = 0.01, 5.0
+#: W0: the VJP kernel against its plain version.  f64 (every slot):
+#: rtol 1e-9 (sums of W N^2/2 terms in another order).  f32, against the
+#: f64 plain version at the same (f32) inputs: each slot within 1e-3 of
+#: itself plus 1e-5 of the largest slot.  The drift the kernel takes is
+#: the f32 forward's, within 1e-3 relative of f64 (K1_F32_TOL), and its
+#: share of dE/dp is -2 (s_i F_i + s_j F_j) dldz/dp: 1e-3 bounds the
+#: error it carries; the sums over 4096 walkers of terms of both signs
+#: cancel to a small slot at times, hence the term in the largest slot.
+K1_VJP_F64_RTOL = 1e-9
+K1_VJP_F32_TOL = dict(rtol=1e-3, rtol_of_max=1e-5)
 #: K4's tiled kernel: the first bin count beyond one warp's shared memory
 #: and a power of two well beyond it.
 K4_TILED_BINS = (12289, 65536)
@@ -300,6 +381,7 @@ def require(cond: bool, what: str) -> None:
 #: Each kernel's launch counter: the wrapper and its attribute.
 COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K1 log": (pairwise.energy_and_drift, "log_psi_launch_count"),
+            "K1 vjp": (pairwise.energy_and_drift, "params_vjp_launch_count"),
             "K2": (prng.normal, "launch_count"),
             "K3": (pairwise.diffuse_energy_drift, "launch_count"),
             "K4": (histogram.walker_histogram, "launch_count")}
@@ -1536,6 +1618,376 @@ def check_proc_resume(device, card: str) -> None:
 
 
 
+# -- phase W: the wavefunction optimization ----------------------------------
+
+def vjp_inputs(spec_kwargs, num_walkers, dtype, device, seed=0):
+    """K1 log's VJP inputs: positions in [0, L), the packed parameters,
+    the forward's drift and seeded normal upstream gradients of log|psi|
+    and of the energy; and the kernels' keywords."""
+    pos, params, kw = pair_inputs(spec_kwargs, num_walkers, dtype, device,
+                                  seed)
+    rng = np.random.default_rng(seed + 1)
+    g_lp, g_e = (torch.as_tensor(rng.standard_normal(num_walkers),
+                                 dtype=dtype, device=device)
+                 for _ in range(2))
+    _, _, drift = pairwise.energy_and_drift(pos, params, with_log_psi=True,
+                                            **kw)
+    return (pos, params, drift, g_lp, g_e), kw
+
+
+def vjp_plain_f64(args, kw, chunk: int = 1024) -> torch.Tensor:
+    """The f64 plain VJP at ``args`` (cast up), summed over chunks of
+    walkers (the product is a sum over walkers)."""
+    pos, params, _, g_lp, g_e = (None if a is None else a.double()
+                                 for a in args)
+    return sum(pairwise.energy_and_drift_params_vjp_plain(
+        pos[k:k + chunk], params, None, g_lp[k:k + chunk],
+        g_e[k:k + chunk], **kw) for k in range(0, pos.shape[0], chunk))
+
+
+def vjp_bound(pos, params) -> dict:
+    """The VJP kernel's bound at ``pos``: its pairs' flops, each pair
+    counted by its branch in these positions; positions, drift, the two
+    upstream vectors and the parameters in, the 16 sums out."""
+    walkers, nop = pos.shape
+    length = float(params[pairwise.P_L])
+    rm = float(params[pairwise.P_RM])
+    in_cut = 0
+    for chunk in pos.split(1024):
+        d = (chunk[:, :, None] - chunk[:, None, :]).abs()
+        # Every (i, j) and (j, i), and the diagonal (r = 0), once more.
+        in_cut += (int((torch.minimum(d, length - d) < rm).sum())
+                   - chunk.numel()) // 2
+    pairs = walkers * nop * (nop - 1) // 2
+    flops = (in_cut * K1_VJP_FLOPS_IN_CUT
+             + (pairs - in_cut) * K1_VJP_FLOPS_OUTSIDE)
+    values = 2 * walkers * nop + 2 * walkers + 2 * pairwise.PARAMS_SIZE
+    return dict(bound(flops, F32_BYTES * values), pairs_in_cutoff=in_cut,
+                pairs=pairs)
+
+
+def check_k1_vjp(device, card: str):
+    """Phase W0: the VJP kernel against its plain version (autograd of
+    ``energy_and_drift_plain``): f64 at 256 walkers on the bench, free,
+    ideal and defected models at N = 5, 64, 128, every slot; f32 at
+    4096 x 128 against the f64 plain version; then its time beside K1
+    log's at 4096 x 128 and 16384 x 64.  Returns the f32 error and the
+    times."""
+    for nop in (5, 64, 128):
+        base = dict(BENCH_SPEC, boson_number=nop, supercell_size=float(nop))
+        for kind, spec_kwargs in (
+                ("bench", base), ("free", dict(base, lattice_depth=0.0)),
+                ("ideal", dict(base, interaction_strength=0.0)),
+                ("defected", dict(base, num_defects=1 if nop == 5 else 8,
+                                  defect_magnitude=10.0))):
+            args, kw = vjp_inputs(spec_kwargs, 256, torch.float64, device)
+            count = pairwise.energy_and_drift.params_vjp_launch_count
+            got = pairwise.energy_and_drift_params_vjp(*args, **kw)
+            torch.cuda.synchronize()
+            require(pairwise.energy_and_drift.params_vjp_launch_count
+                    == count + 1, f"K1 vjp {kind} N={nop} launched")
+            want = pairwise.energy_and_drift_params_vjp_plain(*args, **kw)
+            torch.testing.assert_close(got, want, rtol=K1_VJP_F64_RTOL,
+                                       atol=0.0)
+            rel = ((got - want).abs() / want.abs().clamp_min(1e-300)).max()
+            phase("W0", check=f"K1 vjp f64 {kind} N={nop}", walkers=256,
+                  max_rel_err=float(rel), rtol=K1_VJP_F64_RTOL,
+                  nonzero_slots=int((want != 0).sum()), ok=True)
+    args, kw = vjp_inputs(BENCH_SPEC, 4096, torch.float32, device)
+    got = pairwise.energy_and_drift_params_vjp(*args, **kw).double()
+    oracle = vjp_plain_f64(args, kw)
+    plain = pairwise.energy_and_drift_params_vjp_plain(*args, **kw).double()
+    tol = K1_VJP_F32_TOL
+    limit = tol["rtol"] * oracle.abs() + tol["rtol_of_max"] * oracle.abs().max()
+    err, plain_err = (got - oracle).abs(), (plain - oracle).abs()
+    require(bool((err <= limit).all()),
+            f"K1 vjp f32 at 4096 x 128 within {tol} of the f64 plain "
+            f"version: {(err / limit).max()} of the limit")
+    phase("W0", check="K1 vjp f32 vs the f64 plain version",
+          shape=list(args[0].shape), tolerance=tol,
+          max_share_of_limit=float((err / limit).max()),
+          max_abs_err=float(err.max()),
+          plain_f32_max_share_of_limit=float((plain_err / limit).max()),
+          largest_slot=float(oracle.abs().max()), ok=True)
+    del plain, oracle
+    times = {}
+    for label, spec_kwargs, walkers in (("dmc shape", BENCH_SPEC, 4096),
+                                        ("vmc shape", VMC_SPEC, VMC_CHAINS)):
+        args, kw = vjp_inputs(spec_kwargs, walkers, torch.float32, device)
+        least = vjp_bound(args[0], args[1])
+
+        def plain():
+            return pairwise.energy_and_drift_params_vjp_plain(*args, **kw)
+
+        def kernel():
+            return pairwise.energy_and_drift_params_vjp(*args, **kw)
+
+        def forward():
+            return pairwise.energy_and_drift(args[0], args[1],
+                                             with_log_psi=True, **kw)
+
+        p1, k1, f1 = cuda_ms(plain, 3), cuda_ms(kernel, 50), cuda_ms(forward,
+                                                                     50)
+        f2, k2, p2 = cuda_ms(forward, 50), cuda_ms(kernel, 50), cuda_ms(plain,
+                                                                       3)
+        times[label] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "forward_ms": (f1 + f2) / 2, **least}
+        phase("W0", kernel="K1 vjp", card=card, shape=list(args[0].shape),
+              plain_ms=[p1, p2], kernel_ms=[k1, k2],
+              k1_log_forward_ms=[f1, f2],
+              bound_share=least["bound_ms"] / times[label]["ms"],
+              k1_log_forward_bound_ms=k1_bound(
+                  *args[0].shape, True)["bound_ms"], **least, ok=True)
+    return float(err.max()), times
+
+
+class watch_optimizer:
+    """Context manager over the W phases' optimizations: for every
+    ``GradCSWFOptimizer.exec``, the K1 log and VJP launches inside it and
+    its backward calls (``_value_and_grad_fn``, one per L-BFGS-B
+    evaluation); and the calls of the plain pair functions on a CUDA
+    tensor (there must be none).  The originals are back on exit."""
+
+    def __init__(self):
+        self.execs, self.backward_calls, self.plain_on_card = [], 0, 0
+
+    def __enter__(self):
+        cls = wf_opt.GradCSWFOptimizer
+        self._saved = [(cls, "exec", cls.exec),
+                       (cls, "_value_and_grad_fn", cls._value_and_grad_fn)]
+        self._saved += [(pairwise, name, getattr(pairwise, name))
+                        for name in ("energy_and_drift_plain",
+                                     "energy_and_drift_params_vjp_plain")]
+        watch = self
+        exec_, value_and_grad = cls.exec, cls._value_and_grad_fn
+
+        def counted_exec(opt):
+            before = read_counts()
+            calls = watch.backward_calls
+            out = exec_(opt)
+            after = read_counts()
+            grid = opt.num_grid * (16 if opt.opt_obf_lattice_depth else 1)
+            watch.execs.append(dict(
+                grid_points=grid, backward_calls=watch.backward_calls - calls,
+                k1_log=after["K1 log"] - before["K1 log"],
+                k1_vjp=after["K1 vjp"] - before["K1 vjp"], optimizer=opt))
+            return out
+
+        def counted_value_and_grad(opt, x):
+            watch.backward_calls += 1
+            return value_and_grad(opt, x)
+
+        def refuse_card(fn):
+            def wrapped(pos, *args, **kwargs):
+                if pos.device.type != "cpu":
+                    watch.plain_on_card += 1
+                return fn(pos, *args, **kwargs)
+            return wrapped
+
+        cls.exec, cls._value_and_grad_fn = counted_exec, \
+            counted_value_and_grad
+        for _, name, fn in self._saved[2:]:
+            setattr(pairwise, name, refuse_card(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+    def check(self, label: str) -> list:
+        """Each gradient optimization launched K1 log once per grid point
+        and per evaluation and the VJP kernel once per backward; no plain
+        pair function ran on the card.  Returns the per-exec counts."""
+        rows = [{k: v for k, v in e.items() if k != "optimizer"}
+                for e in self.execs]
+        for e in rows:
+            require(e["backward_calls"] > 0
+                    and e["k1_vjp"] == e["backward_calls"]
+                    and e["k1_log"] == e["grid_points"] + e["backward_calls"],
+                    f"{label}: K1 log once per grid point and evaluation, "
+                    f"the VJP once per backward: {e}")
+        require(self.plain_on_card == 0,
+                f"{label}: {self.plain_on_card} plain pair calls on the card")
+        return rows
+
+
+def run_wf_opt_pipeline(device, card: str) -> dict:
+    """Phase W1: the shipped pipeline ``examples/wf_opt_pipeline.yml``
+    from its config dicts: ``WFOptAppSpec.exec`` (VMC, then the joint
+    gradient optimization), then the DMC ``Proc.exec`` at the optimum, in
+    memory.  Returns each stage's launch counts and steps."""
+    stanza = cli_app.WFOptAppSpec.from_config(WF_OPT_STANZA)
+    vmc_proc = stanza.vmc_proc
+    reset_counts()
+    with watch_optimizer() as watch:
+        t0 = time.perf_counter()
+        opt_spec = stanza.exec(device=device)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    counts = watch.check("W1")
+    (record,) = watch.execs
+    opt = record["optimizer"]
+    spec = vmc_proc.model_spec
+    x_star = [opt_spec.tbf_contact_cutoff, opt_spec.obf_lattice_depth]
+    bounds = opt.principal_function_bounds
+    require(all(lo <= x <= hi for x, (lo, hi) in zip(x_star, bounds))
+            and opt.sys_conf_set.shape == (stanza.num_sys_confs,
+                                           spec.boson_number)
+            and opt.sys_conf_set.device.type == "cuda",
+            f"W1: rm* and v0* {x_star} inside {bounds}, optimized over the "
+            f"card's {stanza.num_sys_confs} configurations")
+    var_start = opt.principal_function([spec.tbf_contact_cutoff,
+                                        spec.lattice_depth])
+    var_opt = opt.principal_function(x_star)
+    require(var_opt <= var_start,
+            f"W1: variance at the optimum {var_opt} <= at the start "
+            f"{var_start}")
+    vmc_steps = (vmc_proc.burn_in_blocks + vmc_proc.num_blocks) \
+        * vmc_proc.num_steps_block
+    require(launches["K1 log"] - record["k1_log"] >= vmc_steps,
+            f"W1: K1 log on each of the {vmc_steps} VMC steps: {launches}")
+
+    proc = dmc_exec.Proc.from_config(WF_OPT_DMC_PROC)
+    proc = dataclasses.replace(proc, model_spec=proc.model_spec.evolve(
+        tbf_contact_cutoff=opt_spec.tbf_contact_cutoff,
+        obf_lattice_depth=opt_spec.obf_lattice_depth))
+    proc_input = dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
+    result, exec_ms, dmc_wall_s, dmc_launches = timed_exec(proc, proc_input)
+    dmc_steps = (proc.burn_in_blocks + proc.num_blocks) \
+        * proc.num_time_steps_block
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        e_per_n = float(result.data.blocks.energy.mean) / spec.boson_number
+        e_err = float(result.data.blocks.energy.mean_error) \
+            / spec.boson_number
+    require(np.isfinite(e_per_n) and result.state.pos.device.type == "cuda",
+            f"W1: DMC E/N {e_per_n} finite, on the card")
+    require(dmc_launches["K1"] >= dmc_steps
+            and dmc_launches["K2"] == dmc_steps and dmc_launches["K4"] > 0,
+            f"W1 DMC launches {dmc_launches} over {dmc_steps} steps")
+    phase("W1", check="the shipped pipeline: VMC, joint grad, DMC at the "
+          "optimum", card=card, vmc_steps=vmc_steps, chains=vmc_proc.num_walkers,
+          wf_opt_wall_s=wall_s, rm_start=spec.tbf_contact_cutoff,
+          v0_start=spec.lattice_depth, rm_star=x_star[0], v0_star=x_star[1],
+          bounds=bounds, variance_start=var_start, variance_star=var_opt,
+          optimizer_counts=counts, launches=launches, dmc_steps=dmc_steps,
+          dmc_wall_s=dmc_wall_s, dmc_step_ms_cuda_events=exec_ms / dmc_steps,
+          dmc_energy_per_boson=e_per_n, dmc_energy_err=e_err,
+          dmc_launches=dmc_launches, ok=True)
+    return {"W1": (launches, vmc_steps), "W1 dmc": (dmc_launches, dmc_steps)}
+
+
+def run_wf_opt_ab(device, card: str):
+    """Phase W2: ``benchmarks/wf_opt_compare.py --joint --equil-steps
+    1024`` in the port, f32 on the card: VMC from a crystal start, then
+    DE (its evaluations counted), the gradient optimizer and the joint one
+    on the same configurations, each timed; then fresh VMC at the initial,
+    the rm-only and the joint trial.  Returns the launch counts, the VMC
+    steps and the optimizations' counts."""
+    ab = WF_OPT_AB
+    spec = mrbp.Spec(**dict(BENCH_SPEC, tbf_contact_cutoff=ab["rm0"]))
+    chains, nts = ab["chains"], ab["equil_steps"]
+    rng = np.random.default_rng(ab["start_seed"])
+    confs0 = np.stack([
+        spec.init_get_sys_conf(dist_type=mrbp.DIST_REGULAR,
+                               offset=rng.uniform(0, NOP))
+        for _ in range(chains)]).astype(np.float32)
+
+    def vmc_blocks(trial, seed, count):
+        sampling = vmc.Sampling(trial, move_spread=ab["move_spread"],
+                                rng_seed=seed, num_walkers=chains)
+        blocks = sampling.blocks(nts, sampling.build_state(
+            confs0, dtype=torch.float32, device=device))
+        return [next(blocks) for _ in range(count)]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    block = vmc_blocks(spec, ab["sampling_seed"], 2)[-1]
+    equil_s = time.perf_counter() - t0
+    pos_set, lp_set = block.last_state.pos, block.last_state.wf_abs_log
+    equil_e = float(block.iter_props.energy[-64:].double().mean()) / NOP
+
+    out = {}
+    with watch_optimizer() as watch:
+        de = wf_opt.CSWFOptimizer(spec, pos_set, lp_set, device=device)
+        evals = [0]
+        evaluate = de.principal_function
+
+        def counted(x):
+            evals[0] += 1
+            return evaluate(x)
+
+        object.__setattr__(de, "principal_function", counted)
+        de.principal_function(ab["rm0"])  # warm-up, as the benchmark
+        evals[0] = 0
+        t0 = time.perf_counter()
+        rm_de = de.exec().tbf_contact_cutoff
+        out["de"] = dict(rm=rm_de, wall_s=time.perf_counter() - t0,
+                         evaluations=evals[0])
+        for name, joint in (("grad", False), ("joint", True)):
+            opt = wf_opt.GradCSWFOptimizer(spec, pos_set, lp_set,
+                                           opt_obf_lattice_depth=joint,
+                                           device=device)
+            t0 = time.perf_counter()
+            got = opt.exec()
+            out[name] = dict(rm=got.tbf_contact_cutoff,
+                             wall_s=time.perf_counter() - t0, spec=got,
+                             optimizer=opt)
+    counts = watch.check("W2")
+    grad, joint = out["grad"], out["joint"]
+    v0_joint = joint["spec"].obf_lattice_depth
+    var_de = grad["optimizer"].principal_function(rm_de)
+    var_grad = grad["optimizer"].principal_function(grad["rm"])
+    var_joint = joint["optimizer"].principal_function([joint["rm"], v0_joint])
+    require(abs(rm_de - grad["rm"]) <= WF_OPT_RM_TOL,
+            f"W2: DE rm* {rm_de} and grad rm* {grad['rm']} within "
+            f"{WF_OPT_RM_TOL}")
+    require(var_joint <= var_grad,
+            f"W2: joint variance {var_joint} <= rm-only {var_grad}")
+
+    fresh = {}
+    for name, trial in (("initial", spec),
+                        ("rm_only", spec.evolve(tbf_contact_cutoff=grad["rm"])),
+                        ("joint", joint["spec"])):
+        measured = vmc_blocks(trial, ab["fresh_seed"], 3)[-1]
+        chain_means = (measured.iter_props.energy.double() / NOP).mean(dim=0)
+        fresh[name] = dict(
+            e_per_n=float(chain_means.mean()),
+            err=float(chain_means.std(unbiased=False)) / math.sqrt(chains),
+            accept=float(measured.accept_rate))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    gap = fresh["initial"]["e_per_n"] - fresh["rm_only"]["e_per_n"]
+    sigma = math.hypot(fresh["initial"]["err"], fresh["rm_only"]["err"])
+    require(gap > WF_OPT_SIGMAS * sigma,
+            f"W2: fresh-VMC E/N at the rm-only trial below the initial "
+            f"trial's by {gap}, more than {WF_OPT_SIGMAS} x {sigma}")
+    vmc_steps = (2 + 3 * len(fresh)) * nts
+    require(launches["K1 log"] >= vmc_steps,
+            f"W2: K1 log on each of the {vmc_steps} VMC steps: {launches}")
+    jax = WF_OPT_AB_JAX
+    phase("W2", check="DE vs grad vs joint at production scale", card=card,
+          chains=chains, nop=NOP, equil_s=equil_s, equil_energy_per_boson=equil_e,
+          equil_accept=float(block.accept_rate),
+          de=out["de"], grad={k: grad[k] for k in ("rm", "wall_s")},
+          joint=dict(rm=joint["rm"], v0=v0_joint, wall_s=joint["wall_s"]),
+          optimizer_counts=counts, variance_de=var_de,
+          variance_rm_only=var_grad, variance_joint=var_joint,
+          variance_ratio=var_joint / var_grad,
+          jax_variance_ratio=jax["variance_joint"] / jax["variance_rm_only"],
+          jax_rm=dict(de=jax["rm_de"], grad=jax["rm_grad"]),
+          fresh_vmc=fresh, rm_only_gain_sigmas=gap / sigma,
+          joint_vs_rm_only_gain=(fresh["rm_only"]["e_per_n"]
+                                 - fresh["joint"]["e_per_n"]),
+          jax_fresh_vmc=dict(initial=jax["e_initial"],
+                             rm_only=jax["e_rm_only"]),
+          launches=launches, vmc_steps=vmc_steps, ok=True)
+    return (launches, vmc_steps), counts
+
+
 def diffuse_inputs(device):
     """K3's inputs at the DMC shape: cloned parents with their K1 energy
     and drift, E_ref on the device; and the DMC step's own diffusion of
@@ -1823,6 +2275,9 @@ def main() -> None:
     runs["V2"] = (v2["launches"], v2["steps_run"])
     runs["R2"] = run_proc_vmc_example(device, smi, v2)
     del v2
+    err_vjp, vjp_times = check_k1_vjp(device, smi)  # W0
+    runs.update(run_wf_opt_pipeline(device, smi))  # W1
+    runs["W2"], w2_counts = run_wf_opt_ab(device, smi)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
@@ -1835,16 +2290,17 @@ def main() -> None:
                        for label, (counts, steps) in runs.items()
                        if counts[name]}
                 for name in COUNTERS}
-    require(all(launches[name] > 0 for name in ("K1", "K1 log", "K2", "K4")),
+    require(all(launches[name] > 0
+                for name in ("K1", "K1 log", "K1 vjp", "K2", "K4")),
             f"every kernel of the main path launched: {launches}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
-    dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1")
+    dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
             and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)
             and all(per_step["K4"].get(label, 0) > 0
                     for label in ("G3", "R1"))
             and all(per_step["K1 log"].get(label, 0) >= 1
-                    for label in ("V1", "V2", "R2")),
+                    for label in ("V1", "V2", "R2", "W1", "W2")),
             f"K1 on every DMC step (K2 once, K4 on G3's and R1's density "
             f"and g2 steps) and K1 log on every VMC step: {per_step}")
 
@@ -1861,6 +2317,7 @@ def main() -> None:
                 "launches_per_step": per_step[key], "max_abs_err": err,
                 "library_ms": None, **times[key], **extra}
 
+    times["K1 vjp"] = vjp_times["dmc shape"]
     log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
     tiled = times["K4 tiled"]
     kernels = [
@@ -1882,7 +2339,21 @@ def main() -> None:
         row("diffuse_energy_drift", "K3", "diffuse.cu", "pairwise.py:210",
             err_k3, on_main_path=False,
             step_ms=times["K3 vs step"]["plain_ms"]),
+        # No pallas_call: it stands for XLA's autodiff of the JAX
+        # package's log_psi_and_energy, which GradCSWFOptimizer
+        # differentiates.  No single PyTorch call computes it.
+        dict(row("pair_logpsi_params_vjp", "K1 vjp", "pairwise.cu",
+                 "pairwise.py:84", err_vjp),
+             replaces="phd_qmclib_tpu/models/jastrow.py:238 (XLA autodiff "
+                      "of log_psi_and_energy; no pallas_call)",
+             body="phd_qmclib_torch/csrc/pair_terms_grad.cuh",
+             vmc_shape_ms=vjp_times["vmc shape"]["ms"],
+             vmc_shape_plain_ms=vjp_times["vmc shape"]["plain_ms"],
+             vmc_shape_bound_ms=vjp_times["vmc shape"]["bound_ms"],
+             vmc_shape_forward_ms=vjp_times["vmc shape"]["forward_ms"],
+             launches_per_optimization=w2_counts),
     ]
+    print(smi, flush=True)  # again, next to the result lines
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -49,9 +49,26 @@
 // (kin_i - drift_i^2 + pot_i) before the block reduction, the order of
 // the Pallas kernel and of the plain torch version: the kinetic and
 // drift^2 sums are each large against E_L and cancel.
+//
+// The parameter VJP (pair_logpsi_params_vjp_kernel) is the backward of the
+// log variant with respect to the packed parameters: per walker w the row
+// g_lp[w] dlog|psi|_w/dp + g_E[w] dE_w/dp over the 16 slots, which the
+// wrapper sums over the walkers.  It has no Pallas counterpart: it stands
+// for XLA's autodiff of the JAX package's log_psi_and_energy, which the
+// gradient optimizer of the trial function differentiates.  Its body is in
+// pair_terms_grad.cuh.  The same layout: one CTA per walker, one thread
+// per particle, the positions (wrapped into [0, L)) and the forward's drift
+// in shared memory; each unordered pair once on the half ring.  Its pair
+// terms need no j side (only walker sums are wanted), so the loop holds no
+// barrier and no shared-memory write.  Bounded, like the forward, by
+// arithmetic: ~2.5 times the log variant's flops per pair for the same
+// bytes.  A first, simple design: the 16 slot sums and the pair sums stay
+// in registers (float64 spills past the launch bounds' 64 registers at
+// 1024 threads).
 #include <cuda_runtime.h>
 
 #include "pair_terms.cuh"
+#include "pair_terms_grad.cuh"
 
 namespace {
 
@@ -113,7 +130,106 @@ int launch(const void* pos, const void* params, void* log_psi, void* energy,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_logpsi_params_vjp_kernel(const T* __restrict__ pos,
+                              const T* __restrict__ params,
+                              const T* __restrict__ drift,
+                              const T* __restrict__ g_lp,
+                              const T* __restrict__ g_e,
+                              T* __restrict__ rows, int nop, int is_free,
+                              int is_ideal, int defects_sep) {
+  using qmc::kParamsSize;
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  T* warp_sums = reinterpret_cast<T*>(smem_raw);  // 32 per slot
+  T* zs = warp_sums + 32 * kParamsSize;            // one per thread
+  T* fs = zs + blockDim.x;                         // one per thread
+
+  const size_t walker = blockIdx.x;
+  const int i = threadIdx.x;
+  const bool active = i < nop;
+  const T zi = active ? pos[walker * nop + i] : T(0);
+  const T f_i = active ? drift[walker * nop + i] : T(0);
+  zs[i] = qmc::into_supercell(zi, params[qmc::P_L]);
+  fs[i] = f_i;
+  __syncthreads();
+
+  const T ge = g_e[walker], glp = g_lp[walker];
+  T acc[kParamsSize];
+  for (int p = 0; p < kParamsSize; ++p) acc[p] = T(0);
+  if (active && !is_free) {
+    qmc::one_body_grad_terms(zi, f_i, params, defects_sep, ge, glp, acc);
+  }
+  if (active && !is_ideal) {
+    const qmc::PairParams<T> c(params);
+    const T r_off = params[qmc::P_ROFF];
+    const T inv_l = T(1) / c.L;
+    const T z_own = zs[i];
+    qmc::PairGradSums<T> g;
+    int j = i;
+    for (int k = (nop - 1) >> 1; k > 0; --k) {
+      if (++j == nop) j = 0;
+      qmc::pair_grad_terms(z_own - zs[j], f_i, fs[j], c, r_off, inv_l, &g);
+    }
+    const int half = nop >> 1;
+    if (nop == 2 * half && i < half) {
+      qmc::pair_grad_terms(z_own - zs[i + half], f_i, fs[i + half], c,
+                           r_off, inv_l, &g);
+    }
+    acc[qmc::P_L] += ge * g.e_l + glp * g.lp_l;
+    acc[qmc::P_K2] += ge * g.e_k2 + glp * g.lp_k2;
+    acc[qmc::P_ROFF] += ge * g.e_roff + glp * g.lp_roff;
+    acc[qmc::P_BETA] += ge * g.e_beta + glp * g.lp_beta;
+    acc[qmc::P_AM] += glp * g.num_in / params[qmc::P_AM];
+  }
+
+  qmc::block_sums(acc, warp_sums);
+  if (i == 0) {
+    for (int p = 0; p < kParamsSize; ++p) {
+      rows[walker * kParamsSize + p] = acc[p];
+    }
+  }
+}
+
+template <typename T>
+int launch_params_vjp(const void* pos, const void* params, const void* drift,
+                      const void* g_lp, const void* g_e, void* rows,
+                      int num_walkers, int nop, int is_free, int is_ideal,
+                      int defects_sep, void* stream) {
+  if (num_walkers <= 0 || nop <= 0 || nop > kMaxThreads ||
+      defects_sep < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = ((nop + 31) / 32) * 32;
+  const size_t smem = (32 * qmc::kParamsSize + 2 * threads) * sizeof(T);
+  pair_logpsi_params_vjp_kernel<T>
+      <<<num_walkers, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(pos), static_cast<const T*>(params),
+          static_cast<const T*>(drift), static_cast<const T*>(g_lp),
+          static_cast<const T*>(g_e), static_cast<T*>(rows), nop, is_free,
+          is_ideal, defects_sep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int qmc_pair_logpsi_params_vjp_f32(
+    const void* pos, const void* params, const void* drift, const void* g_lp,
+    const void* g_e, void* rows, int num_walkers, int nop, int is_free,
+    int is_ideal, int defects_sep, void* stream) {
+  return launch_params_vjp<float>(pos, params, drift, g_lp, g_e, rows,
+                                  num_walkers, nop, is_free, is_ideal,
+                                  defects_sep, stream);
+}
+
+extern "C" int qmc_pair_logpsi_params_vjp_f64(
+    const void* pos, const void* params, const void* drift, const void* g_lp,
+    const void* g_e, void* rows, int num_walkers, int nop, int is_free,
+    int is_ideal, int defects_sep, void* stream) {
+  return launch_params_vjp<double>(pos, params, drift, g_lp, g_e, rows,
+                                   num_walkers, nop, is_free, is_ideal,
+                                   defects_sep, stream);
+}
 
 extern "C" int qmc_pair_energy_drift_f32(const void* pos, const void* params,
                                          void* energy, void* drift,

@@ -44,9 +44,12 @@ __all__ = [
     "SysConfSlot",
     "TBFParams",
     "cast_params",
+    "cfc_params_device",
     "cfc_params_from_numpy",
     "core_funcs",
+    "obf_params_device",
     "recast",
+    "tbf_params_device",
     "DIST_RAND",
     "DIST_REGULAR",
 ]
@@ -357,6 +360,187 @@ class Spec:
         return replace(self, **changes)
 
 
+# ---------------------------------------------------------------------------
+# Differentiable parameter solves.  The host-side ``Spec.tbf_params`` and
+# ``Spec.obf_params`` go through ``scipy.optimize.brentq``, which blocks
+# gradients; these solve the same conditions by fixed-count bisection in
+# torch, and give the implicit-function-theorem derivative, so that the
+# correlated-sampling variance differentiates with respect to ``rm`` and
+# the trial orbital's depth (``phd_qmclib_torch.wf_opt.GradCSWFOptimizer``).
+# Every argument may carry a leading batch shape: each element is solved
+# on its own, elementwise.
+# ---------------------------------------------------------------------------
+
+def _bisect(fn, lo: torch.Tensor, hi: torch.Tensor,
+            num_iters: int) -> torch.Tensor:
+    """The midpoint of ``[lo, hi]`` after ``num_iters`` halvings that keep
+    a sign change of ``fn`` inside."""
+    f_lo = fn(lo)
+    for _ in range(num_iters):
+        mid = 0.5 * (lo + hi)
+        f_mid = fn(mid)
+        same = torch.sign(f_mid) == torch.sign(f_lo)
+        lo, hi, f_lo = (torch.where(same, mid, lo), torch.where(same, hi, mid),
+                        torch.where(same, f_mid, f_lo))
+    return 0.5 * (lo + hi)
+
+
+class _ImplicitRoot(torch.autograd.Function):
+    """``x(theta)`` with ``residual(x, theta) = 0``, ``x`` and ``theta`` of
+    one shape: bisection on ``[lo, hi]`` forward, and backward the
+    implicit-function-theorem derivative ``dx/dtheta = -(dr/dtheta) /
+    (dr/dx)`` at the root, both partials from ``torch.autograd.grad`` of
+    the residual (the ``tangent_solve`` of the JAX package's
+    ``lax.custom_root``)."""
+
+    @staticmethod
+    def forward(ctx, residual, lo, hi, num_iters, theta):
+        root = _bisect(lambda x: residual(x, theta), lo, hi, num_iters)
+        ctx.residual = residual
+        ctx.save_for_backward(root, theta)
+        return root
+
+    @staticmethod
+    def backward(ctx, grad_root):
+        root, theta = ctx.saved_tensors
+        with torch.enable_grad():
+            x = root.detach().requires_grad_()
+            th = theta.detach().requires_grad_()
+            dr_dx, dr_dth = torch.autograd.grad(ctx.residual(x, th).sum(),
+                                                (x, th))
+        return None, None, None, None, -grad_root * dr_dth / dr_dx
+
+
+def _tbf_matching_residual(k2rm, rm_frac, a1d):
+    """Local-energy matching condition at the cutoff, in box units: the
+    equation of ``Spec.tbf_params``, in torch ops."""
+    pi = math.pi
+    tan_k = torch.tan(k2rm)
+    beta_rm = (k2rm / pi * (rm_frac - k2rm * a1d * tan_k)
+               * torch.tan(pi * rm_frac)
+               / (k2rm * a1d + rm_frac * tan_k))
+    return ((k2rm * torch.sin(pi * rm_frac)) ** 2
+            + (pi * beta_rm * torch.cos(pi * rm_frac)) ** 2
+            - pi ** 2 * beta_rm * rm_frac)
+
+
+def tbf_params_device(rm, interaction_strength, boson_number,
+                      supercell_size) -> TBFParams:
+    """Differentiable ``rm -> TBFParams`` in ``rm``'s dtype, on its
+    device (a float becomes a float32 tensor).
+
+    Bisection (100 halvings in float64, 40 in float32) solves the
+    matching condition on ``(eps, pi/2 - eps)``, as the host ``brentq``
+    of ``Spec.tbf_params`` does on ``(0, pi/2)``; the derivative is the
+    implicit one (:class:`_ImplicitRoot`).  Needs
+    ``interaction_strength > 0``.
+    """
+    rm = torch.as_tensor(rm)
+    dtype, device = rm.dtype, rm.device
+    gn = torch.as_tensor(interaction_strength, dtype=dtype, device=device)
+    sc_size = torch.as_tensor(supercell_size, dtype=dtype, device=device)
+    nop = boson_number
+
+    pi = math.pi
+    lgm = 0.5 * (sc_size / nop) ** 2 * gn
+    rm_frac = rm / sc_size
+    a1d = 2.0 / (lgm * nop)
+
+    f64 = dtype == torch.float64
+    eps = torch.full_like(rm_frac, 1e-9 if f64 else 1e-5)
+    k2rm = _ImplicitRoot.apply(
+        lambda x, frac: _tbf_matching_residual(x, frac, a1d),
+        eps, pi / 2 - eps, 100 if f64 else 40, rm_frac)
+
+    tan_k = torch.tan(k2rm)
+    beta_rm = (k2rm / pi * (rm_frac - k2rm * a1d * tan_k)
+               * torch.tan(pi * rm_frac)
+               / (k2rm * a1d + rm_frac * tan_k))
+    k2 = k2rm / rm_frac
+    k2r_off = torch.arctan(1.0 / (k2 * a1d))
+    beta = beta_rm / rm_frac
+    r_off = k2r_off / k2
+    am = torch.sin(pi * rm_frac) ** beta / torch.cos(k2rm - k2r_off)
+    return TBFParams(sc_size, rm,
+                     param_k2=k2 / sc_size,
+                     param_beta=beta,
+                     param_r_off=r_off * sc_size,
+                     param_am=am)
+
+
+def _kp_band_residual(ez, v0, rr_frac, inv_1pr):
+    """KP band-bottom dispersion relation ``f(E; k = 0) = 0`` (the
+    ``0 < E < v0`` branch of :func:`phd_qmclib_torch.ideal.energy_relation`),
+    in torch ops."""
+    root_e = torch.sqrt(ez)
+    root_d = torch.sqrt(v0 - ez)
+    return ((v0 - 2.0 * ez) / (2.0 * root_e * root_d)
+            * torch.sinh(rr_frac * root_d) * torch.sin(root_e * inv_1pr)
+            + torch.cosh(rr_frac * root_d) * torch.cos(root_e * inv_1pr)
+            - 1.0)
+
+
+def obf_params_device(obf_lattice_depth, spec: Spec) -> OBFParams:
+    """Differentiable ``v0_orbital -> OBFParams`` in the depth's dtype,
+    on its device.
+
+    The band bottom ``e0(v0)`` solves by bisection (100 halvings in
+    float64, 40 in float32) on ``(eps, 1 - eps) * min(v0, (1+r)^2 pi^2)``,
+    as the host ``brentq`` of :func:`phd_qmclib_torch.ideal.eigen_energy`
+    does; the derivative is the implicit one (:class:`_ImplicitRoot`).
+    Needs a finite lattice.
+    """
+    v0 = torch.as_tensor(obf_lattice_depth)
+    dtype, device = v0.dtype, v0.device
+    r = spec.lattice_ratio
+    rr_frac = torch.as_tensor(r / (1.0 + r), dtype=dtype, device=device)
+    inv_1pr = torch.as_tensor(1.0 / (1.0 + r), dtype=dtype, device=device)
+
+    f64 = dtype == torch.float64
+    eps = torch.full_like(v0, 1e-12 if f64 else 1e-6)
+    with torch.no_grad():
+        upper = torch.minimum(v0, torch.as_tensor(
+            (1.0 + r) ** 2 * math.pi ** 2, dtype=dtype, device=device))
+    e0 = _ImplicitRoot.apply(
+        lambda ez, depth: _kp_band_residual(ez, depth, rr_frac, inv_1pr),
+        eps * upper, (1.0 - eps) * upper, 100 if f64 else 40, v0)
+
+    def const(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return OBFParams(v0, const(r), const(spec.well_width),
+                     const(spec.barrier_width),
+                     param_e0=e0,
+                     param_k1=torch.sqrt(e0),
+                     param_kp1=torch.sqrt(v0 - e0))
+
+
+def cfc_params_device(rm, spec: Spec, obf_lattice_depth=None) -> CFCParams:
+    """``CFCParams`` with the variational cutoff ``rm`` (and, given
+    ``obf_lattice_depth``, the trial orbital's depth) live, in ``rm``'s
+    dtype on its device: the two-body parameters always re-solved by
+    :func:`tbf_params_device`, the one-body ones by
+    :func:`obf_params_device` when a depth is given, else the host spec's.
+    """
+    rm = torch.as_tensor(rm)
+    dtype, device = rm.dtype, rm.device
+
+    def cast(group):
+        return type(group)(*(torch.as_tensor(x, dtype=dtype, device=device)
+                             for x in group))
+
+    model_params = cast(spec.params)._replace(tbf_contact_cutoff=rm)
+    if obf_lattice_depth is None:
+        obf = cast(spec.obf_params)
+    else:
+        obf = obf_params_device(
+            torch.as_tensor(obf_lattice_depth, dtype=dtype, device=device),
+            spec)
+    tbf = tbf_params_device(rm, spec.interaction_strength,
+                            spec.boson_number, spec.supercell_size)
+    return CFCParams(model_params, obf, tbf)
+
+
 def cfc_params_from_numpy(cfc) -> CFCParams:
     """The port's ``CFCParams`` (float leaves) from the JAX package's
     ``spec.cfc_params``, or from any object with the same field names
@@ -528,6 +712,12 @@ def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
     ``pair_dist_histogram`` through
     :func:`phd_qmclib_torch.ops.histogram.walker_histogram`: the CUDA
     kernels on a CUDA tensor, their plain torch versions on a CPU one.
+    Where a gradient with respect to the parameters is wanted (grad mode
+    on and ``params`` requiring grad) on a CUDA tensor,
+    ``log_psi_and_energy`` runs through
+    :class:`phd_qmclib_torch.ops.pairwise.LogPsiAndEnergy` (the kernel
+    forward, its parameter VJP kernel backward); on a CPU tensor autograd
+    runs through the plain version.
     The first two take an optional third argument, the kernel's
     parameter vector ``pairwise.pack_params(cfc)`` in ``pos``' dtype on
     its device: the samplers pack it once per run, since packing costs
@@ -567,9 +757,14 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
     def log_psi_and_energy(pos, cfc, params=None):
         if params is None:
             params = pairwise.pack_params(cfc, pos.dtype, pos.device)
-        log_psi, energy, _ = pairwise.energy_and_drift(
-            pos.reshape(-1, nop).contiguous(), params, with_log_psi=True,
-            **kernel_kw)
+        flat = pos.reshape(-1, nop).contiguous()
+        if (pos.device.type != "cpu" and params.requires_grad
+                and torch.is_grad_enabled()):
+            log_psi, energy = pairwise.LogPsiAndEnergy.apply(
+                flat, params, kernel_kw)
+        else:
+            log_psi, energy, _ = pairwise.energy_and_drift(
+                flat, params, with_log_psi=True, **kernel_kw)
         return (log_psi.reshape(pos.shape[:-1]),
                 energy.reshape(pos.shape[:-1]))
 

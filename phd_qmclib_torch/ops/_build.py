@@ -38,7 +38,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu",
            CSRC / "diffuse.cu")
 #: Device code included by several sources.
-HEADERS = (CSRC / "pair_terms.cuh", CSRC / "philox.cuh", CSRC / "trig.cuh")
+HEADERS = (CSRC / "pair_terms.cuh", CSRC / "pair_terms_grad.cuh",
+           CSRC / "philox.cuh", CSRC / "trig.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 LIBRARY = BUILD_DIR / "libqmc_kernels.so"
 
@@ -67,6 +68,12 @@ SIGNATURES = {
                                          _I, _P),
     "qmc_pair_logpsi_energy_drift_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _P),
+    # pos, params, drift, g_lp, g_e, rows (W x PARAMS_SIZE), num_walkers,
+    # nop, is_free, is_ideal, defects_sep, stream
+    "qmc_pair_logpsi_params_vjp_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _P),
+    "qmc_pair_logpsi_params_vjp_f64": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _P),
     # cpos, cdrift, cenergy, params, xi (or NULL), e_ref (0-d, on the
     # device), dt, sigma, key, step, npos, nenergy, ndrift, nweight,
     # num_walkers, nop, is_free, is_ideal, defects_sep, stream

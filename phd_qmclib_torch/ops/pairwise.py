@@ -9,6 +9,12 @@ Counterpart of ``phd_qmclib_tpu.ops.pairwise``:
   every walker, O(N^2) minimum-image pair terms reduce to a
   per-particle drift and a per-walker local energy (and log|psi|), plus
   the one-body Kronig-Penney terms.
+* :func:`energy_and_drift_params_vjp`, the vector-Jacobian product of
+  the log|psi| variant with respect to the packed parameters, and
+  :class:`LogPsiAndEnergy`, the autograd function that pairs it with the
+  forward: the counterpart of XLA's autodiff of the JAX package's
+  ``log_psi_and_energy``, which the gradient optimizer of the trial
+  function differentiates.  It has no Pallas counterpart.
 * :func:`diffuse_energy_drift` replaces ``diffuse_energy_drift_pallas``:
   noise, move, recast, the forward terms and the branching weight in one
   pass.  As in the JAX package, no sampler calls it.
@@ -26,8 +32,10 @@ import torch
 from . import _build, prng, trig
 from .pbc import min_image_bounded, recast_to_supercell, sign
 
-__all__ = ["PARAMS_SIZE", "diffuse_energy_drift", "diffuse_energy_drift_plain",
-           "energy_and_drift", "energy_and_drift_plain", "pack_params"]
+__all__ = ["PARAMS_SIZE", "LogPsiAndEnergy", "diffuse_energy_drift",
+           "diffuse_energy_drift_plain", "energy_and_drift",
+           "energy_and_drift_params_vjp", "energy_and_drift_params_vjp_plain",
+           "energy_and_drift_plain", "pack_params"]
 
 #: Packed-parameter layout.  Slots 0-12 are those of the JAX package's
 #: ``pack_params``; slot 13 holds the Hamiltonian's lattice depth, which
@@ -49,9 +57,12 @@ def pack_params(cfc, dtype: torch.dtype = torch.float32,
     the kernel reads, on ``device`` (the card unless ``"cpu"`` is
     asked for).
 
-    Leaves may be floats or 0-d tensors; with 0-d tensors already on
+    Leaves may be floats or tensors; with 0-d tensors already on
     ``device`` the packing is one device-side stack and copies nothing
-    from the host.
+    from the host.  Leaves with a batch shape (the optimizer's grid of
+    parameters) broadcast together and give one vector per element,
+    ``(*batch, PARAMS_SIZE)``.  The packing is differentiable in the
+    leaves.
     """
     mp_, obf, tbf = cfc.model_params, cfc.obf_params, cfc.tbf_params
     entries = [obf.lattice_depth, obf.param_e0, obf.param_k1,
@@ -59,16 +70,19 @@ def pack_params(cfc, dtype: torch.dtype = torch.float32,
                mp_.supercell_size, tbf.tbf_contact_cutoff,
                tbf.param_k2, tbf.param_beta, tbf.param_r_off,
                tbf.param_am, mp_.defect_magnitude, mp_.lattice_depth]
-    vals = [torch.as_tensor(e, dtype=dtype, device=device).reshape(())
-            for e in entries]
+    vals = list(torch.broadcast_tensors(
+        *(torch.as_tensor(e, dtype=dtype, device=device) for e in entries)))
     vals[P_RM] = vals[P_RM].abs()
     v0, e0, z_b = vals[P_V0], vals[P_E0], vals[P_ZB]
-    # The expression of models/mrbp.py::_one_body; 0/0 for a free gas.
-    cf = torch.sqrt(1 + v0 / e0 * torch.sinh(0.5 * torch.sqrt(v0 - e0)
-                                             * z_b) ** 2)
-    vals.append(torch.where(e0 != 0, cf, 0.0))
+    # The expression of models/mrbp.py::_one_body; 0 for a free gas
+    # (e0 = 0), whose unselected branch is kept finite, gradient included.
+    free = e0 == 0
+    e0_s, v0_s = torch.where(free, 1.0, e0), torch.where(free, 2.0, v0)
+    cf = torch.sqrt(1 + v0_s / e0_s * torch.sinh(
+        0.5 * torch.sqrt(v0_s - e0_s) * z_b) ** 2)
+    vals.append(torch.where(free, 0.0, cf))
     vals += [torch.zeros_like(vals[0])] * (PARAMS_SIZE - len(vals))
-    return torch.stack(vals)
+    return torch.stack(vals, dim=-1)
 
 
 def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
@@ -212,9 +226,109 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
 
 
 #: Kernel launches since the last reset (set them to 0 to reset): the
-#: forward variant and the log|psi| variant.
+#: forward variant, the log|psi| variant and the parameter VJP of the
+#: log|psi| variant (:func:`energy_and_drift_params_vjp`).
 energy_and_drift.launch_count = 0
 energy_and_drift.log_psi_launch_count = 0
+energy_and_drift.params_vjp_launch_count = 0
+
+
+# -- the parameter VJP of the log|psi| variant ---------------------------------
+
+def energy_and_drift_params_vjp_plain(pos, params, drift, g_lp, g_e, *,
+                                      nop: int, is_free: bool, is_ideal: bool,
+                                      defects_sep: int = 1) -> torch.Tensor:
+    """Plain torch version of the parameter VJP: autograd of
+    :func:`energy_and_drift_plain` (``with_log_psi=True``),
+    ``sum_w (g_lp[w] dlog_psi_w/dp + g_e[w] dE_w/dp)`` as a
+    ``(PARAMS_SIZE,)`` vector.  ``drift`` is the forward's; this
+    version recomputes it."""
+    del drift
+    with torch.enable_grad():
+        p = params.detach().requires_grad_()
+        log_psi, energy, _ = energy_and_drift_plain(
+            pos.detach(), p, nop=nop, is_free=is_free, is_ideal=is_ideal,
+            defects_sep=defects_sep, with_log_psi=True)
+        out = (log_psi * g_lp).sum() + (energy * g_e).sum()
+        if not out.requires_grad:  # a free ideal gas reads no parameter
+            return torch.zeros_like(params)
+        grad, = torch.autograd.grad(out, p, allow_unused=True)
+    return torch.zeros_like(params) if grad is None else grad
+
+
+def energy_and_drift_params_vjp(pos, params, drift, g_lp, g_e, *, nop: int,
+                                is_free: bool, is_ideal: bool,
+                                defects_sep: int = 1) -> torch.Tensor:
+    """``sum_w (g_lp[w] dlog_psi_w/dp + g_e[w] dE_w/dp)``: the
+    vector-Jacobian product of :func:`energy_and_drift`'s log|psi|
+    variant with respect to the packed parameters ``params``, a
+    ``(PARAMS_SIZE,)`` vector in ``pos``' dtype.
+
+    ``drift (W, N)`` is the forward's drift at ``pos``, ``g_lp`` and
+    ``g_e`` the upstream gradients ``(W,)`` of log|psi| and of the
+    energy.  A CUDA tensor launches the kernel of ``csrc/pairwise.cu``
+    (one row of the product per walker, summed here by one torch
+    reduction; each launch adds one to
+    ``energy_and_drift.params_vjp_launch_count``); a CPU tensor runs
+    :func:`energy_and_drift_params_vjp_plain`.  The kernel differentiates
+    the forward as the kernels compute it, positions in ``[0, L)``:
+    there it equals the plain version.
+    """
+    kw = dict(nop=nop, is_free=is_free, is_ideal=is_ideal,
+              defects_sep=defects_sep)
+    if pos.device.type == "cpu":
+        return energy_and_drift_params_vjp_plain(pos, params, drift, g_lp,
+                                                 g_e, **kw)
+    _check_params(pos, params, nop, defects_sep)
+    num_walkers = pos.shape[0]
+    for name, t, shape in (("drift", drift, pos.shape),
+                           ("g_lp", g_lp, (num_walkers,)),
+                           ("g_e", g_e, (num_walkers,))):
+        if t.shape != shape or t.dtype != pos.dtype \
+                or t.device != pos.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(shape)} "
+                             f"tensor in pos' dtype on pos' device")
+    rows = pos.new_empty((num_walkers, PARAMS_SIZE))
+    if num_walkers == 0:
+        return rows.sum(dim=0)
+    suffix = "f32" if pos.dtype == torch.float32 else "f64"
+    _build.call(_build.functions()[f"qmc_pair_logpsi_params_vjp_{suffix}"],
+                pos.device, pos.data_ptr(), params.data_ptr(),
+                drift.data_ptr(), g_lp.data_ptr(), g_e.data_ptr(),
+                rows.data_ptr(), num_walkers, nop, int(is_free),
+                int(is_ideal), defects_sep)
+    energy_and_drift.params_vjp_launch_count += 1
+    return rows.sum(dim=0)
+
+
+class LogPsiAndEnergy(torch.autograd.Function):
+    """``(log_psi (W,), energy (W,))`` of :func:`energy_and_drift`'s
+    log|psi| variant, differentiable with respect to ``params``: the
+    forward launches the kernel (or, on the CPU, runs the plain version)
+    and keeps its drift; the backward is
+    :func:`energy_and_drift_params_vjp`.  ``kernel_kw`` holds ``nop``,
+    ``is_free``, ``is_ideal`` and ``defects_sep``.  ``pos`` gets no
+    gradient: it must not require one."""
+
+    @staticmethod
+    def forward(ctx, pos, params, kernel_kw):
+        if pos.requires_grad:
+            raise ValueError("LogPsiAndEnergy differentiates with respect "
+                             "to params only")
+        log_psi, energy, drift = energy_and_drift(pos, params,
+                                                  with_log_psi=True,
+                                                  **kernel_kw)
+        ctx.kernel_kw = kernel_kw
+        ctx.save_for_backward(pos, params, drift)
+        return log_psi, energy
+
+    @staticmethod
+    def backward(ctx, g_lp, g_e):
+        pos, params, drift = ctx.saved_tensors
+        grad = energy_and_drift_params_vjp(
+            pos, params, drift, g_lp.contiguous(), g_e.contiguous(),
+            **ctx.kernel_kw)
+        return None, grad, None
 
 
 # -- the fused diffusion step ------------------------------------------------

@@ -6,11 +6,13 @@ library's ``mrbp_qmc/dmc_exec/cli_app.py`` and ``qmc_exec/cli_app.py``.
 One config file holds ``meta`` plus one or
 more ``app_spec`` stanzas executed serially; each stanza wires a ``proc``
 to an input handler (fresh model configurations or an HDF5 restart) and
-an HDF5 output handler.  The procedures run on the ``device`` given to
+an HDF5 output handler.  A ``proc_type: wf_opt`` stanza
+(:class:`WFOptAppSpec`) runs or loads a VMC sampling and optimizes the
+trial function by correlated sampling; the optimized parameters flow
+into every later stanza.  The procedures run on the ``device`` given to
 :meth:`CLIApp.exec`; a config never names one.
 
-Not here yet, and refused by name when a config asks for them: a
-``proc_type: wf_opt`` stanza (the wavefunction optimization) and
+Not here yet, and refused by name when a config asks for them:
 ``fused_sweep`` / ``fused_sweep_mesh`` (the procedures of one config
 advanced as a single fused sweep).
 """
@@ -21,7 +23,8 @@ from . import dmc as dmc_proc, io as io_mod, vmc as vmc_proc
 from .logging import exec_logger
 from .proc import MODEL_SYS_CONF_TYPE, ModelSysConfSpec
 
-__all__ = ["AppMeta", "AppSpec", "CLIApp", "get_io_handler"]
+__all__ = ["AppMeta", "AppSpec", "CLIApp", "WFOptAppSpec",
+           "get_io_handler"]
 
 
 def proc_cli_tags_converter(tag_or_tags) -> str:
@@ -143,6 +146,99 @@ class AppSpec:
 
 
 @dataclass(frozen=True)
+class WFOptAppSpec:
+    """A ``proc_type: wf_opt`` stanza: obtain equilibrated VMC
+    configurations (by running a VMC procedure or by loading a stored
+    VMC result), then optimize ``tbf_contact_cutoff`` (and with
+    ``opt_obf_lattice_depth`` the trial orbital's depth) by correlated
+    sampling (:class:`phd_qmclib_torch.wf_opt.WFOptProc`).  The optimal
+    values flow into every later stanza of the same config, so one file
+    runs VMC -> optimize -> DMC at the optimum.
+
+    Config shape::
+
+        app_spec:
+          - proc_type: wf_opt
+            proc: { ...VMC proc config... }     # or omit and use an
+            input: { type: MODEL_SYS_CONF }     # HDF5_FILE input of a
+            num_sys_confs: 128                  # stored VMC result
+            method: de | grad
+          - proc: { ...DMC proc config... }     # runs at the optimum
+            ...
+    """
+    vmc_proc: t.Optional[t.Any]
+    proc_input: t.Any
+    num_sys_confs: int = 128
+    method: str = "de"
+    ref_energy: t.Optional[float] = None
+    verbose: bool = False
+    proc_id: t.Optional[int] = None
+    #: Jointly optimize the trial-orbital lattice depth alongside ``rm``.
+    opt_obf_lattice_depth: bool = False
+
+    @classmethod
+    def from_config(cls, config: t.Mapping):
+        self_config = dict(config)
+        self_config.pop("proc_type", None)
+        proc_config = self_config.pop("proc", None)
+        proc = vmc_proc.Proc.from_config(proc_config) \
+            if proc_config is not None else None
+        # The config loader renames "input" to "proc_input"; both are
+        # accepted, so that hand-built dicts and loaded files agree.
+        input_config = self_config.pop(
+            "proc_input",
+            self_config.pop("input", {"type": MODEL_SYS_CONF_TYPE}))
+        input_handler = get_io_handler(input_config, "vmc")
+        if proc is None and not isinstance(input_handler,
+                                           io_mod.HDF5FileHandler):
+            raise TypeError(
+                "a wf_opt stanza needs either a VMC proc to run or an "
+                "HDF5_FILE input holding a stored VMC result")
+        return cls(vmc_proc=proc, proc_input=input_handler,
+                   num_sys_confs=int(self_config.pop("num_sys_confs",
+                                                     128)),
+                   method=str(self_config.pop("method", "de")),
+                   ref_energy=self_config.pop("ref_energy", None),
+                   verbose=bool(self_config.pop("verbose", False)),
+                   proc_id=self_config.pop("proc_id", None),
+                   opt_obf_lattice_depth=bool(self_config.pop(
+                       "opt_obf_lattice_depth", False)))
+
+    def exec(self, device="cuda"):
+        """Run (or load) the VMC stage on ``device`` and optimize there;
+        returns the optimized model spec."""
+        from ..wf_opt import WFOptProc
+
+        if isinstance(self.proc_input, io_mod.HDF5FileHandler):
+            result = self.proc_input.load(device=device)
+            if self.vmc_proc is not None:
+                exec_logger.info(
+                    "wf_opt stanza: using the stored VMC result "
+                    "(the inline VMC proc is ignored)")
+            state, model_spec = result.state, result.proc.model_spec
+        else:
+            proc = self.vmc_proc
+            proc_input = vmc_proc.ProcInput.from_model_sys_conf_spec(
+                self.proc_input, proc, device=device)
+            result = proc.exec(proc_input)
+            state, model_spec = result.state, proc.model_spec
+        opt = WFOptProc(num_sys_confs=self.num_sys_confs,
+                        ref_energy=self.ref_energy,
+                        verbose=self.verbose, method=self.method,
+                        opt_obf_lattice_depth=self.opt_obf_lattice_depth)
+        opt_spec = opt.exec(model_spec, state.pos, state.wf_abs_log,
+                            device=device)
+        orbital = (f", orbital v0 = {opt_spec.obf_lattice_depth:.6G} "
+                   f"(physical {opt_spec.lattice_depth:.6G})"
+                   if opt_spec.obf_lattice_depth is not None else "")
+        exec_logger.info(
+            f"wf_opt: optimal rm = {opt_spec.tbf_contact_cutoff:.6G} "
+            f"(was {model_spec.tbf_contact_cutoff:.6G}){orbital}; "
+            f"subsequent procedures run at the optimized value")
+        return opt_spec
+
+
+@dataclass(frozen=True)
 class CLIApp:
     """Entry point executing a sequence of procedures, one after the
     other (``mrbp_qmc/dmc_exec/cli_app.py:167-230``)."""
@@ -167,10 +263,9 @@ class CLIApp:
             if app_spec_config.get("proc_id") is None:
                 app_spec_config["proc_id"] = proc_num
             if app_spec_config.get("proc_type") == "wf_opt":
-                raise ValueError(
-                    f"app_spec[{proc_num}]: proc_type 'wf_opt' (the "
-                    f"wavefunction optimization) is not available in "
-                    f"this package yet")
+                app_spec_set.append(
+                    WFOptAppSpec.from_config(app_spec_config))
+                continue
             app_spec_set.append(
                 AppSpec.from_config(app_spec_config, sampling_type))
         return cls(meta=app_meta, app_spec=app_spec_set,
@@ -178,15 +273,32 @@ class CLIApp:
 
     def exec(self, device="cuda"):
         """Run the procedures on ``device``, each dumping its result to
-        its output file."""
+        its output file; a wf_opt stanza's optimized parameters (rm, and
+        the trial orbital's depth when optimized jointly) go into every
+        later stanza's model spec."""
         app_spec_set = self.app_spec
         exec_logger.info("Starting the QMC calculations...")
         exec_logger.info(f"Starting the execution of a set of "
                          f"{len(app_spec_set)} QMC calculations...")
         results = []
+        opt_params_star = None
         for proc_num, app_spec in enumerate(app_spec_set, 1):
             exec_logger.info(f"Starting procedure ID{proc_num}...")
-            results.append(app_spec.exec(device=device))
+            if isinstance(app_spec, WFOptAppSpec):
+                opt_spec = app_spec.exec(device=device)
+                opt_params_star = {
+                    "tbf_contact_cutoff": opt_spec.tbf_contact_cutoff}
+                if opt_spec.obf_lattice_depth is not None:
+                    opt_params_star["obf_lattice_depth"] = \
+                        opt_spec.obf_lattice_depth
+                results.append(opt_spec)
+            else:
+                if opt_params_star is not None:
+                    new_spec = app_spec.proc.model_spec.evolve(
+                        **opt_params_star)
+                    app_spec = replace(app_spec, proc=replace(
+                        app_spec.proc, model_spec=new_spec))
+                results.append(app_spec.exec(device=device))
             exec_logger.info(f"Procedure ID{proc_num} completed.")
         exec_logger.info("All the QMC calculations have completed.")
         return results

@@ -330,8 +330,10 @@ def test_unsupported_stanzas_raise_by_name(workdir):
     app = cli_app.CLIApp.from_config(dict(base, fused_sweep=False), "dmc")
     assert app.meta.tags == "#qmc - #dmc - #multi-rods"
     assert app.app_spec[0].proc_id == 101
+    # A wf_opt stanza with neither a VMC proc nor a stored result: the
+    # JAX package's TypeError.
     wf_opt = dict(base, app_spec=[{"proc_type": "wf_opt"}] + base["app_spec"])
-    with pytest.raises(ValueError, match=r"app_spec\[0\].*wf_opt"):
+    with pytest.raises(TypeError, match="needs either a VMC proc"):
         cli_app.CLIApp.from_config(wf_opt, "dmc")
     with pytest.raises(TypeError, match="unknown handler type"):
         cli_app.get_io_handler({"type": "FTP"}, "dmc")

@@ -707,3 +707,154 @@ def test_vmc_proc_exec_runs_on_the_card(cuda):
     assert np.isfinite(result.data.blocks.energy.totals).all()
     np.testing.assert_allclose(
         result.data.blocks.ss_factor.fdk_sqr_abs_part.totals[:, 0], 16.0 ** 2)
+
+
+# -- K1 log's parameter VJP and the gradient optimizer ---------------------------
+
+#: The VJP kernel against autograd of the plain version: f64 every slot
+#: within 1e-9 (sums of W N^2/2 terms in another order); f32 against the
+#: f64 plain version at the same inputs, each slot within 1e-3 of itself
+#: plus 1e-5 of the largest slot (chip_smoke.py's K1_VJP_F32_TOL: the
+#: f32 forward's drift, which the kernel takes, is good to 1e-3).
+VJP_F64_RTOL = 1e-9
+VJP_F32_RTOL, VJP_F32_RTOL_OF_MAX = 1e-3, 1e-5
+
+
+def _vjp_spec(nop, kind):
+    kwargs = dict(BENCH, boson_number=nop, supercell_size=float(nop))
+    if kind == "free":
+        kwargs.update(lattice_depth=0.0)
+    elif kind == "ideal":
+        kwargs.update(interaction_strength=0.0)
+    elif kind == "defected":
+        kwargs.update(num_defects=1 if nop == 5 else 8,
+                      defect_magnitude=10.0)
+    return mrbp.Spec(**kwargs)
+
+
+def _vjp_inputs(spec, num_walkers, dtype, device, seed=0):
+    """Positions in [0, L), the packed parameters, the forward's drift and
+    seeded normal upstream gradients."""
+    static = spec.static_spec
+    kw = dict(nop=static.boson_number, is_free=static.is_free,
+              is_ideal=static.is_ideal, defects_sep=static.defects_sep)
+    rng = np.random.default_rng(seed)
+    pos = torch.as_tensor(rng.uniform(
+        0, spec.supercell_size, (num_walkers, spec.boson_number)),
+        dtype=dtype, device=device)
+    g_lp, g_e = (torch.as_tensor(rng.standard_normal(num_walkers),
+                                 dtype=dtype, device=device)
+                 for _ in range(2))
+    params = pairwise.pack_params(spec.cfc_params, dtype, device)
+    _, _, drift = pairwise.energy_and_drift(pos, params, with_log_psi=True,
+                                            **kw)
+    return pos, params, drift, g_lp, g_e, kw
+
+
+@pytest.mark.parametrize("kind", ["bench", "free", "ideal", "defected"])
+@pytest.mark.parametrize("nop", [5, 64, 128])
+def test_params_vjp_kernel_matches_plain_f64(cuda, nop, kind):
+    *args, kw = _vjp_inputs(_vjp_spec(nop, kind), 256, torch.float64, cuda)
+    count = pairwise.energy_and_drift.params_vjp_launch_count
+    got = pairwise.energy_and_drift_params_vjp(*args, **kw)
+    torch.cuda.synchronize()
+    assert pairwise.energy_and_drift.params_vjp_launch_count == count + 1
+    want = pairwise.energy_and_drift_params_vjp_plain(*args, **kw)
+    assert got.shape == (pairwise.PARAMS_SIZE,)
+    torch.testing.assert_close(got, want, rtol=VJP_F64_RTOL, atol=0.0)
+    assert float(got[pairwise.P_RM]) == 0.0
+
+
+@pytest.mark.parametrize("nop,num_walkers", [(128, 4096), (64, 4096),
+                                             (33, 512), (1024, 8)])
+def test_params_vjp_kernel_f32_against_the_f64_plain(cuda, nop, num_walkers):
+    pos, params, drift, g_lp, g_e, kw = _vjp_inputs(
+        _vjp_spec(nop, "bench"), num_walkers, torch.float32, cuda)
+    got = pairwise.energy_and_drift_params_vjp(pos, params, drift, g_lp,
+                                               g_e, **kw)
+    want = pairwise.energy_and_drift_params_vjp_plain(
+        pos.double(), params.double(), None, g_lp.double(), g_e.double(),
+        **kw)
+    err = (got.double() - want).abs()
+    limit = VJP_F32_RTOL * want.abs() + VJP_F32_RTOL_OF_MAX * want.abs().max()
+    assert bool((err <= limit).all()), (err / limit).max()
+
+
+def test_params_vjp_rejects_bad_inputs(cuda):
+    pos, params, drift, g_lp, g_e, kw = _vjp_inputs(
+        _vjp_spec(16, "bench"), 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="drift"):
+        pairwise.energy_and_drift_params_vjp(pos, params, drift[:, :8],
+                                             g_lp, g_e, **kw)
+    with pytest.raises(ValueError, match="g_e"):
+        pairwise.energy_and_drift_params_vjp(pos, params, drift, g_lp,
+                                             g_e.double(), **kw)
+
+
+def test_solves_pack_and_kernel_gradcheck(cuda):
+    """theta = (rm, orbital v0) -> the implicit solves -> pack_params ->
+    K1 log forward and its VJP kernel backward -> the weighted variance:
+    torch.autograd.gradcheck in f64 on the card."""
+    from phd_qmclib_torch import wf_opt
+
+    spec = _vjp_spec(16, "defected")
+    rng = np.random.default_rng(4)
+    pos = rng.uniform(0, 16.0, (64, 16))
+    lp0 = mrbp.core_funcs(spec).log_psi(torch.as_tensor(pos),
+                                        spec.cfc_params).numpy()
+    opt = wf_opt.GradCSWFOptimizer(spec, pos, lp0 + 0.1 * rng.standard_normal(
+        64), opt_obf_lattice_depth=True, device=cuda)
+    theta = torch.tensor([0.6, 14.0], dtype=torch.float64, device=cuda,
+                         requires_grad=True)
+    count = pairwise.energy_and_drift.params_vjp_launch_count
+    assert torch.autograd.gradcheck(opt._variance_fn, (theta,), eps=1e-6,
+                                    atol=1e-7, rtol=1e-5)
+    assert pairwise.energy_and_drift.params_vjp_launch_count > count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grad_exec_launches_the_vjp_once_per_backward(cuda, monkeypatch,
+                                                      dtype):
+    """The gradient optimizer on the card: K1 log once per grid point and
+    per evaluation, the VJP kernel once per backward, and no plain pair
+    function on a CUDA tensor."""
+    from phd_qmclib_torch import wf_opt
+
+    def refuse_cuda(fn):
+        def wrapped(pos, *args, **kwargs):
+            assert pos.device.type == "cpu", f"{fn.__name__} on the card"
+            return fn(pos, *args, **kwargs)
+        return wrapped
+
+    for name in ("energy_and_drift_plain",
+                 "energy_and_drift_params_vjp_plain"):
+        monkeypatch.setattr(pairwise, name,
+                            refuse_cuda(getattr(pairwise, name)))
+    spec = _vjp_spec(16, "bench")
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0, 16.0, (256, 16))
+    lp0 = mrbp.core_funcs(spec).log_psi(torch.as_tensor(pos),
+                                        spec.cfc_params).numpy()
+    opt = wf_opt.GradCSWFOptimizer(spec, torch.as_tensor(pos, dtype=dtype),
+                                   lp0, device=cuda)
+    backward_calls = []
+    value_and_grad = opt._value_and_grad_fn
+
+    def counting(x):
+        backward_calls.append(x)
+        return value_and_grad(x)
+
+    object.__setattr__(opt, "_value_and_grad_fn", counting)
+    counts = (pairwise.energy_and_drift.log_psi_launch_count,
+              pairwise.energy_and_drift.params_vjp_launch_count)
+    opt_spec = opt.exec()
+    torch.cuda.synchronize()
+    assert backward_calls
+    assert pairwise.energy_and_drift.params_vjp_launch_count \
+        == counts[1] + len(backward_calls)
+    assert pairwise.energy_and_drift.log_psi_launch_count \
+        == counts[0] + opt.num_grid + len(backward_calls)
+    lo, hi = opt.principal_function_bounds[0]
+    assert lo <= opt_spec.tbf_contact_cutoff <= hi
+    assert opt.principal_function(opt_spec.tbf_contact_cutoff) \
+        <= opt.principal_function(spec.tbf_contact_cutoff)

@@ -27,7 +27,15 @@ def test_import_pulls_in_no_jax_or_triton():
         "from phd_qmclib_torch.qmc_exec import (cli_app, config, dmc as d,\n"
         "                                       io, vmc)\n"
         "from phd_qmclib_torch.qmc_exec.data import dmc as dd, vmc as dv\n"
-        "from phd_qmclib_torch import mrbp_cli\n"
+        "from phd_qmclib_torch import mrbp_cli, wf_opt\n"
+        "from phd_qmclib_torch.models import mrbp\n"
+        "assert callable(mrbp.cfc_params_device)\n"
+        "assert callable(pairwise.LogPsiAndEnergy.apply)\n"
+        "cli_app.WFOptAppSpec.from_config({'proc_type': 'wf_opt',\n"
+        "    'proc': dict(model_spec=dict(lattice_depth=10.0,\n"
+        "    lattice_ratio=1.0, interaction_strength=1.0, boson_number=5,\n"
+        "    supercell_size=5.0, tbf_contact_cutoff=0.3), move_spread=0.2)})\n"
+        "wf_opt.WFOptProc(method='grad')\n"
         "from phd_qmclib_torch.multirods_qmc import bloch_phonon\n"
         "assert callable(mrbp_cli.dmc_cli)\n"
         "d.Proc.from_config(dict(model_spec=dict(lattice_depth=10.0,\n"
