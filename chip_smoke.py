@@ -139,11 +139,43 @@ W. the wavefunction optimization:
    and no plain pair function may run on a CUDA tensor
    (``watch_optimizer``).
 
+S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
+   ``qmc_exec.sweep``):
+   S0, the row variants of the kernels: K1 forward and log with a 4-row
+   parameter table (couplings, cutoffs and supercells differ) at 4 x
+   4,352 walkers of N=64, f32 against the plain version at phase B's
+   tolerances and f64 within 1e-12 (normwise), each row bit-equal to a
+   launch on its rows alone; K2 with four keys and scales, word-equal to
+   four single-row launches and to the plain version, also at a row
+   length that is not a multiple of 4; K4 with four bin widths at the
+   density and g2 shapes, bit-equal to the plain version and to one
+   launch per row; each timed beside its single-row form at the same
+   total width (and K2 beside ``torch.randn``);
+   S1, ``examples/eos_fused_sweep.yml`` at full width (4 rows x 4,352
+   slots, N=64, f32) from config dicts (held equal to the file by
+   ``tests/test_torch_cli.py``), cut to 1 burn-in and 2 measured blocks
+   of 512 steps, through ``SweepProc.exec`` and, row by row, through
+   ``Proc.exec``: each row bit-equal to its standalone run (else the
+   first step that parts, and E/N within 5 combined reblocked errors);
+   walker-steps/s fused and sequential and their ratio, ms/step (CUDA
+   events), a 64-step block of each profiled (device busy share, kernel
+   launches per step), peak memory, each row's E/N and
+   ``report.summarize``'s; S1b, a density scan at fixed N (the first EOS
+   row at L = 64, 60, 56, 52) with the production example's density and
+   g2, one measured block fused and row by row, bit-equal (K4's bin-size
+   groups on the path);
+   S2, the variational example's model and estimators as four rows of
+   4,096 chains at rm 0.3-0.6 (``VmcSweep``), one burn-in and one
+   measured block, each row bit-equal to its standalone ``vmc.Sampling``
+   run; chain-steps/s fused and sequential.
+
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-G3, V1, V2, R0, R1, R2, W1 (and its DMC stage) and W2, in all and per
-step of each run; K1 must run on every DMC step and K1 log on every VMC
-step.  K3 lies on none of them (the DMC step keeps its own sequence, as
-in the JAX package), and its count there must stay 0.
+G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b and S2, in
+all and per step of each run; K1 must run on every DMC step and K1 log
+on every VMC step, a fused DMC step must launch K1's table and K2's rows
+once, a fused VMC step K1 log's table.  K3 lies on none of them (the DMC
+step keeps its own sequence, as in the JAX package), and its count
+there must stay 0.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -161,11 +193,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from phd_qmclib_torch import lieb_liniger, wf_opt
+from phd_qmclib_torch import lieb_liniger, parallel, wf_opt
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
-from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec,
-                                       vmc as vmc_exec)
+from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec, report,
+                                       sweep as sweep_exec, vmc as vmc_exec)
 from phd_qmclib_torch.samplers import dmc, vmc
 from phd_qmclib_torch.stats import reblock
 
@@ -306,6 +338,37 @@ VARIATIONAL_PROC = dict(
     burn_in_blocks=2, rng_seed=7, dtype="float32", est_every=8,
     ssf_spec=dict(num_modes=64),
     obd_spec=dict(num_pos=32, est_every_mult=8))
+#: Phase S1: the ``proc`` stanzas of ``examples/eos_fused_sweep.yml`` (an
+#: EOS scan: four couplings, N=64, 4,096 target walkers in 4,352 slots
+#: each, f32), as config dicts; ``tests/test_torch_cli.py`` holds them
+#: equal to the file.
+EOS_NOP, EOS_SLOTS = 64, 4352
+EOS_ROW = dict(
+    model_spec=dict(lattice_depth=20.0, lattice_ratio=1.0,
+                    interaction_strength=0.25, boson_number=EOS_NOP,
+                    supercell_size=64.0, tbf_contact_cutoff=0.4),
+    time_step=1e-3, max_num_walkers=EOS_SLOTS, target_num_walkers=4096,
+    num_blocks=32, num_time_steps_block=512, burn_in_blocks=8,
+    rng_seed=11, dtype="float32")
+EOS_PROCS = tuple(
+    dict(EOS_ROW, model_spec=dict(EOS_ROW["model_spec"],
+                                  interaction_strength=gn), rng_seed=seed)
+    for gn, seed in ((0.25, 11), (0.5, 12), (1.0, 13), (2.0, 14)))
+#: S1's depth: one burn-in block and two measured blocks of 512 steps.
+S1_DEPTH = dict(num_blocks=2, burn_in_blocks=1)
+#: S1b: the first EOS row at these supercells (a density scan at fixed
+#: N), with the production example's density and g2.
+S1B_SUPERCELLS = (64.0, 60.0, 56.0, 52.0)
+#: S0's four rows at N=64: (coupling, cutoff, supercell), all different
+#: but for one supercell.
+S0_ROWS = ((0.25, 0.4, 64.0), (0.5, 0.35, 60.0), (1.0, 0.45, 68.0),
+           (2.0, 0.3, 64.0))
+#: S0: K1's table in f64 against its plain version, normwise.
+S0_K1_F64_RTOL = 1e-12
+#: Phase S2: the variational example's model and estimators as four rows
+#: of 4,096 chains, the trial cutoffs of a variational scan.
+S2_RMS = (0.3, 0.4, 0.5, 0.6)
+S2_CHAINS = 4096
 #: The keys of an example's ``proc`` stanza that phase R sets to its own
 #: depth or leaves out.
 PROC_DEPTH_KEYS = ("num_blocks", "burn_in_blocks", "block_offset",
@@ -384,7 +447,13 @@ COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K1 vjp": (pairwise.energy_and_drift, "params_vjp_launch_count"),
             "K2": (prng.normal, "launch_count"),
             "K3": (pairwise.diffuse_energy_drift, "launch_count"),
-            "K4": (histogram.walker_histogram, "launch_count")}
+            "K4": (histogram.walker_histogram, "launch_count"),
+            # The row variants of a fused sweep.
+            "K1 table": (pairwise.energy_and_drift, "table_launch_count"),
+            "K1 log table": (pairwise.energy_and_drift,
+                             "log_psi_table_launch_count"),
+            "K2 rows": (prng.normal_rows, "launch_count"),
+            "K4 groups": (histogram.walker_histogram, "group_launch_count")}
 
 
 def reset_counts() -> None:
@@ -954,24 +1023,25 @@ def time_itc_step(device, card: str, state, g2_step_ms: float,
     sampling = bench_sampling(est_every=8, itc_est_spec=G3_ITC)
     dtype = state.pos.dtype
     consts = sampling._consts(dtype, device)
-    aux = sampling._fresh_aux(dtype, device)
+    aux = sampling._fresh_aux(dtype, device, 1)
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     buf = torch.randn(sampling._itc_buf_shape, generator=gen, dtype=dtype,
                       device=device)
     filled = torch.tensor(G3_ITC.num_lags, dtype=torch.int32, device=device)
-    full = state._replace(itc_buf=buf, itc_filled=filled)
+    # The step's estimators run on rows (a sampling is one).
+    full = dmc._as_rows(state._replace(itc_buf=buf, itc_filled=filled))
     parent = torch.randint(0, int(state.num_walkers), (MAX_WALKERS,),
                            generator=gen, device=device).sort().values
     valid = torch.arange(MAX_WALKERS, device=device) < state.num_walkers
-    branch = dmc._Branch(parent, state.pos, valid)
+    branch = dmc._Branch(parent[None], state.pos[None], valid[None])
     period = sampling._every(G3_ITC)
 
     def measure():
-        return sampling._estimate(consts, aux, None, parent, branch, full,
-                                  period - 1)[1]
+        return sampling._estimate(consts, aux, None, parent[None], branch,
+                                  full, period - 1)[1]
 
-    require(measure()["itc"].shape == (G3_ITC.num_lags + 1,
+    require(measure()["itc"].shape == (1, G3_ITC.num_lags + 1,
                                        G3_ITC.num_modes),
             "the timed step measured the ITC rows")
     funcs = sampling.core_funcs
@@ -2060,6 +2130,477 @@ def check_k3(device) -> float:
     return errs["nenergy_vs_plain"]
 
 
+# -- phase S: fused parameter sweeps -------------------------------------------
+
+def sweep_rows_specs(nop: int = EOS_NOP):
+    """S0's four rows: couplings, cutoffs and supercells that differ."""
+    return [mrbp.Spec(**dict(BENCH_SPEC, interaction_strength=gn,
+                             tbf_contact_cutoff=rm, boson_number=nop,
+                             supercell_size=sc))
+            for gn, rm, sc in S0_ROWS]
+
+
+def table_inputs(dtype, device, per_row, nop=EOS_NOP):
+    """Positions of four rows of ``per_row`` walkers and their (4, 16)
+    parameter table."""
+    specs = sweep_rows_specs(nop)
+    rng = np.random.default_rng(8)
+    pos = np.concatenate([rng.uniform(0, s.supercell_size, (per_row, nop))
+                          for s in specs])
+    static = specs[0].static_spec
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    table = torch.stack([pairwise.pack_params(s.cfc_params, dtype, device)
+                         for s in specs])
+    return torch.as_tensor(pos, dtype=dtype, device=device), table, kw
+
+
+def time_pair(kernel, plain, single, reps=50):
+    """In turns: plain, table, single-row, single-row, table, plain."""
+    p1 = cuda_ms(plain, 3)
+    t1, s1 = cuda_ms(kernel, reps), cuda_ms(single, reps)
+    s2, t2 = cuda_ms(single, reps), cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, 3)
+    return {"ms": (t1 + t2) / 2, "plain_ms": (p1 + p2) / 2,
+            "single_row_ms": (s1 + s2) / 2}
+
+
+def check_sweep_kernels(device, card: str) -> dict:
+    """Phase S0: the row variants of K1 (forward and log), K2 and K4
+    against their plain versions and against one launch per row, and
+    timed beside their single-row forms at the same total width."""
+    rows, per_row = len(S0_ROWS), EOS_SLOTS
+    out = {}
+    for log_psi in (False, True):
+        name = "K1 log table" if log_psi else "K1 table"
+        err = 0.0
+        for dtype, walkers in ((torch.float32, per_row), (torch.float64, 64)):
+            pos, table, kw = table_inputs(dtype, device, walkers)
+            kw["with_log_psi"] = log_psi
+            got = pairwise.energy_and_drift(pos, table, **kw)
+            plain = pairwise.energy_and_drift_plain(pos, table, **kw)
+            for r in range(rows):
+                part = slice(r * walkers, (r + 1) * walkers)
+                one = pairwise.energy_and_drift(pos[part].contiguous(),
+                                                table[r].contiguous(), **kw)
+                for g, w in zip(got, one):
+                    require(torch.equal(g[part], w),
+                            f"S0 {name} {dtype} row {r} bit-equal to its "
+                            f"single-row launch")
+            torch.cuda.synchronize()
+            if dtype == torch.float64:
+                for g, p in zip(got, plain):
+                    rel = float((g - p).abs().max() / p.abs().max())
+                    require(rel <= S0_K1_F64_RTOL, f"S0 {name} f64 within "
+                            f"{S0_K1_F64_RTOL} of plain (normwise): {rel}")
+            else:
+                tol = K1_LOG_F32_TOL if log_psi else K1_F32_TOL
+                if log_psi:
+                    torch.testing.assert_close(
+                        got[0], plain[0], rtol=tol["log_psi_rtol"],
+                        atol=tol["log_psi_atol"])
+                torch.testing.assert_close(got[-2], plain[-2],
+                                           rtol=tol["energy_rtol"], atol=0.0)
+                torch.testing.assert_close(got[-1], plain[-1],
+                                           rtol=tol["drift_rtol"],
+                                           atol=tol["drift_atol"])
+                err = max(float((g - p).abs().max())
+                          for g, p in zip(got, plain))
+                single = pos.clone()
+                times = time_pair(
+                    lambda: pairwise.energy_and_drift(pos, table, **kw),
+                    lambda: pairwise.energy_and_drift_plain(pos, table, **kw),
+                    lambda: pairwise.energy_and_drift(single, table[0]
+                                                      .contiguous(), **kw))
+        out[name] = {**times, "max_abs_err": err,
+                     **k1_bound(rows * per_row, EOS_NOP, log_psi)}
+        phase("S0", check=f"{name} vs plain and single-row launches",
+              card=card, shape=[rows, per_row, EOS_NOP], f64_rtol=
+              S0_K1_F64_RTOL, **out[name], ok=True)
+
+    # K2: four keys and scales, one launch; word for word the single-row
+    # launches and the plain version, also at a row length that is not a
+    # multiple of 4.
+    keys = [int(proc["rng_seed"]) for proc in EOS_PROCS]
+    scales = [math.sqrt(2 * dt) for dt in (1e-3, 2e-3, 1e-3, 5e-4)]
+    err = 0.0
+    for shape in ((per_row, EOS_NOP), (33, 7)):
+        for dtype in (torch.float32, torch.float64):
+            sc = torch.tensor(scales, dtype=dtype, device=device)
+            buf = torch.empty((rows,) + shape, dtype=dtype, device=device)
+            got = prng.normal_rows(prng.key_table(keys, device), 77, sc, buf)
+            plain = prng.normal_rows_plain(
+                prng.key_table(keys, "cpu"), 77, sc.cpu(),
+                torch.empty(buf.shape, dtype=dtype))
+            for r in range(rows):
+                one = prng.normal(keys[r], 77, shape, dtype, device,
+                                  scale=float(sc[r]))
+                require(torch.equal(got[r], one), f"S0 K2 rows {shape} "
+                        f"{dtype} row {r} word-equal to its launch")
+            torch.testing.assert_close(got.cpu(), plain, **K2_TOL)
+            err = max(err, float((got.cpu() - plain).abs().max()))
+    keys_t = prng.key_table(keys, device)
+    sc = torch.tensor(scales, device=device)
+    buf = torch.empty((rows, per_row, EOS_NOP), device=device)
+    flat = torch.empty((rows * per_row, EOS_NOP), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    numel = buf.numel()
+    p1 = cuda_ms(lambda: prng.normal_rows_plain(
+        keys_t.cpu(), 5, sc.cpu(), torch.empty(buf.shape)), 2)
+    k1, s1 = (cuda_ms(lambda: prng.normal_rows(keys_t, 5, sc, buf), 500),
+              cuda_ms(lambda: prng.normal(1, 5, flat.shape, scale=0.04,
+                                          out=flat, device=device), 500))
+    l1 = cuda_ms(lambda: torch.randn(flat.shape, generator=gen, out=flat),
+                 500)
+    l2 = cuda_ms(lambda: torch.randn(flat.shape, generator=gen, out=flat),
+                 500)
+    s2, k2 = (cuda_ms(lambda: prng.normal(1, 5, flat.shape, scale=0.04,
+                                          out=flat, device=device), 500),
+              cuda_ms(lambda: prng.normal_rows(keys_t, 5, sc, buf), 500))
+    p2 = cuda_ms(lambda: prng.normal_rows_plain(
+        keys_t.cpu(), 5, sc.cpu(), torch.empty(buf.shape)), 2)
+    out["K2 rows"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                      "single_row_ms": (s1 + s2) / 2,
+                      "library_ms": (l1 + l2) / 2,
+                      "device_ms": device_ms(
+                          lambda: prng.normal_rows(keys_t, 5, sc, buf), 200),
+                      "single_row_device_ms": device_ms(
+                          lambda: prng.normal(1, 5, flat.shape, scale=0.04,
+                                              out=flat, device=device), 200),
+                      "max_abs_err": err,
+                      **bound(numel * K2_FLOPS_PER_NORMAL,
+                              F32_BYTES * numel + 12 * rows)}
+    phase("S0", check="K2 rows vs plain and single-row launches", card=card,
+          shape=list(buf.shape), **out["K2 rows"],
+          library_call="torch.randn, another stream", ok=True)
+
+    # K4: four bin widths (the rows' supercells), one launch, at the
+    # density and the g2 shapes; bit-equal to the plain version and to
+    # one launch per row.
+    sizes = [spec.supercell_size for spec in sweep_rows_specs()]
+    rng = np.random.default_rng(9)
+    cases = {}
+    for label, dtype in (("density f32", torch.float32),
+                         ("density f64", torch.float64),
+                         ("g2 f32", torch.float32)):
+        if label.startswith("g2"):
+            pos = torch.as_tensor(rng.uniform(0, max(sizes) / 2,
+                                              (rows, 1088, EOS_NOP, EOS_NOP)),
+                                  dtype=dtype, device=device)
+            widths = torch.tensor([0.5 * s / 128 for s in sizes],
+                                  dtype=dtype, device=device)
+        else:
+            pos = torch.as_tensor(rng.uniform(0, max(sizes),
+                                              (rows, per_row, EOS_NOP)),
+                                  dtype=dtype, device=device)
+            widths = torch.tensor([s / 128 for s in sizes], dtype=dtype,
+                                  device=device)
+        table = widths.view((rows,) + (1,) * (pos.dim() - 1)).contiguous()
+        got = histogram.walker_histogram(pos, table, 128)
+        for r in range(rows):
+            require(torch.equal(got[r], histogram.walker_histogram(
+                pos[r], widths[r], 128)),
+                f"S0 K4 {label} row {r} bit-equal to its launch")
+        require(torch.equal(got, histogram.walker_histogram_plain(
+            pos, table, 128)), f"S0 K4 {label} bit-equal to plain")
+        cases[label] = (pos, table, widths)
+    pos, table, widths = cases["density f32"]
+    flat_pos = pos.reshape(-1, EOS_NOP).clone()
+    times = time_pair(
+        lambda: histogram.walker_histogram(pos, table, 128),
+        lambda: histogram.walker_histogram_plain(pos, table, 128),
+        lambda: histogram.walker_histogram(flat_pos, widths[0], 128), 500)
+    out["K4 groups"] = {**times, "max_abs_err": 0.0,
+                        "device_ms": device_ms(
+                            lambda: histogram.walker_histogram(pos, table,
+                                                               128), 200),
+                        "single_row_device_ms": device_ms(
+                            lambda: histogram.walker_histogram(
+                                flat_pos, widths[0], 128), 200),
+                        **k4_bound(rows * per_row, EOS_NOP, 128)}
+    gpos, gtable, gwidths = cases["g2 f32"]
+    gflat = gpos.reshape(-1, EOS_NOP).clone()
+    g2 = time_pair(
+        lambda: histogram.walker_histogram(gpos, gtable, 128),
+        lambda: histogram.walker_histogram_plain(gpos, gtable, 128),
+        lambda: histogram.walker_histogram(gflat, gwidths[0], 128), 20)
+    out["K4 groups"].update(
+        g2_ms=g2["ms"], g2_plain_ms=g2["plain_ms"],
+        g2_single_row_ms=g2["single_row_ms"],
+        g2_bound_ms=k4_bound(gflat.shape[0], EOS_NOP, 128)["bound_ms"])
+    phase("S0", check="K4 groups vs plain and single-group launches",
+          card=card, shape=list(pos.shape), g2_shape=list(gpos.shape),
+          **out["K4 groups"], ok=True)
+    return out
+
+
+def eos_procs(**depth):
+    """The EOS example's procedures at ``depth``."""
+    return tuple(dmc_exec.Proc.from_config(dict(proc, **depth))
+                 for proc in EOS_PROCS)
+
+
+def profile_steps(blocks, steps: int) -> dict:
+    """One warm-up block, one profiled block, two timed blocks of
+    ``steps`` steps: device ms and kernel launches per step, unprofiled
+    host ms per step, the device's busy share (device over the faster
+    unprofiled block) and the kernels that take the most device time."""
+    next(blocks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        next(blocks)
+        torch.cuda.synchronize()
+    kernels = []
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total",
+                     getattr(event, "self_cuda_time_total", 0.0))
+        if us > 0 and event.device_type.name == "CUDA":
+            kernels.append((us, event.count, event.key[:60]))
+    kernels.sort(reverse=True)
+    dev_us = sum(us for us, _, _ in kernels)
+    launches = sum(count for _, count, _ in kernels)
+    host = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next(blocks)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / steps)
+    dev_ms = dev_us / 1e3 / steps
+    return {"device_ms_per_step": dev_ms, "launches_per_step":
+            launches / steps, "host_ms_per_step": host,
+            "busy_share": dev_ms / min(host) if dev_ms else None,
+            "top_kernels_ms_per_step": [
+                [key, us / 1e3 / steps, count / steps]
+                for us, count, key in kernels[:6]]}
+
+
+def run_eos_sweep(device, card: str) -> dict:
+    """Phase S1: the EOS example at full width through ``SweepProc.exec``
+    and, row by row, ``Proc.exec``; S1b: a density scan at fixed N with
+    the production example's density and g2 (K4's bin-size groups)."""
+    procs = eos_procs(**S1_DEPTH)
+    nts = procs[0].num_time_steps_block
+    steps = (procs[0].burn_in_blocks + procs[0].num_blocks) * nts
+    inputs = [dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), p, device=device)
+        for p in procs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    sweep_proc = sweep_exec.SweepProc(procs)
+    fused, fused_ms, fused_s, fused_counts = timed_exec(sweep_proc, inputs)
+    fused_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    alone, alone_ms, alone_s = [], 0.0, 0.0
+    alone_counts = {}
+    for proc, pin in zip(procs, inputs):
+        result, ms, wall, counts = timed_exec(
+            proc, dmc_exec.ProcInput(pin.state))
+        alone.append(result)
+        alone_ms, alone_s = alone_ms + ms, alone_s + wall
+        alone_counts = {k: alone_counts.get(k, 0) + v
+                        for k, v in counts.items()}
+    require(fused_counts["K1 table"] == steps and fused_counts["K2 rows"]
+            == steps and fused_counts["K1"] == 0 and fused_counts["K2"] == 0,
+            f"S1: one K1 table and one K2 rows launch per fused step, no "
+            f"single-row launch: {fused_counts}")
+    rows_report, equal_rows = [], []
+    for r, (f, a) in enumerate(zip(fused, alone)):
+        fb, ab = f.data.blocks, a.data.blocks
+        equal = all(np.array_equal(getattr(fb, name).totals,
+                                   getattr(ab, name).totals)
+                    for name in ("energy", "weight", "num_walkers"))
+        equal = equal and torch.equal(f.state.pos, a.state.pos)
+        equal_rows.append(equal)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            summary = report.summarize(f, "dmc")
+            e, e_err = float(fb.energy.mean), float(fb.energy.mean_error)
+            a_e, a_err = float(ab.energy.mean), float(ab.energy.mean_error)
+        nop = procs[r].model_spec.boson_number
+        sigmas = abs(e - a_e) / math.hypot(e_err, a_err) if e != a_e else 0.0
+        require(np.isfinite(e) and (equal or sigmas < PHYSICS_SIGMAS),
+                f"S1 row {r}: bit-equal to its standalone run, or E/N "
+                f"within {PHYSICS_SIGMAS} combined sigma ({sigmas})")
+        rows_report.append(dict(
+            interaction_strength=procs[r].model_spec.interaction_strength,
+            energy_per_boson=e / nop, energy_err=e_err / nop,
+            report_energy_per_particle=summary.get("energy_per_particle"),
+            report_energy_per_particle_err=summary.get(
+                "energy_per_particle_err"),
+            bit_equal_to_standalone=equal, combined_sigmas=sigmas))
+    parting = None
+    if not all(equal_rows):
+        parting = first_parting(procs, inputs, nts)
+    walker_steps = sum(float(f.data.blocks.num_walkers.totals.sum())
+                       / (f.proc.num_blocks * nts) * steps for f in fused)
+    # Launches and the device's busy share, a 64-step block fused and of
+    # row 0 alone, from the runs' final states.
+    sweep = sweep_proc.sweep
+    state = dmc.State(*(None if fields[0] is None else torch.stack(fields)
+                        for fields in zip(*(f.state for f in fused))))
+    prof_fused = profile_steps(sweep.blocks(state, 64), 64)
+    prof_alone = profile_steps(procs[0].sampling.blocks(alone[0].state, 64),
+                               64)
+    phase("S1", check="the EOS example fused and row by row", card=card,
+          rows=len(procs), slots_per_row=EOS_SLOTS, steps_run=steps,
+          fused_wall_s=fused_s, sequential_wall_s=alone_s,
+          fused_walker_steps_per_s=walker_steps / fused_s,
+          sequential_walker_steps_per_s=walker_steps / alone_s,
+          fused_over_sequential=alone_s / fused_s,
+          fused_ms_per_step_cuda_events=fused_ms / steps,
+          sequential_ms_per_row_step_cuda_events=alone_ms / (len(procs)
+                                                             * steps),
+          fused_profile=prof_fused, standalone_profile=prof_alone,
+          peak_device_memory_gb=fused_peak, launches=fused_counts,
+          sequential_launches=alone_counts, rows_detail=rows_report,
+          first_parting=parting, ok=True)
+    runs = {"S1": (fused_counts, steps)}
+    runs["S1b"] = run_density_scan(device, card)
+    return runs
+
+
+def first_parting(procs, inputs, nts: int) -> list:
+    """Per row, the first block and step whose per-step energy differs
+    between the fused run and the standalone one (sampler level, the
+    same streams), or None."""
+    samplings = [p.sampling for p in procs]
+    sweep = sweep_exec.SweepProc(procs).sweep
+    state = dmc.State(*(None if fields[0] is None else torch.stack(fields)
+                        for fields in zip(*(pi.state for pi in inputs))))
+    burn = procs[0].burn_in_blocks
+    fused = sweep.blocks(state, nts, burn)
+    blocks = [next(fused) for _ in range(burn + procs[0].num_blocks)]
+    out = []
+    for r, (s, pin) in enumerate(zip(samplings, inputs)):
+        it, found = s.blocks(pin.state, nts, burn), None
+        for b, fb in enumerate(blocks):
+            energy = next(it).iter_props.energy
+            diff = (fb.iter_props.energy[:, r] != energy).nonzero()
+            if len(diff):
+                found = {"block": b, "step": int(diff[0])}
+                break
+        out.append(found)
+    return out
+
+
+def run_density_scan(device, card: str):
+    """Phase S1b: the first EOS row at four supercells (a density scan at
+    fixed N), with the production example's density and g2, one measured
+    block fused and row by row: bit-equal rows, K4's groups launched."""
+    base = dict(EOS_PROCS[0], est_every=8, num_blocks=1, burn_in_blocks=0,
+                density_spec=dict(num_bins=128, as_pure_est=True),
+                pair_corr_spec=dict(num_bins=128, as_pure_est=True,
+                                    est_every_mult=8))
+    samplings = [dmc_exec.Proc.from_config(dict(base, rng_seed=21 + r,
+                 model_spec=dict(base["model_spec"], supercell_size=sc)))
+                 .sampling for r, sc in enumerate(S1B_SUPERCELLS)]
+    nts = base["num_time_steps_block"]
+    rng = np.random.default_rng(2)
+    confs = [rng.uniform(0, s.model_spec.supercell_size,
+                         (s.target_num_walkers, EOS_NOP)) for s in samplings]
+    sweep = parallel.ParamSweep(tuple(samplings))
+    state = sweep.build_states(confs, dtype=np.float32, device=device)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    fused = next(sweep.blocks(state, nts))
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    counts = read_counts()
+    require(counts["K4 groups"] > 0 and counts["K4"] == 0,
+            f"S1b: K4's bin-size groups launched: {counts}")
+    alone_s = 0.0
+    for r, s in enumerate(samplings):
+        t0 = time.perf_counter()
+        one = next(s.blocks(s.build_state(confs[r], dtype=np.float32,
+                                          device=device), nts))
+        torch.cuda.synchronize()
+        alone_s += time.perf_counter() - t0
+        for name in ("energy", "num_walkers"):
+            require_equal(getattr(fused.iter_props, name)[:, r],
+                          getattr(one.iter_props, name),
+                          f"S1b row {r} {name}")
+        for name in ("iter_density", "iter_g2"):
+            require_equal(getattr(fused, name)[r], getattr(one, name),
+                          f"S1b row {r} {name}")
+            total = getattr(one, name).sum(-1)
+            require(bool(torch.all(total > 0)), f"S1b {name} counts")
+    phase("S1b", check="density scan at fixed N, density and g2 fused",
+          card=card, supercells=list(S1B_SUPERCELLS), steps_run=nts,
+          fused_wall_s=fused_s, sequential_wall_s=alone_s,
+          rows_bit_equal=True, launches=counts, ok=True)
+    return counts, nts
+
+
+def run_vmc_sweep(device, card: str):
+    """Phase S2: the variational example's model and estimators as four
+    rows of 4,096 chains at rm 0.3-0.6, fused and row by row: each row
+    bit-equal to its standalone run; chain-steps/s both ways."""
+    spec = dict(VARIATIONAL_PROC["model_spec"])
+    samplings = tuple(vmc.Sampling(
+        mrbp.Spec(**dict(spec, tbf_contact_cutoff=rm)), move_spread=0.25,
+        rng_seed=7 + r, num_walkers=S2_CHAINS, est_every=8,
+        ssf_est_spec=vmc.SSFEstSpec(num_modes=64),
+        obd_est_spec=vmc.OBDEstSpec(num_pos=32, est_every_mult=8))
+        for r, rm in enumerate(S2_RMS))
+    conf = samplings[0].model_spec.init_get_sys_conf(
+        dist_type=mrbp.DIST_REGULAR)
+    sweep = parallel.VmcSweep(samplings)
+    # The states are built first (one K1 log launch a row): the runs'
+    # launches and times are the blocks'.
+    state = sweep.build_states([conf] * len(samplings),
+                               dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks = sweep.blocks(NTS, state)
+    fused = [next(blocks) for _ in range(2)]
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    steps = 2 * NTS
+    require(counts["K1 log table"] >= steps and counts["K1 log"] == 0,
+            f"S2: K1 log's table on every fused step: {counts}")
+    alone_s, rows_report = 0.0, []
+    for r, s in enumerate(samplings):
+        row_state = s.build_state(conf, dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = s.blocks(NTS, row_state)
+        alone = [next(it) for _ in range(2)]
+        torch.cuda.synchronize()
+        alone_s += time.perf_counter() - t0
+        for b, (f, a) in enumerate(zip(fused, alone)):
+            for name in a.iter_props._fields:
+                require_equal(getattr(f.iter_props, name)[r].cpu(),
+                              getattr(a.iter_props, name).cpu(),
+                              f"S2 row {r} block {b} {name}")
+            for name in ("iter_ssf", "iter_obd"):
+                require_equal(getattr(f, name)[r].cpu(),
+                              getattr(a, name).cpu(),
+                              f"S2 row {r} block {b} {name}")
+            require(f.accept_rate[r] == a.accept_rate,
+                    f"S2 row {r} acceptance")
+        rows_report.append(dict(
+            rm=S2_RMS[r], energy_per_boson=float(
+                alone[-1].iter_props.energy.double().mean()) / VMC_NOP,
+            accept_rate=alone[-1].accept_rate))
+    chain_steps = len(samplings) * S2_CHAINS * steps
+    phase("S2", check="VMC sweep fused and row by row", card=card,
+          rows=len(samplings), chains_per_row=S2_CHAINS, steps_run=steps,
+          fused_wall_s=fused_s, sequential_wall_s=alone_s,
+          fused_chain_steps_per_s=chain_steps / fused_s,
+          sequential_chain_steps_per_s=chain_steps / alone_s,
+          fused_over_sequential=alone_s / fused_s,
+          peak_device_memory_gb=peak, rows_detail=rows_report,
+          rows_bit_equal=True, launches=counts, ok=True)
+    return counts, steps
+
+
 def bound(flops: float, num_bytes: float) -> dict:
     """The least time the card could take: the larger of the flops over
     the FP32 peak and the bytes (each input read once, each output
@@ -2249,6 +2790,7 @@ def main() -> None:
     runs["R0"] = run_proc_bench(device, smi, baseline)
     check_proc_resume(device, smi)  # R3
     err_k4 = check_k4(device)  # F
+    sweep_times = check_sweep_kernels(device, smi)  # S0
     check_estimator_replay(device)  # G
     check_itc_replay(device)  # G
     # G3 is G2 with the ITC estimator: the same start state and the same
@@ -2278,6 +2820,8 @@ def main() -> None:
     err_vjp, vjp_times = check_k1_vjp(device, smi)  # W0
     runs.update(run_wf_opt_pipeline(device, smi))  # W1
     runs["W2"], w2_counts = run_wf_opt_ab(device, smi)
+    runs.update(run_eos_sweep(device, smi))  # S1, S1b
+    runs["S2"] = run_vmc_sweep(device, smi)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
@@ -2291,8 +2835,15 @@ def main() -> None:
                        if counts[name]}
                 for name in COUNTERS}
     require(all(launches[name] > 0
-                for name in ("K1", "K1 log", "K1 vjp", "K2", "K4")),
+                for name in ("K1", "K1 log", "K1 vjp", "K2", "K4",
+                             "K1 table", "K1 log table", "K2 rows",
+                             "K4 groups")),
             f"every kernel of the main path launched: {launches}")
+    require(per_step["K1 table"].get("S1") == 1
+            and per_step["K2 rows"].get("S1") == 1
+            and per_step["K1 log table"].get("S2", 0) >= 1,
+            f"a fused DMC step launches K1's table and K2's rows once, a "
+            f"fused VMC step K1 log's table: {per_step}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
     dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
@@ -2318,6 +2869,7 @@ def main() -> None:
                 "library_ms": None, **times[key], **extra}
 
     times["K1 vjp"] = vjp_times["dmc shape"]
+    times.update(sweep_times)
     log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
     tiled = times["K4 tiled"]
     kernels = [
@@ -2339,6 +2891,22 @@ def main() -> None:
         row("diffuse_energy_drift", "K3", "diffuse.cu", "pairwise.py:210",
             err_k3, on_main_path=False,
             step_ms=times["K3 vs step"]["plain_ms"]),
+        # The row variants of a fused sweep (S0's times at S1's width,
+        # 4 x 4352 walkers, beside the single-row launch at the same
+        # total width).
+        dict(row("pair_energy_drift_table", "K1 table", "pairwise.cu",
+                 "pairwise.py:84", sweep_times["K1 table"]["max_abs_err"]),
+             variant_of="pair_energy_drift"),
+        dict(row("pair_logpsi_energy_drift_table", "K1 log table",
+                 "pairwise.cu", "pairwise.py:84",
+                 sweep_times["K1 log table"]["max_abs_err"]),
+             variant_of="pair_logpsi_energy_drift"),
+        dict(row("philox_normals_rows", "K2 rows", "prng.cu", "prng.py:64",
+                 sweep_times["K2 rows"]["max_abs_err"]),
+             variant_of="philox_normals",
+             library_call="torch.randn, another stream"),
+        dict(row("walker_histogram_groups", "K4 groups", "histogram.cu",
+                 "histogram.py:81", 0.0), variant_of="walker_histogram"),
         # No pallas_call: it stands for XLA's autodiff of the JAX
         # package's log_psi_and_energy, which GradCSWFOptimizer
         # differentiates.  No single PyTorch call computes it.

@@ -20,8 +20,11 @@ measures.
 
 The execution layer (``qmc_exec``: the DMC and VMC procedures, their
 block accumulators and result containers, the HDF5 handlers, the config
-loader and the CLI application objects) and ``mrbp_cli`` turn a config
-file into a run on the GPU and a result file that both packages read.
+loader, the CLI application objects and the report of result files) and
+``mrbp_cli`` turn a config file into a run on the GPU and a result file
+that both packages read, and report it.  ``parallel`` fuses the rows of
+a parameter sweep into one batch on the GPU (``qmc_exec.sweep`` runs
+such a sweep's procedures, ``fused_sweep: true`` in a config).
 
 Importing the package needs neither a GPU, nor ``nvcc``, nor ``triton``,
 nor ``h5py``, ``yaml``, ``jinja2`` or ``click`` (each is imported by the
@@ -29,7 +32,7 @@ function that needs it), and it never imports ``jax`` or
 ``phd_qmclib_tpu``.
 """
 from . import (  # noqa: F401
-    analysis, constants, ideal, lieb_liniger, models, ops, qmc_exec,
-    samplers, stats, utils)
+    analysis, constants, ideal, lieb_liniger, models, ops, parallel,
+    qmc_exec, samplers, stats, utils)
 
 __version__ = "0.1.0"

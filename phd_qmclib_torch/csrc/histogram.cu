@@ -12,7 +12,10 @@
 // quotient z / bin_size (one rounded divide can land one bin high just
 // below a bin edge).  NaN, +-inf (torch's inf // bs is NaN) and negative
 // quotients go to bin 0, quotients at or above B - 1 to bin B - 1.
-// Counts are exact integers, written once in the input's type.
+// Counts are exact integers, written once in the input's type.  The bin
+// size is a device table: row w takes bin_size[w / group_rows], so that the
+// rows of a fused parameter sweep, each with its own supercell, bin in one
+// launch (one entry and group_rows = num_rows for a single sampling).
 //
 // The exact floor without fmod: for a bin size bs > 0 with a finite
 // reciprocal, q = floor(z * (1 / bs)) is the true floor n or one off
@@ -199,15 +202,65 @@ __device__ __forceinline__ void flush_row(int* bins, T* dst, int num_bins,
   }
 }
 
+// The bin size of a row: bin_size[row / group_rows], the row's group (a
+// fused sweep's row; one group for a single sampling), with the class of
+// its rule, read again only when the group changes.  The rule is decided
+// per row from its group's size: a branch uniform across the warp (or the
+// CTA) that walks the row.
+template <typename T>
+struct GroupBins {
+  const T* bin_size;
+  int64_t group_rows, num_rows, group = -1;
+  T bs, inv;
+  bool fast;
+  __device__ __forceinline__ void at(int64_t row) {
+    const int64_t g = group_rows >= num_rows ? 0 : row / group_rows;
+    if (g != group) {
+      group = g;
+      bs = __ldg(bin_size + g);
+      inv = T(1) / bs;
+      fast = FastBin<T>::takes(bs, inv);
+    }
+  }
+};
+
 struct Walk {
   int64_t row, stride, num_rows;
   int row_len, num_bins, lane;
   bool vec_out;
 };
 
-// Rows of 16-byte vectors, one vector per lane, the next row in flight.
 template <typename T, class Rule>
-__device__ __forceinline__ void walk_vec(const Rule& rule, const T* pos,
+__device__ __forceinline__ void bin_vec(const Rule& rule, int* bins,
+                                        typename Vec16<T>::type cur) {
+  T e[Vec16<T>::kLen];
+  Vec16<T>::unpack(cur, e);
+#pragma unroll
+  for (int k = 0; k < Vec16<T>::kLen; ++k) atomicAdd(&bins[rule(e[k])], 1);
+}
+
+template <typename T, class Rule>
+__device__ __forceinline__ void bin_scalar(const Rule& rule, int* bins,
+                                           const T* z, int row_len,
+                                           int lane) {
+  int i = lane;
+  for (; i + 3 * kWarpSize < row_len; i += 4 * kWarpSize) {
+    const T a = __ldg(z + i), b = __ldg(z + i + kWarpSize);
+    const T c = __ldg(z + i + 2 * kWarpSize);
+    const T d = __ldg(z + i + 3 * kWarpSize);
+    atomicAdd(&bins[rule(a)], 1);
+    atomicAdd(&bins[rule(b)], 1);
+    atomicAdd(&bins[rule(c)], 1);
+    atomicAdd(&bins[rule(d)], 1);
+  }
+  for (; i < row_len; i += kWarpSize) {
+    atomicAdd(&bins[rule(__ldg(z + i))], 1);
+  }
+}
+
+// Rows of 16-byte vectors, one vector per lane, the next row in flight.
+template <typename T>
+__device__ __forceinline__ void walk_vec(GroupBins<T> gb, const T* pos,
                                          T* out, int* bins, Walk w,
                                          typename Vec16<T>::type cur) {
   using V = typename Vec16<T>::type;
@@ -219,11 +272,13 @@ __device__ __forceinline__ void walk_vec(const Rule& rule, const T* pos,
     if (active && next < w.num_rows) {
       nxt = __ldg(reinterpret_cast<const V*>(pos + next * w.row_len) + w.lane);
     }
+    gb.at(w.row);
     if (active) {
-      T e[kLen];
-      Vec16<T>::unpack(cur, e);
-#pragma unroll
-      for (int k = 0; k < kLen; ++k) atomicAdd(&bins[rule(e[k])], 1);
+      if (gb.fast) {
+        bin_vec<T>(FastBin<T>(gb.bs, gb.inv, w.num_bins), bins, cur);
+      } else {
+        bin_vec<T>(FmodBin<T>{gb.bs, w.num_bins - 1}, bins, cur);
+      }
     }
     __syncwarp();
     flush_row(bins, out + w.row * w.num_bins, w.num_bins, w.vec_out, w.lane);
@@ -233,23 +288,18 @@ __device__ __forceinline__ void walk_vec(const Rule& rule, const T* pos,
 }
 
 // Any rows: scalar loads, four per lane at a time.
-template <typename T, class Rule>
-__device__ __forceinline__ void walk_scalar(const Rule& rule, const T* pos,
+template <typename T>
+__device__ __forceinline__ void walk_scalar(GroupBins<T> gb, const T* pos,
                                             T* out, int* bins, Walk w) {
   for (; w.row < w.num_rows; w.row += w.stride) {
     const T* z = pos + w.row * w.row_len;
-    int i = w.lane;
-    for (; i + 3 * kWarpSize < w.row_len; i += 4 * kWarpSize) {
-      const T a = __ldg(z + i), b = __ldg(z + i + kWarpSize);
-      const T c = __ldg(z + i + 2 * kWarpSize);
-      const T d = __ldg(z + i + 3 * kWarpSize);
-      atomicAdd(&bins[rule(a)], 1);
-      atomicAdd(&bins[rule(b)], 1);
-      atomicAdd(&bins[rule(c)], 1);
-      atomicAdd(&bins[rule(d)], 1);
-    }
-    for (; i < w.row_len; i += kWarpSize) {
-      atomicAdd(&bins[rule(__ldg(z + i))], 1);
+    gb.at(w.row);
+    if (gb.fast) {
+      bin_scalar(FastBin<T>(gb.bs, gb.inv, w.num_bins), bins, z, w.row_len,
+                 w.lane);
+    } else {
+      bin_scalar(FmodBin<T>{gb.bs, w.num_bins - 1}, bins, z, w.row_len,
+                 w.lane);
     }
     __syncwarp();
     flush_row(bins, out + w.row * w.num_bins, w.num_bins, w.vec_out, w.lane);
@@ -261,8 +311,8 @@ template <typename T, bool kVecIn>
 __global__ void __launch_bounds__(kMaxWarps * kWarpSize, kCtasPerSm)
 walker_histogram_kernel(const T* __restrict__ pos,
                         const T* __restrict__ bin_size, T* __restrict__ out,
-                        int64_t num_rows, int row_len, int num_bins,
-                        int vec_out) {
+                        int64_t num_rows, int64_t group_rows, int row_len,
+                        int num_bins, int vec_out) {
   extern __shared__ __align__(16) int counts[];
   const int warps = blockDim.x / kWarpSize;
   const int warp = threadIdx.x / kWarpSize;
@@ -279,22 +329,11 @@ walker_histogram_kernel(const T* __restrict__ pos,
   int* bins = counts + warp * num_bins;
   for (int b = lane; b < num_bins; b += kWarpSize) bins[b] = 0;
   __syncwarp();
-  const T bs = __ldg(bin_size);
-  const T inv = T(1) / bs;
-  if (FastBin<T>::takes(bs, inv)) {
-    const FastBin<T> rule(bs, inv, num_bins);
-    if constexpr (kVecIn) {
-      walk_vec(rule, pos, out, bins, w, first);
-    } else {
-      walk_scalar(rule, pos, out, bins, w);
-    }
+  const GroupBins<T> gb{bin_size, group_rows, num_rows};
+  if constexpr (kVecIn) {
+    walk_vec(gb, pos, out, bins, w, first);
   } else {
-    const FmodBin<T> rule{bs, num_bins - 1};
-    if constexpr (kVecIn) {
-      walk_vec(rule, pos, out, bins, w, first);
-    } else {
-      walk_scalar(rule, pos, out, bins, w);
-    }
+    walk_scalar(gb, pos, out, bins, w);
   }
 }
 
@@ -336,25 +375,20 @@ __device__ __forceinline__ void flush_tile(int* counts, T* dst, int width,
 }
 
 template <typename T, class Rule>
-__device__ __forceinline__ void walk_tiled(const Rule& rule, const T* pos,
-                                           T* out, int* counts,
-                                           int64_t num_rows, int row_len,
-                                           int num_bins, int tile,
-                                           bool vec_out) {
-  for (int64_t row = blockIdx.x; row < num_rows; row += gridDim.x) {
-    const T* z = pos + row * row_len;
-    T* dst = out + row * num_bins;
-    int width;
-    for (int t0 = 0; t0 < num_bins; t0 += width) {
-      width = num_bins - t0 < tile ? num_bins - t0 : tile;
-      for (int i = threadIdx.x; i < row_len; i += blockDim.x) {
-        const int b = rule(__ldg(z + i)) - t0;
-        if (b >= 0 && b < width) atomicAdd(&counts[b], 1);
-      }
-      __syncthreads();
-      flush_tile(counts, dst + t0, width, vec_out);
-      __syncthreads();
+__device__ __forceinline__ void tiled_row(const Rule& rule, const T* z,
+                                          T* dst, int* counts, int row_len,
+                                          int num_bins, int tile,
+                                          bool vec_out) {
+  int width;
+  for (int t0 = 0; t0 < num_bins; t0 += width) {
+    width = num_bins - t0 < tile ? num_bins - t0 : tile;
+    for (int i = threadIdx.x; i < row_len; i += blockDim.x) {
+      const int b = rule(__ldg(z + i)) - t0;
+      if (b >= 0 && b < width) atomicAdd(&counts[b], 1);
     }
+    __syncthreads();
+    flush_tile(counts, dst + t0, width, vec_out);
+    __syncthreads();
   }
 }
 
@@ -363,19 +397,23 @@ __global__ void __launch_bounds__(kMaxWarps * kWarpSize, kCtasPerSm)
 walker_histogram_tiled_kernel(const T* __restrict__ pos,
                               const T* __restrict__ bin_size,
                               T* __restrict__ out, int64_t num_rows,
-                              int row_len, int num_bins, int tile,
-                              int vec_out) {
+                              int64_t group_rows, int row_len, int num_bins,
+                              int tile, int vec_out) {
   extern __shared__ __align__(16) int counts[];
   for (int b = threadIdx.x; b < tile; b += blockDim.x) counts[b] = 0;
   __syncthreads();
-  const T bs = __ldg(bin_size);
-  const T inv = T(1) / bs;
-  if (num_bins <= kFastBins && FastBin<T>::takes(bs, inv)) {
-    walk_tiled(FastBin<T>(bs, inv, num_bins), pos, out, counts, num_rows,
-               row_len, num_bins, tile, vec_out != 0);
-  } else {
-    walk_tiled(FmodBin<T>{bs, num_bins - 1}, pos, out, counts, num_rows,
-               row_len, num_bins, tile, vec_out != 0);
+  GroupBins<T> gb{bin_size, group_rows, num_rows};
+  for (int64_t row = blockIdx.x; row < num_rows; row += gridDim.x) {
+    const T* z = pos + row * row_len;
+    T* dst = out + row * num_bins;
+    gb.at(row);
+    if (num_bins <= kFastBins && gb.fast) {
+      tiled_row(FastBin<T>(gb.bs, gb.inv, num_bins), z, dst, counts, row_len,
+                num_bins, tile, vec_out != 0);
+    } else {
+      tiled_row(FmodBin<T>{gb.bs, num_bins - 1}, z, dst, counts, row_len,
+                num_bins, tile, vec_out != 0);
+    }
   }
 }
 
@@ -383,11 +421,12 @@ walker_histogram_tiled_kernel(const T* __restrict__ pos,
 // aligned output row starts 16-byte aligned) that fits the shared memory.
 template <typename T>
 int launch_tiled(const void* pos, const void* bin_size, void* out,
-                 long long num_rows, int row_len, int num_bins, int tile,
-                 int grid, void* stream) {
+                 long long num_rows, long long group_rows, int row_len,
+                 int num_bins, int tile, int grid, void* stream) {
   const long long shared =
       static_cast<long long>(tile) * static_cast<long long>(sizeof(int));
-  if (num_rows <= 0 || row_len <= 0 || num_bins <= 0 || tile < 4 ||
+  if (num_rows <= 0 || group_rows <= 0 || num_rows % group_rows != 0 ||
+      row_len <= 0 || num_bins <= 0 || tile < 4 ||
       tile % 4 != 0 || grid < 1 || shared > kSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -398,17 +437,19 @@ int launch_tiled(const void* pos, const void* bin_size, void* out,
       <<<grid, kMaxWarps * kWarpSize, shared,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(pos), static_cast<const T*>(bin_size),
-          static_cast<T*>(out), num_rows, row_len, num_bins, tile, vec_out);
+          static_cast<T*>(out), num_rows, group_rows, row_len, num_bins, tile,
+          vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* pos, const void* bin_size, void* out,
-           long long num_rows, int row_len, int num_bins, int warps,
-           int grid, void* stream) {
+           long long num_rows, long long group_rows, int row_len,
+           int num_bins, int warps, int grid, void* stream) {
   const long long shared = static_cast<long long>(warps) * num_bins *
                            static_cast<long long>(sizeof(int));
-  if (num_rows <= 0 || row_len <= 0 || num_bins <= 0 || warps < 1 ||
+  if (num_rows <= 0 || group_rows <= 0 || num_rows % group_rows != 0 ||
+      row_len <= 0 || num_bins <= 0 || warps < 1 ||
       warps > kMaxWarps || grid < 1 || shared > kSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -423,11 +464,13 @@ int launch(const void* pos, const void* bin_size, void* out,
   if (vec_in) {
     walker_histogram_kernel<T, true><<<grid, warps * kWarpSize, shared, s>>>(
         static_cast<const T*>(pos), static_cast<const T*>(bin_size),
-        static_cast<T*>(out), num_rows, row_len, num_bins, vec_out);
+        static_cast<T*>(out), num_rows, group_rows, row_len, num_bins,
+        vec_out);
   } else {
     walker_histogram_kernel<T, false><<<grid, warps * kWarpSize, shared, s>>>(
         static_cast<const T*>(pos), static_cast<const T*>(bin_size),
-        static_cast<T*>(out), num_rows, row_len, num_bins, vec_out);
+        static_cast<T*>(out), num_rows, group_rows, row_len, num_bins,
+        vec_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -438,30 +481,34 @@ extern "C" int qmc_walker_histogram_ctas_per_sm() { return kCtasPerSm; }
 
 extern "C" int qmc_walker_histogram_f32(const void* pos, const void* bin_size,
                                         void* out, long long num_rows,
-                                        int row_len, int num_bins, int warps,
-                                        int grid, void* stream) {
-  return launch<float>(pos, bin_size, out, num_rows, row_len, num_bins, warps,
-                       grid, stream);
+                                        long long group_rows, int row_len,
+                                        int num_bins, int warps, int grid,
+                                        void* stream) {
+  return launch<float>(pos, bin_size, out, num_rows, group_rows, row_len,
+                       num_bins, warps, grid, stream);
 }
 
 extern "C" int qmc_walker_histogram_f64(const void* pos, const void* bin_size,
                                         void* out, long long num_rows,
-                                        int row_len, int num_bins, int warps,
-                                        int grid, void* stream) {
-  return launch<double>(pos, bin_size, out, num_rows, row_len, num_bins,
-                        warps, grid, stream);
+                                        long long group_rows, int row_len,
+                                        int num_bins, int warps, int grid,
+                                        void* stream) {
+  return launch<double>(pos, bin_size, out, num_rows, group_rows, row_len,
+                        num_bins, warps, grid, stream);
 }
 
 extern "C" int qmc_walker_histogram_tiled_f32(
     const void* pos, const void* bin_size, void* out, long long num_rows,
-    int row_len, int num_bins, int tile, int grid, void* stream) {
-  return launch_tiled<float>(pos, bin_size, out, num_rows, row_len, num_bins,
-                             tile, grid, stream);
+    long long group_rows, int row_len, int num_bins, int tile, int grid,
+    void* stream) {
+  return launch_tiled<float>(pos, bin_size, out, num_rows, group_rows,
+                             row_len, num_bins, tile, grid, stream);
 }
 
 extern "C" int qmc_walker_histogram_tiled_f64(
     const void* pos, const void* bin_size, void* out, long long num_rows,
-    int row_len, int num_bins, int tile, int grid, void* stream) {
-  return launch_tiled<double>(pos, bin_size, out, num_rows, row_len, num_bins,
-                              tile, grid, stream);
+    long long group_rows, int row_len, int num_bins, int tile, int grid,
+    void* stream) {
+  return launch_tiled<double>(pos, bin_size, out, num_rows, group_rows,
+                              row_len, num_bins, tile, grid, stream);
 }

@@ -12,7 +12,11 @@
 // log|f1|) and the O(N^2) minimum-image phonon pair block, one
 // branch-selected tan/cot per unordered pair (and one log with kLogPsi).
 // The walker's body lives in pair_terms.cuh, which the fused diffusion
-// kernel (diffuse.cu) shares.
+// kernel (diffuse.cu) shares.  Both variants take a table of parameter
+// rows: walker w reads row w / walkers_per_row, so that one launch serves
+// the rows of a fused parameter sweep (a single sampling passes one row
+// and walkers_per_row = num_walkers).  Only the row's address differs, so
+// a sweep row's arithmetic is its single-row launch's, bit for bit.
 //
 // What bounds it on the H100: FP32 instruction issue.  The only memory
 // traffic is N positions in and N + 1 (N + 2 with kLogPsi) values out per
@@ -79,13 +83,17 @@ __global__ void __launch_bounds__(kMaxThreads)
 pair_energy_drift_kernel(const T* __restrict__ pos,
                          const T* __restrict__ params,
                          T* __restrict__ energy, T* __restrict__ drift,
-                         T* __restrict__ log_psi, int nop, int is_free,
-                         int is_ideal, int defects_sep) {
+                         T* __restrict__ log_psi, int walkers_per_row,
+                         int nop, int is_free, int is_ideal,
+                         int defects_sep) {
   extern __shared__ __align__(32) unsigned char smem_raw[];
   const qmc::WalkerSmem<T> smem(smem_raw);
 
   const size_t walker = blockIdx.x;
   const int i = threadIdx.x;
+  // The walker's row of the parameter table (a sweep's rows, each
+  // walkers_per_row walkers; one row for a single sampling).
+  params += walker / static_cast<size_t>(walkers_per_row) * qmc::kParamsSize;
   const T zi = i < nop ? pos[walker * nop + i] : T(0);
   smem.slots[i] = {qmc::into_supercell(zi, params[qmc::P_L]), T(0), T(0),
                    T(0)};
@@ -114,9 +122,10 @@ pair_energy_drift_kernel(const T* __restrict__ pos,
 
 template <typename T, bool kLogPsi>
 int launch(const void* pos, const void* params, void* log_psi, void* energy,
-           void* drift, int num_walkers, int nop, int is_free, int is_ideal,
-           int defects_sep, void* stream) {
-  if (num_walkers <= 0 || nop <= 0 || nop > kMaxThreads ||
+           void* drift, int num_walkers, int walkers_per_row, int nop,
+           int is_free, int is_ideal, int defects_sep, void* stream) {
+  if (num_walkers <= 0 || walkers_per_row <= 0 ||
+      num_walkers % walkers_per_row != 0 || nop <= 0 || nop > kMaxThreads ||
       defects_sep < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -126,7 +135,8 @@ int launch(const void* pos, const void* params, void* log_psi, void* energy,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(pos), static_cast<const T*>(params),
           static_cast<T*>(energy), static_cast<T*>(drift),
-          static_cast<T*>(log_psi), nop, is_free, is_ideal, defects_sep);
+          static_cast<T*>(log_psi), walkers_per_row, nop, is_free, is_ideal,
+          defects_sep);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,38 +243,38 @@ extern "C" int qmc_pair_logpsi_params_vjp_f64(
 
 extern "C" int qmc_pair_energy_drift_f32(const void* pos, const void* params,
                                          void* energy, void* drift,
-                                         int num_walkers, int nop,
-                                         int is_free, int is_ideal,
+                                         int num_walkers, int walkers_per_row,
+                                         int nop, int is_free, int is_ideal,
                                          int defects_sep, void* stream) {
   return launch<float, false>(pos, params, nullptr, energy, drift,
-                              num_walkers, nop, is_free, is_ideal,
-                              defects_sep, stream);
+                              num_walkers, walkers_per_row, nop, is_free,
+                              is_ideal, defects_sep, stream);
 }
 
 extern "C" int qmc_pair_energy_drift_f64(const void* pos, const void* params,
                                          void* energy, void* drift,
-                                         int num_walkers, int nop,
-                                         int is_free, int is_ideal,
+                                         int num_walkers, int walkers_per_row,
+                                         int nop, int is_free, int is_ideal,
                                          int defects_sep, void* stream) {
   return launch<double, false>(pos, params, nullptr, energy, drift,
-                               num_walkers, nop, is_free, is_ideal,
-                               defects_sep, stream);
+                               num_walkers, walkers_per_row, nop, is_free,
+                               is_ideal, defects_sep, stream);
 }
 
 extern "C" int qmc_pair_logpsi_energy_drift_f32(
     const void* pos, const void* params, void* log_psi, void* energy,
-    void* drift, int num_walkers, int nop, int is_free, int is_ideal,
-    int defects_sep, void* stream) {
+    void* drift, int num_walkers, int walkers_per_row, int nop, int is_free,
+    int is_ideal, int defects_sep, void* stream) {
   return launch<float, true>(pos, params, log_psi, energy, drift,
-                             num_walkers, nop, is_free, is_ideal,
-                             defects_sep, stream);
+                             num_walkers, walkers_per_row, nop, is_free,
+                             is_ideal, defects_sep, stream);
 }
 
 extern "C" int qmc_pair_logpsi_energy_drift_f64(
     const void* pos, const void* params, void* log_psi, void* energy,
-    void* drift, int num_walkers, int nop, int is_free, int is_ideal,
-    int defects_sep, void* stream) {
+    void* drift, int num_walkers, int walkers_per_row, int nop, int is_free,
+    int is_ideal, int defects_sep, void* stream) {
   return launch<double, true>(pos, params, log_psi, energy, drift,
-                              num_walkers, nop, is_free, is_ideal,
-                              defects_sep, stream);
+                              num_walkers, walkers_per_row, nop, is_free,
+                              is_ideal, defects_sep, stream);
 }

@@ -104,6 +104,45 @@ philox_normals_kernel(T* __restrict__ out, int numel, const PhiloxKeys keys,
   }
 }
 
+// The rows of a fused parameter sweep in one launch: row r of out (row_numel
+// elements) holds scales[r] times the normals of (keys[r], step), its quads
+// counted from 0 inside the row, so that it is word for word the single-row
+// kernel's output for that key and scale.  The key schedule is built per
+// quad from the device table (the rows' keys are not launch constants).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+philox_normals_rows_kernel(T* __restrict__ out, int row_numel, int num_rows,
+                           const unsigned long long* __restrict__ keys,
+                           const T* __restrict__ scales, uint64_t step) {
+  const uint32_t s0 = static_cast<uint32_t>(step);
+  const uint32_t s1 = static_cast<uint32_t>(step >> 32);
+  const int full_quads = row_numel / 4;
+  const int row_quads = full_quads + (row_numel % 4 != 0);
+  const int64_t num_quads = static_cast<int64_t>(row_quads) * num_rows;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       g < num_quads; g += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int row = static_cast<int>(g / row_quads);
+    const int q = static_cast<int>(g - static_cast<int64_t>(row) * row_quads);
+    const unsigned long long key = __ldg(keys + row);
+    const uint4 w = philox4x32_10(
+        static_cast<uint32_t>(q), 0u, s0, s1,
+        PhiloxKeys(static_cast<uint32_t>(key),
+                   static_cast<uint32_t>(key >> 32)));
+    float z[4];
+    box_muller(w.x, w.y, &z[0], &z[1]);
+    box_muller(w.z, w.w, &z[2], &z[3]);
+    T* row_out = out + static_cast<int64_t>(row) * row_numel;
+    const T s = __ldg(scales + row);
+    if ((reinterpret_cast<uintptr_t>(row_out) & 15) == 0 && q < full_quads) {
+      store_quad(row_out, q, z, s);
+    } else {
+      for (int k = 0; k < 4 && 4 * q + k < row_numel; ++k) {
+        row_out[4 * q + k] = s * static_cast<T>(z[k]);
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 philox_words_kernel(uint4* __restrict__ out, int num_quads,
                     const PhiloxKeys keys, uint64_t step) {
@@ -126,6 +165,21 @@ int launch_normals(void* out, int numel, unsigned long long key,
       <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<T*>(out), numel, keys_of(key), step,
           static_cast<T>(scale));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_normals_rows(void* out, int row_numel, int num_rows,
+                        const void* keys, const void* scales,
+                        unsigned long long step, int grid, void* stream) {
+  if (row_numel <= 0 || num_rows <= 0 || grid <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  philox_normals_rows_kernel<T>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<T*>(out), row_numel, num_rows,
+          static_cast<const unsigned long long*>(keys),
+          static_cast<const T*>(scales), step);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -175,6 +229,24 @@ extern "C" int qmc_philox_normals_f64(void* out, int numel,
                                       unsigned long long step, double scale,
                                       int grid, void* stream) {
   return launch_normals<double>(out, numel, key, step, scale, grid, stream);
+}
+
+extern "C" int qmc_philox_normals_rows_f32(void* out, int row_numel,
+                                           int num_rows, const void* keys,
+                                           const void* scales,
+                                           unsigned long long step, int grid,
+                                           void* stream) {
+  return launch_normals_rows<float>(out, row_numel, num_rows, keys, scales,
+                                    step, grid, stream);
+}
+
+extern "C" int qmc_philox_normals_rows_f64(void* out, int row_numel,
+                                           int num_rows, const void* keys,
+                                           const void* scales,
+                                           unsigned long long step, int grid,
+                                           void* stream) {
+  return launch_normals_rows<double>(out, row_numel, num_rows, keys, scales,
+                                     step, grid, stream);
 }
 
 extern "C" int qmc_philox_words(void* out, int num_quads,

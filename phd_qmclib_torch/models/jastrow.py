@@ -44,6 +44,18 @@ class CFCParams(t.NamedTuple):
     tbf_params: t.Any
 
 
+def _pair_axis(cfc: CFCParams) -> CFCParams:
+    """``cfc`` for the ``(..., N, N)`` pair tensors: a leaf with a row
+    axis (a fused sweep's ``(R, 1, 1)``, for ``(R, W, N)`` positions)
+    gains one trailing axis; a 0-d leaf stays as it is."""
+    def widen(x):
+        return x[..., None] if isinstance(x, torch.Tensor) and x.dim() \
+            else x
+
+    return CFCParams(*(type(group)(*(widen(x) for x in group))
+                       for group in cfc))
+
+
 def build_core_funcs(*,
                      one_body,
                      one_body_log_dz,
@@ -278,7 +290,11 @@ def build_core_funcs(*,
         out_shape = pos.shape[:-1] + (szs.shape[0],)
         if is_free and is_ideal:
             return torch.ones(out_shape, dtype=pos.dtype, device=pos.device)
-        sc = cfc.model_params.supercell_size
+        # A fused sweep's rows: (M, R, 1, 1) offsets and (R, 1, 1)
+        # leaves for (R, W, N) positions; the pair terms take them with
+        # one more axis.
+        pair_cfc = _pair_axis(cfc)
+        sc = pair_cfc.model_params.supercell_size
         base = torch.zeros_like(pos)
         d0 = off_diag = None
         if not is_free:
@@ -290,7 +306,7 @@ def build_core_funcs(*,
             off_diag = ~torch.eye(nop, dtype=torch.bool, device=pos.device)
             r = torch.where(off_diag, min_image_bounded(d0, sc).abs(),
                             0.25 * sc)
-            log_tb, _, _ = two_body_pair_terms(r, cfc, need_log=True,
+            log_tb, _, _ = two_body_pair_terms(r, pair_cfc, need_log=True,
                                                need_derivs=False)
             base = base + _masked_sum(log_tb, off_diag, -1)
 
@@ -300,10 +316,12 @@ def build_core_funcs(*,
             if not is_free:
                 num = num + one_body(pos + sz, cfc).abs().log()
             if not is_ideal:
-                r_s = torch.where(off_diag, min_image(d0 + sz, sc).abs(),
+                sz_pair = sz[..., None] if sz.dim() else sz
+                r_s = torch.where(off_diag,
+                                  min_image(d0 + sz_pair, sc).abs(),
                                   0.25 * sc)
                 log_tb_s, _, _ = two_body_pair_terms(
-                    r_s, cfc, need_log=True, need_derivs=False)
+                    r_s, pair_cfc, need_log=True, need_derivs=False)
                 num = num + _masked_sum(log_tb_s, off_diag, -1)
             columns.append(torch.exp(num - base).sum(dim=-1) / nop)
         return torch.stack(columns, dim=-1)
@@ -386,7 +404,9 @@ def build_core_funcs(*,
         if nop < 2:
             return torch.zeros(pos.shape[:-1] + (num_bins,),
                                dtype=pos.dtype, device=pos.device)
-        sc = cfc.model_params.supercell_size
+        # A fused sweep's (R, 1, 1) supercells bin their rows' pairs
+        # with their own widths (one table entry per row).
+        sc = _pair_axis(cfc).model_params.supercell_size
         r = min_image_bounded(pos[..., :, None] - pos[..., None, :],
                               sc).abs()  # diagonal exactly 0
         bin_size = 0.5 * sc / torch.full_like(sc, num_bins)

@@ -2,7 +2,7 @@
 
 Counterpart of ``phd_qmclib_tpu.mrbp_cli``.  Console scripts
 ``mrbp-dmc-torch`` / ``mrbp-vmc-torch`` (or ``python -m
-phd_qmclib_torch.mrbp_cli dmc|vmc ...``), each with three commands:
+phd_qmclib_torch.mrbp_cli dmc|vmc ...``), each with four commands:
 
 * ``proc-template TEMPLATE [-o OUT] [-r]`` - render a Jinja2 template
   (with the unit constants ``LKP/UE/ER/K_OPT`` in context) into a YAML
@@ -11,9 +11,9 @@ phd_qmclib_torch.mrbp_cli dmc|vmc ...``), each with three commands:
   execute its ``app_spec`` procedures on the device (default: the GPU).
 * ``resume CHECKPOINT OUTPUT [--device cuda|cpu]`` - finish a killed run
   from its mid-run checkpoint file.
-
-The ``analyze`` command (the report of a result file) is not here yet:
-the files this package writes load in ``phd_qmclib_tpu``'s ``analyze``.
+* ``analyze RESULT [-g GROUP] [--full] [--json] [--extrapolate-with VMC]
+  [--dt-fit|--nw-fit|--fs-fit]`` - report the physics stored in a result
+  file, or fit across a sweep's rows (``qmc_exec.report``, on the CPU).
 
 ``click`` is imported when a CLI is built, not when this module is, so
 the module imports where ``click`` is missing.
@@ -156,6 +156,161 @@ def make_cli(sampling_type: str):
         Handler(location=output_path, group=group).dump(result)
         click.echo(f"Resumed result saved to '{output_path}' "
                    f"(group '{group}')")
+
+    @cli.command(name="analyze")
+    @click.argument("result_path", type=config_path_type)
+    @click.option("-g", "--group", default=None,
+                  help="result group inside the file (default: every "
+                       f"{sampling_type} result stored)")
+    @click.option("--full", is_flag=True, default=False,
+                  help="print full per-bin/per-mode estimator tables")
+    @click.option("--extrapolate-with", "vmc_path", default=None,
+                  type=config_path_type,
+                  help="(dmc only) a matched VMC result file: also "
+                       "report the second-order extrapolated "
+                       "estimators 2<DMC mixed> - <VMC>")
+    @click.option("--vmc-group", default=None,
+                  help="group of the VMC result inside the "
+                       "--extrapolate-with file (default: the first "
+                       "stored)")
+    @click.option("--json", "as_json", is_flag=True, default=False,
+                  help="emit a machine-readable JSON summary instead "
+                       "of the human report")
+    @click.option("--dt-fit", "dt_fit", is_flag=True, default=False,
+                  help="(dmc only) extrapolate E(dt) -> E(0) across "
+                       "every stored DMC result (e.g. a fused "
+                       "time_step sweep); -g restricts to a group "
+                       "prefix")
+    @click.option("--nw-fit", "nw_fit", is_flag=True, default=False,
+                  help="(dmc only) extrapolate the O(1/N_w) "
+                       "population-control bias to E(N_w -> inf) "
+                       "across every stored DMC result; -g restricts "
+                       "to a group prefix")
+    @click.option("--fs-fit", "fs_fit", is_flag=True, default=False,
+                  help="(dmc only) finite-size extrapolation "
+                       "E/N(N) -> E/N(inf) in x = 1/N^2 (the PBC "
+                       "Luttinger-liquid Casimir correction) across "
+                       "stored DMC results at matched density; -g "
+                       "restricts to a group prefix")
+    @click.option("--dt-fit-order", "fit_order", default=1,
+                  show_default=True,
+                  help="polynomial degree of the "
+                       "--dt-fit/--nw-fit/--fs-fit extrapolation")
+    def analyze(result_path: str, group: str = None, full: bool = False,
+                vmc_path: str = None, vmc_group: str = None,
+                as_json: bool = False, dt_fit: bool = False,
+                nw_fit: bool = False, fs_fit: bool = False,
+                fit_order: int = 1):
+        """Report the physics stored in an HDF5 result file (energy
+        with reblocked errors, population, S(k), density, OBDM, g2,
+        effective mass).  Beyond the upstream library, which leaves
+        result inspection to notebook code."""
+        from .qmc_exec.report import report_hdf5
+
+        # With --dt-fit/--nw-fit/--fs-fit, -g is a group PREFIX
+        # selecting the sweep rows for the fit; the per-group reports
+        # then cover the whole file (a prefix is not a stored group
+        # name).
+        any_fit = dt_fit or nw_fit or fs_fit
+        report_group = None if any_fit else group
+
+        def _report(**kw):
+            try:
+                return report_hdf5(result_path, group=report_group,
+                                   sampling_type=sampling_type, **kw)
+            except ValueError as exc:
+                # A clean one-line message instead of a traceback
+                # (wrong group, empty file, checkpoint-only file...).
+                raise click.ClickException(str(exc)) from exc
+
+        fit_summaries = []
+        if any_fit:
+            if sampling_type != "dmc":
+                raise click.UsageError(
+                    f"--{'dt' if dt_fit else 'nw' if nw_fit else 'fs'}"
+                    f"-fit applies to DMC results")
+            from .qmc_exec.report import sweep_fit_hdf5
+            for kind, active in (("dt", dt_fit), ("nw", nw_fit),
+                                 ("fs", fs_fit)):
+                if not active:
+                    continue
+                try:
+                    fit_summaries.append(
+                        (kind, sweep_fit_hdf5(result_path, kind,
+                                              group_prefix=group,
+                                              order=fit_order)))
+                except ValueError as exc:
+                    raise click.ClickException(str(exc)) from exc
+
+        extrapolated = None
+        if vmc_path is not None:
+            if sampling_type != "dmc":
+                raise click.UsageError(
+                    "--extrapolate-with applies to DMC results")
+            from .qmc_exec.io import (DmcHDF5FileHandler,
+                                      VmcHDF5FileHandler)
+            from .qmc_exec.report import find_result_groups
+            if vmc_group is None:
+                vmc_entries = [g for g, st
+                               in find_result_groups(vmc_path)
+                               if st == "vmc"]
+                if not vmc_entries:
+                    raise click.UsageError(
+                        f"no VMC result stored in '{vmc_path}'")
+                vmc_group = vmc_entries[0]
+            dmc_entries = [g for g, st in find_result_groups(result_path)
+                           if st == "dmc"]
+            if not dmc_entries:
+                raise click.UsageError(
+                    f"no DMC result stored in '{result_path}'")
+            if group is None:
+                dgroup = dmc_entries[0]
+            elif any_fit:
+                # With a fit flag active, -g is a group PREFIX (see
+                # above) — resolve the first stored group matching it
+                # instead of treating the prefix as a literal name.
+                dgroup = next(
+                    (g for g in dmc_entries if g.startswith(group)),
+                    None)
+                if dgroup is None:
+                    raise click.UsageError(
+                        f"no stored DMC group matches the prefix "
+                        f"'{group}' in '{result_path}'")
+            else:
+                dgroup = group
+            try:
+                extrapolated = (
+                    DmcHDF5FileHandler(location=result_path,
+                                       group=dgroup).load(device="cpu"),
+                    VmcHDF5FileHandler(location=vmc_path,
+                                       group=vmc_group).load(device="cpu"))
+            except (ValueError, KeyError) as exc:
+                raise click.ClickException(str(exc)) from exc
+        if as_json:
+            import json as _json
+
+            payload = _json.loads(_report(as_json=True))
+            if extrapolated is not None:
+                from .qmc_exec.report import summarize_extrapolated
+                extra = summarize_extrapolated(*extrapolated)
+                for entry in payload:
+                    if entry["sampling_type"] == "dmc":
+                        entry["extrapolated"] = extra
+                        break
+            for kind, summary in fit_summaries:
+                payload.append({"sampling_type": f"{kind}_fit",
+                                **summary})
+            click.echo(_json.dumps(payload, indent=2))
+            return
+        click.echo(_report(full=full))
+        if extrapolated is not None:
+            from .qmc_exec.report import describe_extrapolated
+            click.echo("")
+            click.echo(describe_extrapolated(*extrapolated, full=full))
+        for _, summary in fit_summaries:
+            from .qmc_exec.report import describe_sweep_fit
+            click.echo("")
+            click.echo(describe_sweep_fit(summary))
 
     return cli
 

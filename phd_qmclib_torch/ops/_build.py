@@ -55,19 +55,21 @@ _L, _U64 = ctypes.c_longlong, ctypes.c_uint64
 _DIFFUSE = (_P, _P, _P, _P, _P, _P, _D, _D, _U64, _U64, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, _P)
 _NORMALS = (_P, _I, _U64, _U64, _D, _I, _P)
-_HISTOGRAM = (_P, _P, _P, _L, _I, _I, _I, _I, _P)
+_HISTOGRAM = (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P)
 #: Signatures of the exported launch functions (all return an int).
 SIGNATURES = {
-    # pos, params, energy, drift, num_walkers, nop, is_free, is_ideal,
-    # defects_sep, stream
-    "qmc_pair_energy_drift_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "qmc_pair_energy_drift_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # pos, params, log_psi, energy, drift, num_walkers, nop, is_free,
-    # is_ideal, defects_sep, stream
+    # pos, params (rows of PARAMS_SIZE), energy, drift, num_walkers,
+    # walkers_per_row, nop, is_free, is_ideal, defects_sep, stream
+    "qmc_pair_energy_drift_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P),
+    "qmc_pair_energy_drift_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P),
+    # pos, params, log_psi, energy, drift, num_walkers, walkers_per_row,
+    # nop, is_free, is_ideal, defects_sep, stream
     "qmc_pair_logpsi_energy_drift_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _P),
+                                         _I, _I, _P),
     "qmc_pair_logpsi_energy_drift_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _P),
+                                         _I, _I, _P),
     # pos, params, drift, g_lp, g_e, rows (W x PARAMS_SIZE), num_walkers,
     # nop, is_free, is_ideal, defects_sep, stream
     "qmc_pair_logpsi_params_vjp_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -82,10 +84,14 @@ SIGNATURES = {
     # out, num_elements, key, step, scale, grid, stream
     "qmc_philox_normals_f32": _NORMALS,
     "qmc_philox_normals_f64": _NORMALS,
+    # out (R rows), row_numel, R, keys (R uint64 on the device), scales
+    # (R on the device), step, grid, stream
+    "qmc_philox_normals_rows_f32": (_P, _I, _I, _P, _P, _U64, _I, _P),
+    "qmc_philox_normals_rows_f64": (_P, _I, _I, _P, _P, _U64, _I, _P),
     # out (uint32 words), num_quads, key, step, grid, stream
     "qmc_philox_words": (_P, _I, _U64, _U64, _I, _P),
-    # pos, bin_size (0-d, on the device), out, num_rows, row_len,
-    # num_bins, warps per CTA, grid, stream
+    # pos, bin_size (one per group of rows, on the device), out, num_rows,
+    # rows per group, row_len, num_bins, warps per CTA, grid, stream
     "qmc_walker_histogram_f32": _HISTOGRAM,
     "qmc_walker_histogram_f64": _HISTOGRAM,
     # The same, with the bins per pass in place of the warps per CTA.

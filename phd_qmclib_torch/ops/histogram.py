@@ -97,15 +97,27 @@ def _bin_ids(pos: torch.Tensor, bin_size: torch.Tensor,
     return q.to(torch.int64)
 
 
+def _group_sizes(bin_size: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """A bin size per row: a 0-d ``bin_size`` as it is, else entry ``g``
+    of the flattened table for the ``g``-th group of ``num_rows / G``
+    consecutive rows, as a ``(num_rows, 1)`` column."""
+    if bin_size.dim() == 0:
+        return bin_size
+    groups = bin_size.reshape(-1)
+    return groups.repeat_interleave(num_rows // groups.numel())[:, None]
+
+
 def walker_histogram_plain(pos: torch.Tensor, bin_size: torch.Tensor,
                            num_bins: int) -> torch.Tensor:
     """Plain torch version of the kernel: ``(..., num_bins)`` counts.
 
     One ``scatter_add_`` of ones into the ``(rows, num_bins)`` output,
     never a ``(rows, N, num_bins)`` one-hot (146 GB at the g2 estimator's
-    full-width shape).
+    full-width shape).  A table ``bin_size`` of G entries bins the G
+    groups of consecutive rows with their own sizes.
     """
     rows = pos.reshape(-1, pos.shape[-1])
+    bin_size = _group_sizes(bin_size, rows.shape[0])
     out = torch.zeros((rows.shape[0], num_bins), dtype=pos.dtype,
                       device=pos.device)
     out.scatter_add_(1, _bin_ids(rows, bin_size, num_bins),
@@ -118,7 +130,11 @@ def walker_histogram(pos: torch.Tensor, bin_size: torch.Tensor,
     """``(..., num_bins)`` per-row histogram of ``pos (..., N)``.
 
     ``bin_size`` is a 0-d tensor of ``pos``'s dtype on ``pos``'s device;
-    the kernel reads it there, so no value crosses to the host.  A CUDA
+    the kernel reads it there, so no value crosses to the host.  For the
+    rows of a fused parameter sweep it is a table of G sizes (any shape,
+    e.g. ``(R,)`` or ``(R, 1, 1)``; G dividing the rows ``pos.numel() /
+    N``): the G groups of consecutive rows bin with their own sizes, each
+    as a call on its rows alone would, in one launch.  A CUDA
     tensor launches a kernel of ``csrc/histogram.cu`` (f32 or f64, any
     row length and row count; rows that are not 16-byte aligned, as in a
     view with a storage offset, take its scalar path; more than
@@ -135,10 +151,6 @@ def walker_histogram(pos: torch.Tensor, bin_size: torch.Tensor,
     if not 0 < num_bins < 1 << 31:
         raise ValueError(f"num_bins must be a positive int32, got "
                          f"{num_bins}")
-    if bin_size.dim() != 0 or bin_size.dtype != pos.dtype \
-            or bin_size.device != dev:
-        raise ValueError("bin_size must be a 0-d tensor in pos' dtype on "
-                         "pos' device")
     if pos.dim() < 1 or pos.shape[-1] == 0:
         raise ValueError(f"pos must have a non-empty last axis, got "
                          f"{tuple(pos.shape)}")
@@ -147,17 +159,29 @@ def walker_histogram(pos: torch.Tensor, bin_size: torch.Tensor,
     if not rows.is_contiguous():
         raise ValueError("pos must be contiguous")
     num_rows, row_len = rows.shape
+    groups = bin_size.numel()
+    if bin_size.dtype != pos.dtype or bin_size.device != dev \
+            or groups == 0 or num_rows % groups \
+            or not bin_size.is_contiguous():
+        raise ValueError("bin_size must be a 0-d tensor, or a contiguous "
+                         "table whose size divides the rows, in pos' dtype "
+                         "on pos' device")
     if num_rows >= 1 << 31:
         raise ValueError(f"{num_rows} rows exceed the kernel's int range")
     out = pos.new_empty((num_rows, num_bins))
     if num_rows > 0:
         fn, size, grid = _launch(pos.dtype, num_rows, num_bins, dev.index)
         _build.call(fn, dev, rows.data_ptr(), bin_size.data_ptr(),
-                    out.data_ptr(), num_rows, row_len, num_bins, size,
-                    grid)
-        walker_histogram.launch_count += 1
+                    out.data_ptr(), num_rows, num_rows // groups, row_len,
+                    num_bins, size, grid)
+        if bin_size.dim():
+            walker_histogram.group_launch_count += 1
+        else:
+            walker_histogram.launch_count += 1
     return out if rows_2d else out.reshape(pos.shape[:-1] + (num_bins,))
 
 
-#: Kernel launches since the last reset (set it to 0 to reset).
+#: Kernel launches since the last reset (set them to 0 to reset): with
+#: one bin size, and with a table of them.
 walker_histogram.launch_count = 0
+walker_histogram.group_launch_count = 0

@@ -91,12 +91,23 @@ def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
     """Plain torch version of the kernel: ``(energy (W,), drift (W, N))``,
     or ``(log_psi (W,), energy, drift)`` with ``with_log_psi``.
 
-    The pair block is a ``(W, N, N)`` tensor.  f32 evaluates the
-    rational tan polynomial, or with ``with_log_psi`` the sin/cos
-    polynomials, f64 the library sin/cos, as the JAX package's XLA path
-    does; the log path takes one log per pair, ``p log(x)``.  The pair
-    kinetic term is ``C (1 + v^2)`` either way.
+    ``params`` is :func:`pack_params`' vector or a ``(R, PARAMS_SIZE)``
+    table of them, one row per ``W / R`` consecutive walkers; a table
+    runs row by row, so that each row's values are those of a call on
+    its walkers alone, bit for bit (the CPU's vectorized loops round
+    their tails with the scalar functions, so a batched call may differ
+    in the last bit).  The pair block is a ``(W, N, N)`` tensor.  f32
+    evaluates the rational tan polynomial, or with ``with_log_psi`` the
+    sin/cos polynomials, f64 the library sin/cos, as the JAX package's
+    XLA path does; the log path takes one log per pair, ``p log(x)``.
+    The pair kinetic term is ``C (1 + v^2)`` either way.
     """
+    if params.dim() == 2:
+        outs = [energy_and_drift_plain(
+            rows, row, nop=nop, is_free=is_free, is_ideal=is_ideal,
+            defects_sep=defects_sep, with_log_psi=with_log_psi)
+            for rows, row in zip(pos.chunk(params.shape[0]), params)]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
     p = params
     drift = torch.zeros_like(pos)
     kin_rows = torch.zeros_like(pos)
@@ -162,8 +173,9 @@ def energy_and_drift_plain(pos: torch.Tensor, params: torch.Tensor, *,
 
 
 def _check_params(pos: torch.Tensor, params: torch.Tensor, nop: int,
-                  defects_sep: int) -> None:
-    """The checks common to the kernels' wrappers."""
+                  defects_sep: int, table: bool = False) -> None:
+    """The checks common to the kernels' wrappers; ``table`` admits a
+    ``(R, PARAMS_SIZE)`` table whose R divides the walkers."""
     if pos.device.type != "cuda":
         raise ValueError(f"no kernel for device {pos.device}")
     if pos.dtype not in (torch.float32, torch.float64):
@@ -171,10 +183,15 @@ def _check_params(pos: torch.Tensor, params: torch.Tensor, nop: int,
     if pos.dim() != 2 or pos.shape[1] != nop or not 0 < nop <= MAX_NOP:
         raise ValueError(f"pos must be (W, nop) with 0 < nop <= "
                          f"{MAX_NOP}, got {tuple(pos.shape)}, nop={nop}")
-    if params.shape != (PARAMS_SIZE,) or params.dtype != pos.dtype \
-            or params.device != pos.device:
+    is_table = (table and params.dim() == 2 and params.shape[0] > 0
+                and params.shape[1] == PARAMS_SIZE
+                and pos.shape[0] % params.shape[0] == 0)
+    if (params.shape != (PARAMS_SIZE,) and not is_table) \
+            or params.dtype != pos.dtype or params.device != pos.device:
         raise ValueError("params must be pack_params' vector in pos' "
-                         "dtype on pos' device")
+                         "dtype on pos' device"
+                         + (", or a table of R such rows, R dividing the "
+                            "walkers" if table else ""))
     if not (pos.is_contiguous() and params.is_contiguous()):
         raise ValueError("pos and params must be contiguous")
     if defects_sep < 1:
@@ -188,20 +205,26 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
     or ``(log_psi (W,), energy, drift)`` with ``with_log_psi``, in the
     order of ``energy_and_drift_pallas``.
 
+    ``params`` is :func:`pack_params`' vector, or for the rows of a fused
+    parameter sweep a ``(R, PARAMS_SIZE)`` table: the ``W / R``
+    consecutive walkers of row ``r`` take row ``r`` of the table, with
+    the arithmetic of a launch on that row alone.
+
     A CUDA tensor launches the kernel of ``csrc/pairwise.cu`` (f32 or
     f64, any ``N <= 1024``, free and ideal gases included; each
     unordered pair once, the positions wrapped into ``[0, L)`` for the
     pair terms); a CPU tensor runs :func:`energy_and_drift_plain`.  ``params`` is
     :func:`pack_params`' vector in ``pos``'s dtype, on ``pos``'s device.
     Each launch adds one to ``energy_and_drift.launch_count`` (forward)
-    or ``energy_and_drift.log_psi_launch_count`` (log|psi|).
+    or ``energy_and_drift.log_psi_launch_count`` (log|psi|); with a
+    table, to ``table_launch_count`` or ``log_psi_table_launch_count``.
     """
     if pos.device.type == "cpu":
         return energy_and_drift_plain(pos, params, nop=nop,
                                       is_free=is_free, is_ideal=is_ideal,
                                       defects_sep=defects_sep,
                                       with_log_psi=with_log_psi)
-    _check_params(pos, params, nop, defects_sep)
+    _check_params(pos, params, nop, defects_sep, table=True)
     num_walkers = pos.shape[0]
     energy = pos.new_empty(num_walkers)
     drift = torch.empty_like(pos)
@@ -210,26 +233,38 @@ def energy_and_drift(pos: torch.Tensor, params: torch.Tensor, *,
         return (energy, drift) if log_psi is None else (log_psi, energy,
                                                         drift)
     suffix = "f32" if pos.dtype == torch.float32 else "f64"
-    args = (num_walkers, nop, int(is_free), int(is_ideal), defects_sep)
+    per_row = num_walkers // params.shape[0] if params.dim() == 2 \
+        else num_walkers
+    args = (num_walkers, per_row, nop, int(is_free), int(is_ideal),
+            defects_sep)
     if with_log_psi:
         fn = _build.functions()[f"qmc_pair_logpsi_energy_drift_{suffix}"]
         _build.call(fn, pos.device, pos.data_ptr(), params.data_ptr(),
                     log_psi.data_ptr(), energy.data_ptr(), drift.data_ptr(),
                     *args)
-        energy_and_drift.log_psi_launch_count += 1
+        if params.dim() == 2:
+            energy_and_drift.log_psi_table_launch_count += 1
+        else:
+            energy_and_drift.log_psi_launch_count += 1
         return log_psi, energy, drift
     _build.call(_build.functions()[f"qmc_pair_energy_drift_{suffix}"],
                 pos.device, pos.data_ptr(), params.data_ptr(),
                 energy.data_ptr(), drift.data_ptr(), *args)
-    energy_and_drift.launch_count += 1
+    if params.dim() == 2:
+        energy_and_drift.table_launch_count += 1
+    else:
+        energy_and_drift.launch_count += 1
     return energy, drift
 
 
 #: Kernel launches since the last reset (set them to 0 to reset): the
-#: forward variant, the log|psi| variant and the parameter VJP of the
+#: forward variant, the log|psi| variant, each with one parameter vector
+#: and with a sweep's table of rows, and the parameter VJP of the
 #: log|psi| variant (:func:`energy_and_drift_params_vjp`).
 energy_and_drift.launch_count = 0
 energy_and_drift.log_psi_launch_count = 0
+energy_and_drift.table_launch_count = 0
+energy_and_drift.log_psi_table_launch_count = 0
 energy_and_drift.params_vjp_launch_count = 0
 
 

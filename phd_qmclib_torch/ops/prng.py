@@ -30,8 +30,9 @@ import torch
 
 from . import _build, trig
 
-__all__ = ["box_muller", "box_muller_mismatches", "check_key", "normal",
-           "normal_plain", "philox_words", "philox_words_plain"]
+__all__ = ["box_muller", "box_muller_mismatches", "check_key", "key_table",
+           "normal", "normal_plain", "normal_rows", "normal_rows_plain",
+           "philox_words", "philox_words_plain"]
 
 _MASK32 = 0xFFFFFFFF
 #: Philox4x32 round multipliers and Weyl key increments (Salmon et al.,
@@ -242,6 +243,93 @@ def normal(key: int, step: int, shape, dtype=torch.float32,
 
 #: Kernel launches since the last reset (set it to 0 to reset).
 normal.launch_count = 0
+
+
+# -- the rows of a fused parameter sweep ---------------------------------------
+
+_NORMALS_ROWS = {torch.float32: "qmc_philox_normals_rows_f32",
+                 torch.float64: "qmc_philox_normals_rows_f64"}
+
+
+def key_table(keys, device="cuda") -> torch.Tensor:
+    """The 64-bit keys ``keys`` (integers in [0, 2^64)) as the int64
+    tensor :func:`normal_rows` reads on ``device``, each key's bits
+    unchanged."""
+    return torch.tensor([k - (1 << 64) if k >= 1 << 63 else k
+                         for k in (check_key(k, 0)[0] for k in keys)],
+                        dtype=torch.int64, device=device)
+
+
+def normal_rows_plain(keys: torch.Tensor, step: int, scales: torch.Tensor,
+                      out: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the rows kernel: row ``r`` of ``out`` is
+    :func:`normal` of ``(keys[r], step)`` at the row's shape, scaled by
+    ``scales[r]``, row by row."""
+    for key, scale, row in zip(keys.tolist(), scales.tolist(), out):
+        z = normal_plain(key & 0xFFFFFFFFFFFFFFFF, step, row.shape,
+                         row.dtype, row.device)
+        torch.mul(z, scale, out=row)
+    return out
+
+
+def normal_rows(keys: torch.Tensor, step: int, scales: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """The noise of a fused parameter sweep's rows in one launch.
+
+    ``out (R, ...)`` is a contiguous float32 or float64 tensor; row
+    ``r`` gets ``scales[r]`` times the standard normals of ``(keys[r],
+    step)``, its quads counted from 0 inside the row: bit for bit
+    ``normal(keys[r], step, out.shape[1:], scale=scales[r])``, whatever
+    the row's length (its unaligned tail included).  ``keys`` is
+    :func:`key_table`'s int64 tensor and ``scales`` an ``(R,)`` tensor
+    of ``out``'s dtype, both on ``out``'s device: nothing crosses from
+    the host per call.  A CUDA tensor launches the rows kernel of
+    ``csrc/prng.cu`` (one launch adds one to
+    ``normal_rows.launch_count``); a CPU tensor runs
+    :func:`normal_rows_plain`.
+    """
+    num_rows = out.shape[0] if out.dim() else 0
+    dev = out.device
+    if keys.shape != (num_rows,) or scales.shape != (num_rows,) \
+            or keys.dtype != torch.int64 or scales.dtype != out.dtype \
+            or keys.device != dev or scales.device != dev:
+        raise ValueError("keys and scales must be (R,) tensors (int64 and "
+                         "out's dtype) on out's device, R = out.shape[0]")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"no kernel for device {dev}")
+        return normal_rows_plain(keys, step, scales, out)
+    numel = out.numel()
+    if numel == 0:
+        return out
+    fn, grid = _launch_rows(out.dtype, num_rows, numel // num_rows,
+                            dev.index)
+    check_key(0, step)
+    _build.call(fn, dev, out.data_ptr(), numel // num_rows, num_rows,
+                keys.data_ptr(), scales.data_ptr(), step, grid)
+    normal_rows.launch_count += 1
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_rows(dtype, num_rows: int, row_numel: int, index: int):
+    """The launch function and grid of the rows kernel for ``num_rows``
+    rows of ``row_numel`` elements of ``dtype`` on CUDA device
+    ``index``."""
+    name = _NORMALS_ROWS.get(dtype)
+    if name is None:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if row_numel >= 1 << 31:
+        raise ValueError(f"{row_numel} elements a row exceed the kernel's "
+                         f"int range")
+    return (_build.functions()[name],
+            _grid(num_rows * -(-row_numel // 4), index))
+
+
+#: Kernel launches since the last reset (set it to 0 to reset).
+normal_rows.launch_count = 0
 
 
 def box_muller_mismatches(device="cuda") -> int:

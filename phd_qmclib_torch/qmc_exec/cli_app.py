@@ -9,12 +9,15 @@ to an input handler (fresh model configurations or an HDF5 restart) and
 an HDF5 output handler.  A ``proc_type: wf_opt`` stanza
 (:class:`WFOptAppSpec`) runs or loads a VMC sampling and optimizes the
 trial function by correlated sampling; the optimized parameters flow
-into every later stanza.  The procedures run on the ``device`` given to
-:meth:`CLIApp.exec`; a config never names one.
+into every later stanza.  With ``fused_sweep: true`` the procedures of
+one config advance as a single fused sweep
+(:class:`~phd_qmclib_torch.qmc_exec.sweep.SweepProc`,
+:class:`~phd_qmclib_torch.qmc_exec.sweep.VmcSweepProc`), each still
+dumping to its own output file.  The procedures run on the ``device``
+given to :meth:`CLIApp.exec`; a config never names one.
 
-Not here yet, and refused by name when a config asks for them:
-``fused_sweep`` / ``fused_sweep_mesh`` (the procedures of one config
-advanced as a single fused sweep).
+Not here yet, and refused by name when a config asks for it:
+``fused_sweep_mesh`` (a fused sweep across several GPUs).
 """
 import typing as t
 from dataclasses import dataclass, replace
@@ -240,22 +243,51 @@ class WFOptAppSpec:
 
 @dataclass(frozen=True)
 class CLIApp:
-    """Entry point executing a sequence of procedures, one after the
-    other (``mrbp_qmc/dmc_exec/cli_app.py:167-230``)."""
+    """Entry point executing a sequence of procedures
+    (``mrbp_qmc/dmc_exec/cli_app.py:167-230``).
+
+    With ``fused_sweep: true`` at the top level of the config, the
+    procedures (DMC or VMC) advance as ONE fused batch per step on the
+    device (:class:`~phd_qmclib_torch.qmc_exec.sweep.SweepProc`) instead
+    of one after the other; each still dumps to its own output file,
+    bit-identical to its sequential result.  A single procedure runs
+    unfused."""
     meta: AppMeta
     app_spec: t.Sequence[AppSpec]
     sampling_type: str = "dmc"
+    fused_sweep: bool = False
 
     @classmethod
     def from_config(cls, config: t.Mapping, sampling_type: str):
         self_config = dict(config.items())
         app_meta = AppMeta.from_config(self_config.get("meta", {}))
-        for key in ("fused_sweep", "fused_sweep_mesh"):
-            if self_config.pop(key, None):
+        fused_sweep = bool(self_config.pop("fused_sweep", False))
+        if fused_sweep and sampling_type not in ("dmc", "vmc"):
+            raise ValueError("fused_sweep supports DMC and VMC "
+                             "procedures only")
+        mesh_shape = self_config.pop("fused_sweep_mesh", None)
+        if mesh_shape is not None:
+            # The JAX package's checks, then the refusal by name.
+            if not fused_sweep:
                 raise ValueError(
-                    f"{key}: fused sweeps are not available in this "
-                    f"package yet; remove the key to run the procedures "
-                    f"one after the other")
+                    "fused_sweep_mesh needs fused_sweep: true")
+            if sampling_type != "dmc":
+                raise ValueError(
+                    "fused_sweep_mesh supports DMC procedures only")
+            try:
+                rows, walker_devs = (int(mesh_shape[0]),
+                                     int(mesh_shape[1]))
+            except (TypeError, KeyError, IndexError, ValueError):
+                raise ValueError(
+                    "fused_sweep_mesh must be a [rows, "
+                    "walker_devices] pair") from None
+            if rows < 1 or walker_devs < 1:
+                raise ValueError(
+                    "fused_sweep_mesh entries must be positive")
+            raise ValueError(
+                "fused_sweep_mesh: a fused sweep across several GPUs "
+                "(torch.distributed) is not available in this package "
+                "yet; drop the key to fuse the rows on one GPU")
         app_spec_data = self_config.pop("app_spec")
         app_spec_set = []
         for proc_num, app_spec_config in enumerate(app_spec_data):
@@ -263,23 +295,51 @@ class CLIApp:
             if app_spec_config.get("proc_id") is None:
                 app_spec_config["proc_id"] = proc_num
             if app_spec_config.get("proc_type") == "wf_opt":
+                if fused_sweep:
+                    raise ValueError(
+                        "wf_opt stanzas cannot ride a fused sweep "
+                        "(the optimized rm must flow serially into "
+                        "the following procedures)")
                 app_spec_set.append(
                     WFOptAppSpec.from_config(app_spec_config))
                 continue
             app_spec_set.append(
                 AppSpec.from_config(app_spec_config, sampling_type))
         return cls(meta=app_meta, app_spec=app_spec_set,
-                   sampling_type=sampling_type)
+                   sampling_type=sampling_type, fused_sweep=fused_sweep)
+
+    def _exec_fused(self, device="cuda"):
+        """The procedures as one fused sweep on ``device``, each result
+        dumped to its own output file."""
+        from .sweep import SweepProc, VmcSweepProc
+
+        sweep_cls = VmcSweepProc if self.sampling_type == "vmc" \
+            else SweepProc
+        exec_logger.info(
+            f"Executing {len(self.app_spec)} "
+            f"{self.sampling_type.upper()} procedures as one fused "
+            f"sweep...")
+        pairs = [spec.build_input(device=device) for spec in self.app_spec]
+        sweep_proc = sweep_cls(tuple(proc for proc, _ in pairs))
+        results = sweep_proc.exec([pi for _, pi in pairs])
+        for spec, result in zip(self.app_spec, results):
+            spec.proc_output.dump(result)
+        exec_logger.info("All the QMC calculations have completed.")
+        return results
 
     def exec(self, device="cuda"):
         """Run the procedures on ``device``, each dumping its result to
-        its output file; a wf_opt stanza's optimized parameters (rm, and
-        the trial orbital's depth when optimized jointly) go into every
-        later stanza's model spec."""
+        its output file: one fused sweep with ``fused_sweep`` and more
+        than one procedure, else one after the other, where a wf_opt
+        stanza's optimized parameters (rm, and the trial orbital's depth
+        when optimized jointly) go into every later stanza's model
+        spec."""
         app_spec_set = self.app_spec
         exec_logger.info("Starting the QMC calculations...")
         exec_logger.info(f"Starting the execution of a set of "
                          f"{len(app_spec_set)} QMC calculations...")
+        if self.fused_sweep and len(app_spec_set) > 1:
+            return self._exec_fused(device=device)
         results = []
         opt_params_star = None
         for proc_num, app_spec in enumerate(app_spec_set, 1):

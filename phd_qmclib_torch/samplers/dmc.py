@@ -231,40 +231,200 @@ _ITC_AUX = ("aux_itc", "aux_itc_cnt")
 
 class _Branch(t.NamedTuple):
     """The post-branching ensemble of a step, which the estimators
-    measure."""
-    parent: torch.Tensor  # (Wm,) int64 branching table
-    pos: torch.Tensor     # (Wm, N) children, before diffusion
-    valid: torch.Tensor   # (Wm,) bool
+    measure, with the rows' leading axis."""
+    parent: torch.Tensor  # (R, Wm) int64 branching table, flat over rows
+    pos: torch.Tensor     # (R, Wm, N) children, before diffusion
+    valid: torch.Tensor   # (R, Wm) bool
+
+
+class _Divisor(t.NamedTuple):
+    """A per-row divisor of the population controller.  ``x / d`` by a
+    Python float on a CUDA tensor is the multiply by ``1 / d`` rounded
+    to the tensor's type (torch's scalar division there), while the
+    CPU divides: rows with their own ``d`` take the same form, so that
+    each row's controller is its single sampling's, bit for bit."""
+    value: t.Union[float, torch.Tensor]
+    reciprocal: bool = False
+
+    def divide(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.value if self.reciprocal else x / self.value
 
 
 class _Consts(t.NamedTuple):
     """What a run's steps and estimators need on the device, made once
-    per run."""
-    cfc: mrbp.CFCParams
-    params: torch.Tensor  # pairwise.pack_params(cfc), the kernels' vector
-    density_bin_size: t.Optional[torch.Tensor]  # 0-d
-    obd_offsets: t.Optional[torch.Tensor]       # (num_pos,)
+    per run, for R rows (a fused sweep's; one for a single sampling).
+
+    A constant the rows share is what a single sampling uses (a 0-d
+    tensor, a Python float); one that differs is a tensor with the row
+    axis first, shaped to broadcast where it is used."""
+    cfc: mrbp.CFCParams   # leaves 0-d, or (R, 1, 1) where the rows differ
+    params: torch.Tensor  # pairwise.pack_params: (16,), or the (R, 16) table
+    density_bin_size: t.Optional[torch.Tensor]  # 0-d, or (R, 1, 1)
+    obd_offsets: t.Optional[torch.Tensor]  # (num_pos,) or (num_pos, R, 1, 1)
+    dt: t.Union[float, torch.Tensor]            # (R, 1, 1): the move
+    neg_dt: t.Union[float, torch.Tensor]        # (R, 1): the weight
+    nwc: t.Union[float, torch.Tensor]           # (R,)
+    dt_divisor: _Divisor
+    target_divisor: _Divisor
+    seeds: t.Tuple[int, ...]
+    sigma: float                  # one row: the noise's scale
+    keys: t.Optional[torch.Tensor]    # rows: prng.key_table(seeds)
+    sigmas: t.Optional[torch.Tensor]  # rows: (R,) scales
+    slots: torch.Tensor           # (R, Wm) arange, the comb's slots
+    offsets: t.Optional[torch.Tensor]  # (R, 1) row starts r Wm; None: R = 1
+
+
+def _rows_value(values, dtype, device, ndim: int):
+    """The rows' values of a constant: a Python float when they agree,
+    else a ``(R,) + (1,) * (ndim - 1)`` tensor."""
+    if all(v == values[0] for v in values):
+        return float(values[0])
+    return torch.tensor(values, dtype=dtype, device=device).view(
+        (-1,) + (1,) * (ndim - 1))
+
+
+def _rows_divisor(values, dtype, device) -> _Divisor:
+    value = _rows_value(values, dtype, device, 1)
+    if isinstance(value, float) or value.device.type == "cpu":
+        return _Divisor(value)
+    one = np.ones((), dtype=utils.numpy_dtype(dtype))
+    recips = [one / one.dtype.type(v) for v in values]
+    return _Divisor(torch.tensor(recips, dtype=dtype, device=device), True)
+
+
+def _rows_cfc(specs, dtype, device) -> mrbp.CFCParams:
+    """The rows' parameters: each leaf the rows share as its 0-d tensor,
+    each that differs as an ``(R, 1, 1)`` tensor (positions are ``(R,
+    Wm, N)``)."""
+    host = [spec.cfc_params for spec in specs]
+    cast = [mrbp.cast_params(c, dtype, device) for c in host]
+
+    def group(i):
+        fields = []
+        for j in range(len(host[0][i])):
+            values = [float(c[i][j]) for c in host]
+            fields.append(cast[0][i][j] if all(v == values[0] for v in values)
+                          else torch.stack([c[i][j] for c in cast]).view(
+                              -1, 1, 1))
+        return type(host[0][i])(*fields)
+
+    return mrbp.CFCParams(*(group(i) for i in range(3)))
+
+
+def _take(x: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Rows ``(R, Wm, ...)`` gathered by flat walker indices ``(R,
+    Wm)`` (row ``r``'s walkers are ``r Wm .. r Wm + Wm - 1``)."""
+    return x.reshape((-1,) + x.shape[2:])[flat]
+
+
+def _row_sums(x: torch.Tensor) -> torch.Tensor:
+    """``(R, Wm, ...) -> (R, ...)``: each row's sum over its walkers, as
+    a single sampling sums them, a sum per row: a torch sum's order
+    follows its tensor's shape (and, on the card, its start's
+    alignment), so a batched sum would part a fused row from its run in
+    the last bit."""
+    def one(row):
+        if row.device.type == "cuda" and row.data_ptr() % 256:
+            row = row.clone()
+        return row.sum(dim=0)
+
+    if x.shape[0] == 1:
+        return one(x[0])[None]
+    return torch.stack([one(row) for row in x])
+
+
+def _row_consts(samplings, dtype, device) -> _Consts:
+    """The constants of the rows ``samplings`` (a fused sweep's, or one
+    sampling) for a run in ``dtype`` on ``device``."""
+    ref = samplings[0]
+    num_rows, max_w = len(samplings), ref.max_num_walkers
+    cfc, params, offsets = _rows_model(samplings, dtype, device)
+    bin_size = None
+    if ref.density_est_spec is not None:
+        sc = cfc.model_params.supercell_size
+        bin_size = sc / torch.full_like(sc, ref.density_est_spec.num_bins)
+    dts = [s.time_step for s in samplings]
+    seeds = tuple(int(s.rng_seed) for s in samplings)
+    rows = num_rows > 1
+    return _Consts(
+        cfc=cfc, params=params, density_bin_size=bin_size,
+        obd_offsets=offsets, dt=_rows_value(dts, dtype, device, 3),
+        neg_dt=_rows_value([-dt for dt in dts], dtype, device, 2),
+        nwc=_rows_value([s.num_walkers_control_factor for s in samplings],
+                        dtype, device, 1),
+        dt_divisor=_rows_divisor(dts, dtype, device),
+        target_divisor=_rows_divisor(
+            [float(s.target_num_walkers) for s in samplings], dtype, device),
+        seeds=seeds, sigma=ref.sigma_spread,
+        keys=prng.key_table(seeds, device) if rows else None,
+        sigmas=(torch.tensor([s.sigma_spread for s in samplings],
+                             dtype=dtype, device=device) if rows else None),
+        slots=torch.arange(max_w, device=device).repeat(num_rows, 1),
+        offsets=(torch.arange(num_rows, device=device)[:, None] * max_w
+                 if rows else None))
 
 
 def branching_comb(weights: torch.Tensor, num_walkers: torch.Tensor,
-                   u: torch.Tensor) -> t.Tuple[torch.Tensor, torch.Tensor]:
-    """Vectorized stochastic branching comb on the uniforms ``u (Wm,)``.
+                   u: torch.Tensor, slots: t.Optional[torch.Tensor] = None
+                   ) -> t.Tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized stochastic branching comb on the uniforms ``u (...,
+    Wm)``.
 
     Each valid parent ``i`` is cloned ``floor(w_i + u_i)`` times; the
     first ``max_num_walkers`` children survive.  ``parent[slot]`` is the
     number of parents whose cumulative clone count is ``<= slot``: the
     same table as the JAX package's marks matmul, by ``searchsorted``.
+    Leading axes are rows, each combed on its own (``num_walkers`` then
+    has them); ``slots`` is ``arange(Wm)`` in ``weights``' shape when
+    the caller keeps it.
 
-    :return: ``(parent_idx (Wm,), new_num_walkers 0-d)``, both int64.
+    :return: ``(parent_idx (..., Wm), new_num_walkers (...))``, both
+        int64, the parents indexing within their row.
     """
     max_w = weights.shape[-1]
-    slots = torch.arange(max_w, device=weights.device)
+    if slots is None:
+        slots = torch.arange(max_w, device=weights.device).expand(
+            weights.shape).contiguous()
     n_clones = torch.floor(weights + u).to(torch.int64)
-    n_clones = torch.where(slots < num_walkers, n_clones, 0)
-    cum = torch.cumsum(n_clones, dim=0)
-    new_num = torch.clamp(cum[-1], max=max_w)
+    n_clones = torch.where(slots < num_walkers[..., None], n_clones, 0)
+    cum = torch.cumsum(n_clones, dim=-1)
+    new_num = torch.clamp(cum[..., -1], max=max_w)
     parent = torch.searchsorted(cum, slots, right=True)
     return torch.clamp(parent, 0, max_w - 1), new_num
+
+
+def _as_rows(state):
+    """A single sampling's state (any of the samplers' ``State``
+    tuples) as one row: views with a leading row axis."""
+    return type(state)(*(None if x is None else x[None] for x in state))
+
+
+def _row(state, r: int):
+    """Row ``r`` of a rows state (views)."""
+    return type(state)(*(None if x is None else x[r] for x in state))
+
+
+def _rows_model(samplings, dtype, device):
+    """The rows' model constants ``(cfc, params, obd_offsets)``: the
+    parameters (:func:`_rows_cfc`), the kernels' vector (one row) or
+    ``(R, 16)`` table, packed row by row as a single sampling packs it,
+    and the OBDM grid, ``(num_pos,)`` or ``(num_pos, R, 1, 1)``."""
+    cfc = _rows_cfc([s.model_spec for s in samplings], dtype, device)
+    if len(samplings) == 1:
+        params = pairwise.pack_params(cfc, dtype, device)
+    else:
+        params = torch.stack([pairwise.pack_params(
+            mrbp.cast_params(s.cfc_params, dtype, device), dtype, device)
+            for s in samplings])
+    offsets = None
+    if samplings[0].obd_est_spec is not None:
+        grids = [s.obd_pos_offsets for s in samplings]
+        if all(np.array_equal(g, grids[0]) for g in grids):
+            offsets = torch.as_tensor(grids[0], dtype=dtype, device=device)
+        else:
+            offsets = torch.as_tensor(np.stack(grids, axis=1), dtype=dtype,
+                                      device=device)[..., None, None]
+    return cfc, params, offsets
 
 
 def state_from_numpy(state, device="cuda") -> State:
@@ -503,31 +663,27 @@ class Sampling:
             raise ValueError("num_time_steps_block must be divisible by "
                              "est_every")
 
-    def _fresh_aux(self, dtype, device) -> t.Dict[str, torch.Tensor]:
-        return {name: torch.zeros(shape, dtype=dtype, device=device)
+    def _fresh_aux(self, dtype, device,
+                   rows: t.Optional[int] = None) -> t.Dict[str, torch.Tensor]:
+        """Zero accumulators; with ``rows``, for that many rows."""
+        lead = () if rows is None else (rows,)
+        return {name: torch.zeros(lead + shape, dtype=dtype, device=device)
                 for name, shape in self._pure_aux_shapes().items()}
 
-    def _fresh_itc(self, dtype, device) -> t.Dict[str, torch.Tensor]:
-        """The :class:`State`'s ITC fields at the start of a fill."""
+    def _fresh_itc(self, dtype, device,
+                   rows: t.Optional[int] = None) -> t.Dict[str, torch.Tensor]:
+        """The :class:`State`'s ITC fields at the start of a fill; with
+        ``rows``, for that many rows."""
         if self.itc_est_spec is None:
             return {}
-        return {"itc_buf": torch.zeros(self._itc_buf_shape, dtype=dtype,
-                                       device=device),
-                "itc_filled": torch.zeros((), dtype=torch.int32,
+        lead = () if rows is None else (rows,)
+        return {"itc_buf": torch.zeros(lead + self._itc_buf_shape,
+                                       dtype=dtype, device=device),
+                "itc_filled": torch.zeros(lead, dtype=torch.int32,
                                           device=device)}
 
     def _consts(self, dtype, device) -> _Consts:
-        cfc = self._cast_params(dtype, device)
-        bin_size = offsets = None
-        if self.density_est_spec is not None:
-            sc = cfc.model_params.supercell_size
-            bin_size = sc / torch.full_like(sc,
-                                            self.density_est_spec.num_bins)
-        if self.obd_est_spec is not None:
-            offsets = torch.as_tensor(self.obd_pos_offsets, dtype=dtype,
-                                      device=device)
-        return _Consts(cfc, pairwise.pack_params(cfc, dtype, device),
-                       bin_size, offsets)
+        return _row_consts((self,), dtype, device)
 
     # -- state construction ---------------------------------------------------
 
@@ -594,41 +750,43 @@ class Sampling:
 
     def _step(self, state: State, e_prev_slots: t.Optional[torch.Tensor],
               comb_u: torch.Tensor, xi: torch.Tensor, consts: _Consts):
-        """One time step with the comb uniforms ``comb_u (Wm,)`` and the
-        pre-scaled diffusion noise ``xi (Wm, N)``.
+        """One time step of R rows (:func:`_row_consts`; every field of
+        ``state`` with the rows' leading axis) with the comb uniforms
+        ``comb_u (R, Wm)`` and the pre-scaled diffusion noise ``xi (R,
+        Wm, N)``.
 
         ``e_prev_slots`` is the slot-wise previous-step energy of
         ``ref_compat`` (``None`` otherwise).  A state with a
         ``cmd_accum`` transports it through the parents and adds the
-        step's CM displacement.  Returns ``(new_state,
-        new_e_prev_slots, branch)``, where ``branch`` is the
-        post-branching ensemble the estimators measure.
+        step's CM displacement.  Each row combs, controls and diffuses
+        with its own constants, exactly as its single sampling would.
+        Returns ``(new_state, new_e_prev_slots, branch)``, where
+        ``branch`` is the post-branching ensemble the estimators
+        measure.
         """
-        dt = self.time_step
-        nwc = self.num_walkers_control_factor
-        target = float(self.target_num_walkers)
-
-        # 1) Branching comb on the previous step's weights.
+        # 1) Branching comb on the previous step's weights, row by row.
         parent, nw = branching_comb(state.weights, state.num_walkers,
-                                    comb_u)
-        valid = torch.arange(state.pos.shape[0],
-                             device=state.pos.device) < nw
+                                    comb_u, consts.slots)
+        valid = consts.slots < nw[:, None]
+        if consts.offsets is not None:
+            parent = parent + consts.offsets
 
         # 2) Children: cloned (pre-diffusion) parents with parent
         #    energies.
-        cpos = state.pos[parent]
-        cdrift = state.drift[parent]
-        cenergy = state.energies[parent]
+        cpos = _take(state.pos, parent)
+        cdrift = _take(state.drift, parent)
+        cenergy = _take(state.energies, parent)
 
-        state_energy = torch.where(valid, cenergy, 0.0).sum()
+        state_energy = _row_sums(torch.where(valid, cenergy, 0.0))
         state_weight = nw.to(state.pos.dtype)
 
         # 3) Population-control update.
         total_energy = state.total_energy + state_energy
         total_weight = state.total_weight + state_weight
         accum_energy = total_energy / total_weight
-        new_ref = accum_energy - nwc * torch.log(
-            torch.clamp(state_weight, min=1.0) / target) / dt
+        new_ref = accum_energy - consts.dt_divisor.divide(
+            consts.nwc * torch.log(consts.target_divisor.divide(
+                torch.clamp(state_weight, min=1.0))))
 
         # 4) Diffuse the children with the PREVIOUS E_ref: move, energy
         #    and drift, and the branching weight.
@@ -639,14 +797,14 @@ class Sampling:
             e_prev_slots = torch.where(valid, cenergy, e_prev_slots)
         else:
             e_prev = cenergy
-        npos, nenergy, ndrift, nweight = self.diffuse(
-            cpos, cdrift, e_prev, xi, state.ref_energy, consts.cfc,
-            consts.params)
+        npos, nenergy, ndrift, nweight = self._diffuse(
+            cpos, cdrift, e_prev, xi, state.ref_energy[:, None], consts.cfc,
+            consts.params, consts.dt, consts.neg_dt)
         nweight = torch.where(valid, nweight, 0.0)
         cmd_accum = state.cmd_accum
         if cmd_accum is not None:
-            cmd_accum = cmd_accum[parent] \
-                + (2.0 * cdrift * dt + xi).mean(dim=-1)
+            cmd_accum = _take(cmd_accum, parent) \
+                + (2.0 * cdrift * consts.dt + xi).mean(dim=-1)
 
         new_state = State(
             pos=npos, drift=ndrift, energies=nenergy, weights=nweight,
@@ -656,6 +814,15 @@ class Sampling:
             cmd_accum=cmd_accum, itc_buf=state.itc_buf,
             itc_filled=state.itc_filled)
         return new_state, e_prev_slots, _Branch(parent, cpos, valid)
+
+    def _diffuse(self, cpos, cdrift, e_prev, xi, ref_energy, cfc, params,
+                 dt, neg_dt):
+        """:meth:`diffuse` with the time step ``dt`` (and ``neg_dt =
+        -dt``) as floats, or as the rows' tensors."""
+        npos = mrbp.recast(cpos + 2.0 * cdrift * dt + xi, cfc)
+        nenergy, ndrift = self.core_funcs.energy_and_drift(npos, cfc, params)
+        nweight = torch.exp(neg_dt * (0.5 * (nenergy + e_prev) - ref_energy))
+        return npos, nenergy, ndrift, nweight
 
     def diffuse(self, cpos: torch.Tensor, cdrift: torch.Tensor,
                 e_prev: torch.Tensor, xi: torch.Tensor,
@@ -671,16 +838,16 @@ class Sampling:
         ``pairwise.pack_params(cfc)`` when the caller packed it once.
         """
         dt = self.time_step
-        npos = mrbp.recast(cpos + 2.0 * cdrift * dt + xi, cfc)
-        nenergy, ndrift = self.core_funcs.energy_and_drift(npos, cfc, params)
-        nweight = torch.exp(-dt * (0.5 * (nenergy + e_prev) - ref_energy))
-        return npos, nenergy, ndrift, nweight
+        return self._diffuse(cpos, cdrift, e_prev, xi, ref_energy, cfc,
+                             params, dt, -dt)
 
     def _estimate(self, consts: _Consts, aux: dict,
                   perm: t.Optional[torch.Tensor],
                   itc_perm: t.Optional[torch.Tensor], branch: _Branch,
                   state: State, step_idx: int):
-        """The estimators of one measured step.
+        """The estimators of one measured step of R rows (every tensor
+        with the rows' leading axis; the permutations flat over the rows,
+        as :meth:`_step`'s parents).
 
         ``perm`` is the ancestry permutation composed over the
         transport-only steps since the last measured one (``None``: the
@@ -690,19 +857,21 @@ class Sampling:
         the steps since the last ITC-measured one.  ``state`` is the
         step's new state (its CM accumulator and ITC ring buffer), and
         ``step_idx`` the step's index in the forward-walking window.
-        Returns ``(new_aux, est, new_state)`` with one row per estimator
-        measured at this step.
+        Returns ``(new_aux, est, new_state)`` with one ``(R, ...)`` row
+        per estimator measured at this step; each row's walker sums are
+        its single sampling's (:func:`_row_sums`).
         """
         funcs, cfc = self.core_funcs, consts.cfc
         cpos, valid = branch.pos, branch.valid
-        anc = branch.parent if perm is None else perm[branch.parent]
-        aux = {name: acc if name in _ITC_AUX else acc[anc]
+        anc = branch.parent if perm is None \
+            else perm.reshape(-1)[branch.parent]
+        aux = {name: acc if name in _ITC_AUX else _take(acc, anc)
                for name, acc in aux.items()}
         est = {}
 
         def masked_sum(x):
-            return torch.where(valid.view((-1,) + (1,) * (x.dim() - 1)),
-                               x, 0.0).sum(dim=0)
+            return _row_sums(torch.where(
+                valid.view(valid.shape + (1,) * (x.dim() - 2)), x, 0.0))
 
         def pure_divisor(spec, like):
             # A device tensor as the divisor: CUDA divides by a host
@@ -728,7 +897,7 @@ class Sampling:
         if spec is not None:
             hist = histogram.walker_histogram(cpos, consts.density_bin_size,
                                               spec.num_bins)
-            hist = torch.where(valid[:, None], hist, 0.0)
+            hist = torch.where(valid[..., None], hist, 0.0)
             est["density"] = measure("aux_density", spec, hist)
         spec = self.ssf_est_spec
         ssf_parts = None
@@ -748,41 +917,43 @@ class Sampling:
                                     spec.num_bins, cpos, cfc))
         if state.cmd_accum is not None:
             est["cmd"] = torch.stack([masked_sum(state.cmd_accum ** 2),
-                                      masked_sum(state.cmd_accum)])
+                                      masked_sum(state.cmd_accum)], dim=1)
 
         spec = self.itc_est_spec
         if spec is not None and due(spec):
             num_lags, num_modes = spec.num_lags, spec.num_modes
             # One gather through the composed permutation: the same
             # rows as a gather through the parents on every step.
-            buf = state.itc_buf[itc_perm]
+            buf = _take(state.itc_buf, itc_perm)
             # The amplitudes of the post-branching ensemble: the S(k)
             # estimator's own (re, im) slots when it has the modes.
             from_ssf = ssf_parts is not None \
                 and self.ssf_est_spec.num_modes >= num_modes
             if from_ssf:
-                reim = ssf_parts[:, :num_modes, 1:3]
+                reim = ssf_parts[..., :num_modes, 1:3]
             else:
                 reim = funcs.fourier_density_reim_harmonics(
                     num_modes, cpos, cfc)
             re, im = reim[..., 0], reim[..., 1]
             maskf = valid.to(cpos.dtype)
             lag_ok = (torch.arange(1, num_lags + 1, device=cpos.device)
-                      <= state.itc_filled).to(cpos.dtype)
+                      <= state.itc_filled[:, None]).to(cpos.dtype)
             # Re[rho_k(t) conj(rho_k(t - l))] per walker, lag and mode,
             # as a multiply and add in the tensors' own precision (no
             # matrix-product path whose precision a global flag sets).
-            prod_w = (buf[..., 0] * re[:, None] + buf[..., 1] * im[:, None]) \
-                * maskf[:, None, None]
+            prod_w = (buf[..., 0] * re[:, :, None]
+                      + buf[..., 1] * im[:, :, None]) \
+                * maskf[:, :, None, None]
             if spec.as_pure_est:
-                sq_w = torch.where(valid[:, None], re ** 2 + im ** 2, 0.0)
-                contrib = torch.cat([sq_w[:, None], prod_w], dim=1)
-                cnt_row = torch.cat([lag_ok.new_ones(1), lag_ok])
-                acc = aux["aux_itc"][itc_perm]
-                cnt = aux["aux_itc_cnt"][itc_perm]
+                sq_w = torch.where(valid[..., None], re ** 2 + im ** 2, 0.0)
+                contrib = torch.cat([sq_w[:, :, None], prod_w], dim=2)
+                cnt_row = torch.cat([lag_ok.new_ones((lag_ok.shape[0], 1)),
+                                     lag_ok], dim=1)
+                acc = _take(aux["aux_itc"], itc_perm)
+                cnt = _take(aux["aux_itc_cnt"], itc_perm)
                 if step_idx < self._pfw_steps(spec):
                     acc = acc + contrib
-                    cnt = cnt + maskf[:, None] * cnt_row
+                    cnt = cnt + maskf[:, :, None] * cnt_row[:, None]
                 aux["aux_itc"], aux["aux_itc_cnt"] = acc, cnt
                 divisor = pure_divisor(spec, acc)
                 est["itc"] = masked_sum(acc) / divisor
@@ -791,20 +962,22 @@ class Sampling:
                 # Lag 0 equals the S(k) estimator's mixed slot-0 sums bit
                 # for bit: a sum's order follows its tensor's shape, so
                 # take the walker sum over the S(k) parts themselves.
-                lag0 = masked_sum(ssf_parts)[:num_modes, 0] if from_ssf \
+                lag0 = masked_sum(ssf_parts)[:, :num_modes, 0] if from_ssf \
                     else masked_sum(re ** 2 + im ** 2)
-                est["itc"] = torch.cat([lag0[None], prod_w.sum(dim=0)])
-                nwf = state.num_walkers.to(cpos.dtype)
-                est["itc_nw"] = torch.cat([nwf[None], nwf * lag_ok])
+                est["itc"] = torch.cat([lag0[:, None], _row_sums(prod_w)],
+                                       dim=1)
+                nwf = state.num_walkers.to(cpos.dtype)[:, None]
+                est["itc_nw"] = torch.cat([nwf, nwf * lag_ok], dim=1)
             state = state._replace(
-                itc_buf=torch.cat([reim[:, None], buf[:, :-1]], dim=1),
+                itc_buf=torch.cat([reim[:, :, None], buf[:, :, :-1]], dim=2),
                 itc_filled=torch.clamp(state.itc_filled + 1, max=num_lags))
         return aux, est, state
 
     def _run(self, state: State, draws, consts: _Consts,
              measuring: bool, aux: t.Optional[dict], step_offset: int,
              thin: int = 0):
-        """Step through ``draws``, an iterable of ``(comb_u, xi)``.
+        """Step R rows (:meth:`_step`) through ``draws``, an iterable of
+        ``(comb_u, xi)``.
 
         With ``measuring``, every ``est_every``-th step measures the
         estimators (step ``k`` of the run has index ``step_offset + k``
@@ -815,7 +988,7 @@ class Sampling:
         shifted.  Returns ``(state, aux, props, est, ensembles)``: the
         per-step ensemble scalars and estimator rows and, with ``thin``,
         every ``thin``-th step's ``(pos, energies, weights)``, as lists
-        of device tensors.
+        of device tensors with the rows' leading axis.
         """
         e_prev_slots = state.energies if self.ref_compat else None
         cadence = self.est_every
@@ -833,11 +1006,11 @@ class Sampling:
                 continue
             if use_itc:
                 itc_perm = (branch.parent if itc_perm is None
-                            else itc_perm[branch.parent])
+                            else itc_perm.reshape(-1)[branch.parent])
             if (step + 1) % cadence:
                 if any(name not in _ITC_AUX for name in aux):
                     perm = (branch.parent if perm is None
-                            else perm[branch.parent])
+                            else perm.reshape(-1)[branch.parent])
                 continue
             aux, rows, state = self._estimate(
                 consts, aux, perm, itc_perm, branch, state,
@@ -849,24 +1022,108 @@ class Sampling:
                 est.setdefault(name, []).append(row)
         return state, aux, props, est, ensembles
 
-    def _block_draws(self, block_index: int, num_time_steps_block: int,
-                     state: State, noise: torch.Tensor):
-        """The comb uniforms and diffusion noise of one block, drawn on
-        the state's device as the steps consume them.  The noise, already
-        scaled by sigma, is written into the run's buffer ``noise`` of
-        ``state.pos``' shape: each step consumes it before the next draw,
-        in stream order."""
-        dtype, device = state.pos.dtype, state.pos.device
-        gen = torch.Generator(device=device)
-        gen.manual_seed(utils.block_seed(self.rng_seed, block_index))
+    def _draws(self, consts: _Consts, block_index: int,
+               num_time_steps_block: int, noise: torch.Tensor,
+               comb: t.Optional[torch.Tensor]):
+        """The comb uniforms and diffusion noise of one block of R rows,
+        drawn on the device as the steps consume them: each row's
+        uniforms from its own ``torch.Generator``, seeded from
+        ``(rng_seed, block index)`` as its single sampling's, and its
+        noise, already scaled by its sigma, keyed by ``(rng_seed, global
+        step index)``.  The noise goes into the run's buffer ``noise (R,
+        Wm, N)`` (one launch for all rows), the rows' uniforms into
+        ``comb (R, Wm)`` (a single sampling draws a fresh tensor):
+        each step consumes them before the next draw, in stream order."""
+        dtype, device = noise.dtype, noise.device
+        max_w = noise.shape[1]
+        gens = []
+        for seed in consts.seeds:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(utils.block_seed(seed, block_index))
+            gens.append(gen)
         for step in range(num_time_steps_block):
-            comb_u = torch.rand(state.weights.shape, generator=gen,
-                                dtype=dtype, device=device)
-            xi = prng.normal(
-                self.rng_seed, block_index * num_time_steps_block + step,
-                noise.shape, dtype, device, scale=self.sigma_spread,
-                out=noise)
-            yield comb_u, xi
+            global_step = block_index * num_time_steps_block + step
+            if comb is None:
+                comb_u = torch.rand((max_w,), generator=gens[0], dtype=dtype,
+                                    device=device)[None]
+                prng.normal(consts.seeds[0], global_step, noise.shape[1:],
+                            dtype, device, scale=consts.sigma, out=noise[0])
+            else:
+                for gen, row in zip(gens, comb):
+                    torch.rand(row.shape, generator=gen, out=row)
+                comb_u = comb
+                prng.normal_rows(consts.keys, global_step, consts.sigmas,
+                                 noise)
+            yield comb_u, noise
+
+    def _row_blocks(self, consts: _Consts, ini_state: State,
+                    num_time_steps_block: int, burn_in_blocks: int,
+                    block_offset: int, start_block_idx: int,
+                    aux_init: t.Optional[dict]):
+        """The block loop of :meth:`blocks` on R rows: ``ini_state`` and
+        ``aux_init`` have the rows' leading axis, this sampling gives
+        the static structure and ``consts`` (:func:`_row_consts`) the
+        rows' own constants.  Yields ``(props, rows, state, aux_carry)``
+        per block: the per-step scalars ``(nts, R)`` on the host, the
+        estimator rows ``(R, n, ...)`` on the host by name (none in
+        burn-in blocks), the last state and the carried accumulators."""
+        state = ini_state
+        num_rows = state.pos.shape[0]
+        dtype, device = state.pos.dtype, state.pos.device
+        if self.cm_diffusion_est and state.cmd_accum is None:
+            state = state._replace(cmd_accum=torch.zeros(
+                state.pos.shape[:2], dtype=dtype, device=device))
+        start_block_idx = int(start_block_idx)
+        if self.itc_est_spec is not None and (
+                state.itc_buf is None or start_block_idx < burn_in_blocks):
+            # A state without the ring buffer starts an empty fill (the
+            # lag counts discount the unfilled rows).  A filled buffer
+            # would come out of the burn-in misaligned with its slots,
+            # walkers cloned and killed under it, yet counted as valid.
+            state = state._replace(**self._fresh_itc(dtype, device,
+                                                     num_rows))
+        nts = num_time_steps_block
+        window = self.pfw_window_blocks(nts)
+        cmd_window = self.cm_window_blocks
+        noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
+        comb = (torch.empty(state.weights.shape, dtype=dtype, device=device)
+                if num_rows > 1 else None)
+        aux = None
+        if window > 1 and aux_init is not None:
+            aux = self._fresh_aux(dtype, device, num_rows)
+            aux.update((name, torch.as_tensor(value, dtype=dtype,
+                                              device=device))
+                       for name, value in aux_init.items() if name in aux)
+        block = start_block_idx
+        while True:
+            measured_idx = block - burn_in_blocks
+            measuring = measured_idx >= 0
+            if self.cm_diffusion_est and (
+                    measured_idx == 0 or (cmd_window and measured_idx > 0
+                                          and measured_idx % cmd_window
+                                          == 0)):
+                state = state._replace(
+                    cmd_accum=torch.zeros_like(state.cmd_accum))
+            step_offset = 0
+            if measuring:
+                self._check_block_length(nts)
+                win_pos = measured_idx % window
+                if win_pos == 0 or aux is None:
+                    # A window's start; or a resume inside a window
+                    # without its accumulators, which restart from zero.
+                    aux = self._fresh_aux(dtype, device, num_rows)
+                step_offset = win_pos * nts
+            draws = self._draws(consts, block_offset + block, nts, noise,
+                                comb)
+            state, aux, steps, est, _ = self._run(
+                state, draws, consts, measuring, aux, step_offset)
+            props = PropsData(*(torch.stack(column).cpu()
+                                for column in zip(*steps)))
+            rows = {name: torch.stack(values, dim=1).cpu()
+                    for name, values in est.items()}
+            yield (props, rows, state,
+                   aux if measuring and window > 1 else None)
+            block += 1
 
     # -- public sampling APIs -------------------------------------------------
 
@@ -901,65 +1158,27 @@ class Sampling:
         ring buffer keeps its fill.  ``aux_init`` (arrays or tensors by
         accumulator name) are the pure accumulators of a window that
         spans the cut; names it lacks start from zero.
+
+        The loop is a fused sweep's (``phd_qmclib_torch.parallel.
+        ParamSweep``) with this sampling as its one row.
         """
-        state = ini_state
-        dtype, device = state.pos.dtype, state.pos.device
-        if self.cm_diffusion_est and state.cmd_accum is None:
-            state = state._replace(cmd_accum=torch.zeros(
-                state.pos.shape[0], dtype=dtype, device=device))
-        start_block_idx = int(start_block_idx)
-        if self.itc_est_spec is not None and (
-                state.itc_buf is None or start_block_idx < burn_in_blocks):
-            # A state without the ring buffer starts an empty fill (the
-            # lag counts discount the unfilled rows).  A filled buffer
-            # would come out of the burn-in misaligned with its slots,
-            # walkers cloned and killed under it, yet counted as valid.
-            state = state._replace(**self._fresh_itc(dtype, device))
-        nts = num_time_steps_block
-        consts = self._consts(dtype, device)
-        window = self.pfw_window_blocks(nts)
-        cmd_window = self.cm_window_blocks
-        noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
-        aux = None
-        if window > 1 and aux_init is not None:
-            aux = self._fresh_aux(dtype, device)
-            aux.update((name, torch.as_tensor(value, dtype=dtype,
-                                              device=device))
-                       for name, value in aux_init.items() if name in aux)
-        block = start_block_idx
-        while True:
-            measured_idx = block - burn_in_blocks
-            measuring = measured_idx >= 0
-            if self.cm_diffusion_est and (
-                    measured_idx == 0 or (cmd_window and measured_idx > 0
-                                          and measured_idx % cmd_window
-                                          == 0)):
-                state = state._replace(
-                    cmd_accum=torch.zeros_like(state.cmd_accum))
-            step_offset = 0
-            if measuring:
-                self._check_block_length(nts)
-                win_pos = measured_idx % window
-                if win_pos == 0 or aux is None:
-                    # A window's start; or a resume inside a window
-                    # without its accumulators, which restart from zero.
-                    aux = self._fresh_aux(dtype, device)
-                step_offset = win_pos * nts
-            draws = self._block_draws(block_offset + block, nts, state,
-                                      noise)
-            state, aux, steps, est, _ = self._run(
-                state, draws, consts, measuring, aux, step_offset)
-            props = PropsData(*(torch.stack(column).cpu()
-                                for column in zip(*steps)))
-            rows = {name: torch.stack(values).cpu()
-                    for name, values in est.items()}
+        state = _as_rows(ini_state)
+        consts = self._consts(state.pos.dtype, state.pos.device)
+        if aux_init is not None:
+            aux_init = {name: torch.as_tensor(value)[None]
+                        for name, value in aux_init.items()}
+        for props, rows, last, carry in self._row_blocks(
+                consts, state, num_time_steps_block, burn_in_blocks,
+                block_offset, start_block_idx, aux_init):
+            rows = {name: value[0] for name, value in rows.items()}
             yield SamplingBlock(
-                props, rows.get("density"), rows.get("ssf"), state,
+                PropsData(*(column[:, 0] for column in props)),
+                rows.get("density"), rows.get("ssf"), _row(last, 0),
                 iter_obd=rows.get("obd"), iter_cmd=rows.get("cmd"),
                 iter_g2=rows.get("g2"), iter_itc=rows.get("itc"),
                 iter_itc_nw=rows.get("itc_nw"),
-                aux_carry=aux if measuring and window > 1 else None)
-            block += 1
+                aux_carry=(None if carry is None else
+                           {name: acc[0] for name, acc in carry.items()}))
 
     def states(self, ini_state: State) -> t.Iterator[State]:
         """Step-by-step state generator (one block per step); use
@@ -982,23 +1201,42 @@ class Sampling:
         if num_time_steps_block % thin:
             raise ValueError(
                 "num_time_steps_block must be divisible by thin")
-        state = ini_state
-        dtype, device = state.pos.dtype, state.pos.device
-        consts = self._consts(dtype, device)
-        noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
+        state = _as_rows(ini_state)
+        consts = self._consts(state.pos.dtype, state.pos.device)
+        noise = torch.empty(state.pos.shape, dtype=state.pos.dtype,
+                            device=state.pos.device)
         block = int(block_offset)
         while True:
-            draws = self._block_draws(block, num_time_steps_block, state,
-                                      noise)
+            draws = self._draws(consts, block, num_time_steps_block, noise,
+                                None)
             state, _, steps, _, kept = self._run(
                 state, draws, consts, False, None, 0, thin)
-            props = PropsData(*(torch.stack(column).cpu()
+            props = PropsData(*(torch.stack(column)[:, 0].cpu()
                                 for column in zip(*steps)))
             ensembles = dict(zip(("pos", "energies", "weights"),
-                                 (torch.stack(column)
+                                 (torch.stack(column)[:, 0]
                                   for column in zip(*kept))))
-            yield ensembles, SamplingBlock(props, None, None, state)
+            yield ensembles, SamplingBlock(props, None, None,
+                                           _row(state, 0))
             block += 1
+
+    def _replay(self, consts: _Consts, state: State, comb_u: torch.Tensor,
+                xi: torch.Tensor) -> t.Dict[str, torch.Tensor]:
+        """:meth:`replay_states` of R rows (:func:`_row_consts`): ``comb_u
+        (nts, R, Wm)``, ``xi (nts, R, Wm, N)``; each output with the
+        rows' axis after the steps', ``parent`` within its row."""
+        e_prev_slots = state.energies if self.ref_compat else None
+        offsets = 0 if consts.offsets is None else consts.offsets
+        out = {name: [] for name in (
+            "num_walkers", "energy", "weight", "ref_energy",
+            "accum_energy", "pos", "energies", "weights", "parent")}
+        for step in range(comb_u.shape[0]):
+            state, e_prev_slots, branch = self._step(
+                state, e_prev_slots, comb_u[step], xi[step], consts)
+            for name in out:
+                out[name].append(branch.parent - offsets if name == "parent"
+                                 else getattr(state, name))
+        return {name: torch.stack(values) for name, values in out.items()}
 
     def replay_states(self, ini_state: State, comb_u,
                       diffusion_noise) -> t.Dict[str, torch.Tensor]:
@@ -1014,19 +1252,9 @@ class Sampling:
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
         comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
         xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
-        consts = self._consts(dtype, device)
-        state = ini_state
-        e_prev_slots = ini_state.energies if self.ref_compat else None
-        out = {name: [] for name in (
-            "num_walkers", "energy", "weight", "ref_energy",
-            "accum_energy", "pos", "energies", "weights", "parent")}
-        for step in range(comb_u.shape[0]):
-            state, e_prev_slots, branch = self._step(
-                state, e_prev_slots, comb_u[step], xi[step], consts)
-            for name in out:
-                out[name].append(branch.parent if name == "parent"
-                                 else getattr(state, name))
-        return {name: torch.stack(values) for name, values in out.items()}
+        out = self._replay(self._consts(dtype, device), _as_rows(ini_state),
+                           comb_u[:, None], xi[:, None])
+        return {name: value[:, 0] for name, value in out.items()}
 
     def replay_estimators(self, ini_state: State, comb_u, diffusion_noise,
                           aux_in: t.Optional[dict] = None,
@@ -1048,15 +1276,16 @@ class Sampling:
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
         comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
         xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
-        aux = self._fresh_aux(dtype, device)
+        aux = self._fresh_aux(dtype, device, 1)
         if aux_in is not None:
             aux = {name: torch.as_tensor(aux_in[name], dtype=dtype,
-                                         device=device) for name in aux}
+                                         device=device)[None]
+                   for name in aux}
         if self.itc_est_spec is not None and ini_state.itc_buf is None:
             ini_state = ini_state._replace(
                 **self._fresh_itc(dtype, device))
         state, aux, _, est, _ = self._run(
-            ini_state, zip(comb_u, xi), self._consts(dtype, device), True,
-            aux, step_offset)
-        return ({name: torch.stack(rows) for name, rows in est.items()},
-                aux, state)
+            _as_rows(ini_state), zip(comb_u[:, None], xi[:, None]),
+            self._consts(dtype, device), True, aux, step_offset)
+        return ({name: torch.stack(rows)[:, 0] for name, rows in est.items()},
+                {name: acc[0] for name, acc in aux.items()}, _row(state, 0))

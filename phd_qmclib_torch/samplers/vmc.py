@@ -38,7 +38,8 @@ import torch
 
 from .. import utils
 from ..models import mrbp
-from ..ops import pairwise, prng
+from ..ops import prng
+from .dmc import _as_rows, _row, _row_sums, _rows_model, _rows_value
 
 __all__ = [
     "OBDEstSpec",
@@ -111,10 +112,31 @@ class PairCorrEstSpec:
 
 
 class _Consts(t.NamedTuple):
-    """What a run needs on the device, made once per run."""
+    """What a run needs on the device, made once per run, for R rows
+    (a fused sweep's; one for a single sampling): a constant the rows
+    share as a single sampling has it, one that differs with the row
+    axis first (see ``phd_qmclib_torch.samplers.dmc._Consts``)."""
     cfc: mrbp.CFCParams
-    params: torch.Tensor  # pairwise.pack_params(cfc), the kernels' vector
-    obd_offsets: t.Optional[torch.Tensor]  # (num_pos,)
+    params: torch.Tensor  # pack_params(cfc): (16,), or the (R, 16) table
+    obd_offsets: t.Optional[torch.Tensor]  # (num_pos,), (num_pos, R, 1, 1)
+    move_spread: t.Union[float, torch.Tensor]  # (R, 1, 1) where it differs
+    seeds: t.Tuple[int, ...]
+    keys: t.Optional[torch.Tensor]    # rows, gaussian: prng.key_table(seeds)
+    spreads: t.Optional[torch.Tensor]  # rows, gaussian: (R,) scales
+
+
+def _row_consts(samplings, dtype, device) -> _Consts:
+    """The constants of the rows ``samplings`` (a fused sweep's, or one
+    sampling) for a run in ``dtype`` on ``device``."""
+    cfc, params, offsets = _rows_model(samplings, dtype, device)
+    seeds = tuple(int(s.rng_seed) for s in samplings)
+    spreads = [s.move_spread for s in samplings]
+    noise_rows = samplings[0].gaussian and len(samplings) > 1
+    return _Consts(
+        cfc, params, offsets, _rows_value(spreads, dtype, device, 3), seeds,
+        prng.key_table(seeds, device) if noise_rows else None,
+        (torch.tensor(spreads, dtype=dtype, device=device) if noise_rows
+         else None))
 
 
 def state_from_numpy(state, device="cuda") -> State:
@@ -203,12 +225,7 @@ class Sampling:
                 or self.pair_corr_est_spec is not None)
 
     def _consts(self, dtype, device) -> _Consts:
-        cfc = mrbp.cast_params(self.cfc_params, dtype, device)
-        return _Consts(
-            cfc, pairwise.pack_params(cfc, dtype, device),
-            (torch.as_tensor(self.obd_pos_offsets, dtype=dtype,
-                             device=device)
-             if self.obd_est_spec is not None else None))
+        return _row_consts((self,), dtype, device)
 
     def _check_block_length(self, num_steps_block: int) -> None:
         if self._chunked and (
@@ -278,55 +295,57 @@ class Sampling:
 
     def _step(self, state: State, disp: torch.Tensor, u: torch.Tensor,
               consts: _Consts, with_est: bool) -> State:
-        """One Metropolis step on the displacements ``disp (W, N)`` and
-        the acceptance uniforms ``u (W,)``; ``with_est`` carries the
-        proposal's S(k) parts and OBDM grid through rejections."""
+        """One Metropolis step of R rows (every field of ``state`` with
+        the rows' leading axis) on the displacements ``disp (R, W, N)``
+        and the acceptance uniforms ``u (R, W)``; ``with_est`` carries
+        the proposal's S(k) parts and OBDM grid through rejections."""
         funcs, cfc = self.core_funcs, consts.cfc
         prop = mrbp.recast(state.pos + disp, cfc)
         lp_prop, e_prop = funcs.log_psi_and_energy(prop, cfc, consts.params)
         # Metropolis condition of the reference (qmc_base/vmc.py:636).
         accept = lp_prop > 0.5 * torch.log(u) + state.wf_abs_log
-        new = State(torch.where(accept[:, None], prop, state.pos),
+        new = State(torch.where(accept[..., None], prop, state.pos),
                     torch.where(accept, lp_prop, state.wf_abs_log),
                     torch.where(accept, e_prop, state.energy), accept)
         if with_est and self.ssf_est_spec is not None:
             parts = funcs.fourier_density_parts_harmonics(
                 self.ssf_est_spec.num_modes, prop, cfc)
             new = new._replace(ssf_parts=torch.where(
-                accept[:, None, None], parts, state.ssf_parts))
+                accept[..., None, None], parts, state.ssf_parts))
         if with_est and self.obd_est_spec is not None:
             grid = funcs.one_body_density_grid(consts.obd_offsets, prop, cfc)
             new = new._replace(obd_parts=torch.where(
-                accept[:, None], grid, state.obd_parts))
+                accept[..., None], grid, state.obd_parts))
         return new
 
     def _measure(self, consts: _Consts, pos: torch.Tensor,
                  chunk: int) -> t.Dict[str, torch.Tensor]:
-        """The chunked mode's estimator sums at the end of chunk
-        ``chunk``; the OBDM and g2 only every ``est_every_mult``-th
-        chunk."""
+        """The chunked mode's estimator sums of R rows (``pos (R, W,
+        N)``) at the end of chunk ``chunk``, each row summed over its
+        chains as a single sampling sums them; the OBDM and g2 only
+        every ``est_every_mult``-th chunk."""
         funcs, cfc = self.core_funcs, consts.cfc
         rows = {}
         if self.ssf_est_spec is not None:
-            rows["ssf"] = funcs.fourier_density_parts_harmonics(
-                self.ssf_est_spec.num_modes, pos, cfc).sum(dim=0)
+            rows["ssf"] = _row_sums(funcs.fourier_density_parts_harmonics(
+                self.ssf_est_spec.num_modes, pos, cfc))
         spec = self.obd_est_spec
         if spec is not None and (chunk + 1) % spec.est_every_mult == 0:
-            rows["obd"] = funcs.one_body_density_grid(
-                consts.obd_offsets, pos, cfc).sum(dim=0)
+            rows["obd"] = _row_sums(funcs.one_body_density_grid(
+                consts.obd_offsets, pos, cfc))
         spec = self.pair_corr_est_spec
         if spec is not None and (chunk + 1) % spec.est_every_mult == 0:
-            rows["g2"] = funcs.pair_dist_histogram(spec.num_bins, pos,
-                                                   cfc).sum(dim=0)
+            rows["g2"] = _row_sums(funcs.pair_dist_histogram(
+                spec.num_bins, pos, cfc))
         return rows
 
     def _run(self, state: State, draws, consts: _Consts, thin: int = 0):
-        """Step through ``draws``, an iterable of ``(disp, u)``.
+        """Step R rows through ``draws``, an iterable of ``(disp, u)``.
 
         Returns ``(state, props, rows, confs)``: the per-step
         ``(wf_abs_log, energy, move_stat)``, the estimator rows by name
         and, with ``thin``, every ``thin``-th step's positions, all as
-        lists of device tensors.
+        lists of device tensors with the rows' leading axis.
         """
         chunked, cadence = self._chunked, self.est_every
         if chunked:
@@ -340,7 +359,7 @@ class Sampling:
                 confs.append(state.pos)
             if not chunked:
                 step_rows = {"ssf": state.ssf_parts, "obd": state.obd_parts}
-                step_rows = {name: parts.sum(dim=0)
+                step_rows = {name: _row_sums(parts)
                              for name, parts in step_rows.items()
                              if parts is not None}
             elif (step + 1) % cadence == 0:
@@ -351,39 +370,69 @@ class Sampling:
                 rows.setdefault(name, []).append(row)
         return state, props, rows, confs
 
-    def _block_draws(self, block_index: int, num_steps_block: int,
-                     state: State, noise: t.Optional[torch.Tensor]):
-        """The displacements and acceptance uniforms of one block, drawn
-        on the state's device as the steps consume them.  Gaussian
-        displacements, already scaled by ``move_spread``, are written into
-        the run's buffer ``noise``: each step consumes them before the
-        next draw, in stream order."""
-        shape, dtype, device = (state.pos.shape, state.pos.dtype,
-                                state.pos.device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(utils.block_seed(self.rng_seed, block_index))
+    def _draws(self, consts: _Consts, block_index: int,
+               num_steps_block: int, shape, dtype, device,
+               noise: t.Optional[torch.Tensor],
+               bufs: t.Optional[t.Tuple[torch.Tensor, torch.Tensor]]):
+        """The displacements and acceptance uniforms of one block of R
+        rows of ``shape (R, W, N)``, drawn on the device as the steps
+        consume them: each row's from its own ``torch.Generator``, seeded
+        from ``(rng_seed, block index)`` as its single sampling's.
+        Gaussian displacements, already scaled by each row's
+        ``move_spread``, are written into the run's buffer ``noise`` (one
+        launch for all rows); the rows' uniforms into ``bufs`` (a single
+        sampling draws fresh tensors): each step consumes them before
+        the next draw, in stream order."""
+        gens = []
+        for seed in consts.seeds:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(utils.block_seed(seed, block_index))
+            gens.append(gen)
         for step in range(num_steps_block):
+            global_step = block_index * num_steps_block + step
+            if bufs is None:
+                gen = gens[0]
+                if self.gaussian:
+                    disp = prng.normal(
+                        consts.seeds[0], global_step, shape[1:], dtype,
+                        device, scale=self.move_spread, out=noise[0])
+                else:
+                    disp = self.move_spread * (torch.rand(
+                        shape[1:], generator=gen, dtype=dtype,
+                        device=device) - 0.5)
+                u = torch.rand(shape[1:2], generator=gen, dtype=dtype,
+                               device=device)
+                yield disp[None], u[None]
+                continue
+            moves, accept = bufs
             if self.gaussian:
-                disp = prng.normal(
-                    self.rng_seed, block_index * num_steps_block + step,
-                    shape, dtype, device, scale=self.move_spread, out=noise)
-            else:
-                disp = self.move_spread * (torch.rand(
-                    shape, generator=gen, dtype=dtype, device=device) - 0.5)
-            u = torch.rand(shape[:1], generator=gen, dtype=dtype,
-                           device=device)
-            yield disp, u
+                disp = prng.normal_rows(consts.keys, global_step,
+                                        consts.spreads, noise)
+            for r, gen in enumerate(gens):
+                if not self.gaussian:
+                    torch.rand(moves[r].shape, generator=gen, out=moves[r])
+                torch.rand(accept[r].shape, generator=gen, out=accept[r])
+            if not self.gaussian:
+                disp = consts.move_spread * (moves - 0.5)
+            yield disp, accept
 
     # -- public sampling APIs -------------------------------------------------
 
-    def _blocks(self, num_steps_block: int, ini_state: State,
-                block_offset: int, thin: int):
-        """Yield ``(confs, block)`` per block; see :meth:`blocks`."""
+    def _row_blocks(self, consts: _Consts, ini_state: State,
+                    num_steps_block: int, block_offset: int, thin: int):
+        """The block loop of R rows: ``ini_state`` has the rows' leading
+        axis, this sampling gives the static structure and ``consts``
+        (:func:`_row_consts`) the rows' own constants.  Yields ``(confs,
+        props, rows, accept_rates, state)`` per block: every ``thin``-th
+        step's positions ``(R, nts // thin, W, N)`` (with ``thin``), the
+        per-step properties ``(R, nts, W)`` and estimator rows ``(R, n,
+        ...)`` on the device, the rows' acceptance rates (floats, the
+        block's one host sync) and the last state."""
         if num_steps_block < 1:
             raise ValueError("num_steps_block must be nonzero and positive")
         self._check_block_length(thin or num_steps_block)
         state = ini_state
-        consts = self._consts(state.pos.dtype, state.pos.device)
+        dtype, device = state.pos.dtype, state.pos.device
         if not self._chunked:
             # A state built or loaded without the parts the every-step
             # mode carries: compute them.
@@ -391,23 +440,41 @@ class Sampling:
                                         state.obd_parts)
             state = state._replace(ssf_parts=ssf, obd_parts=obd)
         block_index = int(block_offset)
-        noise = (torch.empty(state.pos.shape, dtype=state.pos.dtype,
-                             device=state.pos.device)
+        shape = state.pos.shape
+        noise = (torch.empty(shape, dtype=dtype, device=device)
                  if self.gaussian else None)
+        bufs = None
+        if shape[0] > 1:
+            bufs = (None if self.gaussian else
+                    torch.empty(shape, dtype=dtype, device=device),
+                    torch.empty(shape[:2], dtype=dtype, device=device))
         while True:
-            draws = self._block_draws(block_index, num_steps_block, state,
-                                      noise)
+            draws = self._draws(consts, block_index, num_steps_block, shape,
+                                dtype, device, noise, bufs)
             state, props, rows, confs = self._run(state, draws, consts, thin)
-            iter_props = PropsData(*(torch.stack(column)
-                                     for column in zip(*props)))
-            rows = {name: torch.stack(values)
+            props = PropsData(*(torch.stack(column, dim=1)
+                                for column in zip(*props)))
+            rows = {name: torch.stack(values, dim=1)
                     for name, values in rows.items()}
             # The block's one host sync.
-            accept_rate = float(iter_props.move_stat.double().mean())
-            block = SamplingBlock(iter_props, rows.get("ssf"), accept_rate,
-                                  state, rows.get("obd"), rows.get("g2"))
-            yield (torch.stack(confs) if thin else None), block
+            rates = props.move_stat.double().mean(dim=(1, 2)).tolist()
+            yield ((torch.stack(confs, dim=1) if thin else None), props,
+                   rows, rates, state)
             block_index += 1
+
+    def _blocks(self, num_steps_block: int, ini_state: State,
+                block_offset: int, thin: int):
+        """Yield ``(confs, block)`` per block; see :meth:`blocks`."""
+        state = _as_rows(ini_state)
+        consts = self._consts(state.pos.dtype, state.pos.device)
+        for confs, props, rows, rates, last in self._row_blocks(
+                consts, state, num_steps_block, block_offset, thin):
+            rows = {name: value[0] for name, value in rows.items()}
+            block = SamplingBlock(
+                PropsData(*(column[0] for column in props)),
+                rows.get("ssf"), rates[0], _row(last, 0), rows.get("obd"),
+                rows.get("g2"))
+            yield (None if confs is None else confs[0]), block
 
     def blocks(self, num_steps_block: int, ini_state: State,
                block_offset: int = 0) -> t.Iterator[SamplingBlock]:
@@ -439,10 +506,21 @@ class Sampling:
             moves = moves[:, None, :]
         if accept.dim() == 1:
             accept = accept[:, None]
-        consts = self._consts(dtype, device)
-        state, out = ini_state, []
+        shape = ini_state.pos.shape
+        out = self._replay(self._consts(dtype, device), _as_rows(ini_state),
+                           moves.expand((len(moves),) + shape)[:, None],
+                           accept.expand((len(accept),) + shape[:1])[:, None])
+        return tuple(column[:, 0] for column in out)
+
+    def _replay(self, consts: _Consts, state: State, moves: torch.Tensor,
+                accept: torch.Tensor):
+        """:meth:`replay_chain` of R rows (:func:`_row_consts`): ``moves
+        (nts, R, W, N)``, ``accept (nts, R, W)``; each output with the
+        rows' axis after the steps'."""
+        out = []
         for mu, au in zip(moves, accept):
-            disp = mu if self.gaussian else self.move_spread * (mu - 0.5)
+            disp = mu if self.gaussian \
+                else consts.move_spread * (mu - 0.5)
             state = self._step(state, disp, au, consts, with_est=False)
             out.append((state.pos, state.wf_abs_log, state.move_stat))
         return tuple(torch.stack(column) for column in zip(*out))

@@ -10,7 +10,8 @@ from datetime import datetime, timezone
 import numpy as np
 import torch
 
-__all__ = ["block_seed", "get_random_rng_seed", "now", "torch_dtype"]
+__all__ = ["block_seed", "get_random_rng_seed", "now", "numpy_dtype",
+           "torch_dtype"]
 
 #: Maximum seed value (uint32 range).
 MAX_SEED = 2 ** 32 - 1
@@ -46,3 +47,8 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype."""
+    return torch.empty(0, dtype=dtype).numpy().dtype

@@ -323,9 +323,16 @@ def test_vmc_example_runs_through_the_application(tmp_path):
 
 def test_unsupported_stanzas_raise_by_name(workdir):
     base = tconfig.Loader().load(workdir / "dmc-cli-app-spec.yml")
-    for key, value in (("fused_sweep", True), ("fused_sweep_mesh", [2, 2])):
-        with pytest.raises(ValueError, match=key):
-            cli_app.CLIApp.from_config(dict(base, **{key: value}), "dmc")
+    # fused_sweep runs as in the JAX package; fused_sweep_mesh fails the
+    # JAX package's checks, and a valid one (several GPUs) raises by name.
+    assert cli_app.CLIApp.from_config(dict(base, fused_sweep=True),
+                                      "dmc").fused_sweep
+    with pytest.raises(ValueError, match="fused_sweep_mesh needs"):
+        cli_app.CLIApp.from_config(dict(base, fused_sweep_mesh=[2, 2]),
+                                   "dmc")
+    with pytest.raises(ValueError, match="fused_sweep_mesh.*several GPUs"):
+        cli_app.CLIApp.from_config(
+            dict(base, fused_sweep=True, fused_sweep_mesh=[2, 2]), "dmc")
     # Switched off, the key is accepted.
     app = cli_app.CLIApp.from_config(dict(base, fused_sweep=False), "dmc")
     assert app.meta.tags == "#qmc - #dmc - #multi-rods"
@@ -377,6 +384,23 @@ def test_chip_smoke_dicts_are_the_examples(name, mod, attr):
         == mod.Proc.from_config(example).as_config()
     for key in ("num_blocks", "burn_in_blocks"):
         assert ours[key] == example[key]
+
+
+@pytest.mark.parametrize("row", range(4))
+def test_chip_smoke_eos_dicts_are_the_example(row):
+    """Phase S1 runs ``examples/eos_fused_sweep.yml`` from dicts: each
+    row's ``proc`` stanza (anchors and merge keys resolved) equal to the
+    file's, key for key and through the procedure."""
+    import chip_smoke
+
+    raw = yaml.safe_load((EXAMPLES / "eos_fused_sweep.yml").read_text())
+    assert raw["fused_sweep"] is True and len(raw["app_spec"]) == 4
+    example = raw["app_spec"][row]["proc"]
+    ours = chip_smoke.EOS_PROCS[row]
+    assert set(ours) == set(example)
+    assert tdmc.Proc.from_config(ours) == tdmc.Proc.from_config(example)
+    assert tdmc.Proc.from_config(ours).as_config() \
+        == tdmc.Proc.from_config(example).as_config()
 
 
 def test_chip_smoke_production_dict_is_g3s_sampling():

@@ -858,3 +858,148 @@ def test_grad_exec_launches_the_vjp_once_per_backward(cuda, monkeypatch,
     assert lo <= opt_spec.tbf_contact_cutoff <= hi
     assert opt.principal_function(opt_spec.tbf_contact_cutoff) \
         <= opt.principal_function(spec.tbf_contact_cutoff)
+
+
+# -- the row variants of a fused parameter sweep -----------------------------------
+
+#: Four sweep rows of the bench model: couplings, cutoffs and supercells
+#: (so L, the minimum image's and the bin widths') differ.
+SWEEP_ROWS = ((1.0, 0.4, 128.0), (0.5, 0.35, 120.0), (2.0, 0.45, 136.0),
+              (4.0, 0.3, 128.0))
+
+
+def _table_inputs(dtype, device, per_row, nop=128):
+    specs = [mrbp.Spec(**dict(BENCH, interaction_strength=gn,
+                              tbf_contact_cutoff=rm, boson_number=nop,
+                              supercell_size=sc * nop / 128))
+             for gn, rm, sc in SWEEP_ROWS]
+    table = torch.stack([pairwise.pack_params(s.cfc_params, dtype, device)
+                         for s in specs])
+    rng = np.random.default_rng(3)
+    pos = np.concatenate([rng.uniform(0, s.supercell_size, (per_row, nop))
+                          for s in specs])
+    static = specs[0].static_spec
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    return torch.as_tensor(pos, dtype=dtype, device=device), table, kw
+
+
+@pytest.mark.parametrize("with_log_psi", [False, True])
+@pytest.mark.parametrize("dtype,rtol_e,rtol_d,atol_d", [
+    (torch.float32, 2e-5, 1e-3, 1e-4), (torch.float64, 1e-10, 1e-10, 1e-10)])
+def test_pair_kernel_table_matches_rows_and_plain(cuda, dtype, rtol_e,
+                                                  rtol_d, atol_d,
+                                                  with_log_psi):
+    """A 4-row table: each row bit-equal to a launch on its rows alone,
+    and the whole within the single-row test's tolerances of the plain
+    version."""
+    per_row = 96
+    pos, table, kw = _table_inputs(dtype, cuda, per_row)
+    kw["with_log_psi"] = with_log_psi
+    name = "log_psi_table_launch_count" if with_log_psi \
+        else "table_launch_count"
+    count = getattr(pairwise.energy_and_drift, name)
+    got = pairwise.energy_and_drift(pos, table, **kw)
+    torch.cuda.synchronize()
+    assert getattr(pairwise.energy_and_drift, name) == count + 1
+    for r in range(len(SWEEP_ROWS)):
+        rows = slice(r * per_row, (r + 1) * per_row)
+        want = pairwise.energy_and_drift(pos[rows].contiguous(),
+                                         table[r].contiguous(), **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g[rows], w)
+    plain = pairwise.energy_and_drift_plain(pos, table, **kw)
+    for g, p, rtol, atol in zip(got, plain, (rtol_e,) * 2 + (rtol_d,),
+                                (rtol_e,) * 2 + (atol_d,)):
+        torch.testing.assert_close(g, p, rtol=rtol, atol=atol)
+
+
+def test_pair_kernel_rejects_a_table_that_does_not_divide(cuda):
+    pos, table, kw = _table_inputs(torch.float32, cuda, 4)
+    with pytest.raises(ValueError, match="table of R"):
+        pairwise.energy_and_drift(pos[:-1].contiguous(), table, **kw)
+
+
+@pytest.mark.parametrize("shape", [(4352, 64), (7, 13), (5, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_normals_rows_equal_row_launches_and_plain(cuda, shape, dtype):
+    """Four keys and scales in one launch: each row word for word the
+    single-row launch and the plain version, also where a row's length
+    is not a multiple of 4 (rows then start unaligned)."""
+    keys = [11, 12, (1 << 64) - 3, 1 << 40]
+    scales = torch.tensor([0.04, 0.05, 1.0, 0.3], dtype=dtype, device=cuda)
+    step = (1 << 33) + 9
+    out = torch.empty((4,) + shape, dtype=dtype, device=cuda)
+    count = prng.normal_rows.launch_count
+    prng.normal_rows(prng.key_table(keys, cuda), step, scales, out)
+    torch.cuda.synchronize()
+    assert prng.normal_rows.launch_count == count + 1
+    plain = prng.normal_rows_plain(prng.key_table(keys, "cpu"), step,
+                                   scales.cpu(), torch.empty_like(out.cpu()))
+    for r, key in enumerate(keys):
+        want = prng.normal(key, step, shape, dtype, cuda,
+                           scale=float(scales[r]))
+        assert torch.equal(out[r], want)
+        torch.testing.assert_close(out[r].cpu(), plain[r], rtol=1e-6,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("what", ["density", "g2", "tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_histogram_groups_equal_group_launches_and_plain(cuda, what, dtype):
+    """Four bin widths (one per sweep row) in one launch, at the density
+    shape, the g2 shape (rows of distances) and past the one-warp bins:
+    each group bit-equal to a launch on its rows alone, and the whole to
+    the plain version."""
+    sizes = torch.tensor([sc for _, _, sc in SWEEP_ROWS], dtype=dtype,
+                         device=cuda)
+    rng = np.random.default_rng(5)
+    if what == "g2":
+        pos = rng.uniform(0, 68, (4, 256, 64, 64))
+        bins, widths = 128, 0.5 * sizes / 128
+    else:
+        pos = rng.uniform(0, 136, (4, 1088, 64))
+        bins = 13000 if what == "tiled" else 128
+        widths = sizes / bins
+    pos = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    table = widths.view((4,) + (1,) * (pos.dim() - 1)).contiguous()
+    count = histogram.walker_histogram.group_launch_count
+    got = histogram.walker_histogram(pos, table, bins)
+    torch.cuda.synchronize()
+    assert histogram.walker_histogram.group_launch_count == count + 1
+    for r in range(4):
+        assert torch.equal(got[r], histogram.walker_histogram(
+            pos[r], widths[r], bins))
+    assert torch.equal(got, histogram.walker_histogram_plain(pos, table,
+                                                             bins))
+
+
+def test_fused_step_on_the_card_matches_the_cpu_replay(cuda):
+    """The fused step of three rows (coupling, supercell and time step
+    differ) with K1's table and the rows' controllers on the card, in
+    f64, against the same fused step on the CPU under the same injected
+    draws."""
+    from phd_qmclib_torch.parallel import ParamSweep
+
+    rows = tuple(dmc.Sampling(
+        mrbp.Spec(**dict(BENCH, interaction_strength=gn, boson_number=16,
+                         supercell_size=sc)), dt, 64, 48, rng_seed=3)
+        for gn, sc, dt in ((1.0, 16.0, 1e-2), (2.0, 16.0, 2e-2),
+                           (0.5, 18.0, 1e-2)))
+    sweep = ParamSweep(rows)
+    rng = np.random.default_rng(0)
+    confs = [rng.uniform(0, s.model_spec.supercell_size, (48, 16))
+             for s in rows]
+    comb_u = rng.random((10, 3, 64))
+    xi = 0.1 * rng.standard_normal((10, 3, 64, 16))
+    on_cpu = sweep.replay_states(sweep.build_states(
+        confs, dtype=np.float64, device="cpu"), comb_u, xi)
+    count = pairwise.energy_and_drift.table_launch_count
+    on_card = sweep.replay_states(sweep.build_states(
+        confs, dtype=np.float64, device=cuda), comb_u, xi)
+    assert pairwise.energy_and_drift.table_launch_count == count + 10
+    assert torch.equal(on_card["parent"].cpu(), on_cpu["parent"])
+    # The single-row replay's tolerance (f64 sums in another order).
+    for name in ("pos", "energies", "weights", "ref_energy"):
+        torch.testing.assert_close(on_card[name].cpu(), on_cpu[name],
+                                   rtol=1e-9, atol=1e-9)

@@ -25,7 +25,8 @@ def test_import_pulls_in_no_jax_or_triton():
         "from phd_qmclib_torch import analysis, lieb_liniger, stats\n"
         "from phd_qmclib_torch.stats import reblock\n"
         "from phd_qmclib_torch.qmc_exec import (cli_app, config, dmc as d,\n"
-        "                                       io, vmc)\n"
+        "                                       io, report, sweep, vmc)\n"
+        "from phd_qmclib_torch.parallel import ParamSweep, VmcSweep\n"
         "from phd_qmclib_torch.qmc_exec.data import dmc as dd, vmc as dv\n"
         "from phd_qmclib_torch import mrbp_cli, wf_opt\n"
         "from phd_qmclib_torch.models import mrbp\n"

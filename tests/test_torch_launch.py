@@ -203,15 +203,16 @@ def test_dmc_draws_scaled_noise_into_one_buffer(dtype):
     sampling = _dmc_sampling()
     confs = np.random.default_rng(0).uniform(0, 8.0, (6, 8))
     state = sampling.build_state(confs, dtype=dtype, device="cpu")
-    noise = torch.empty(state.pos.shape, dtype=dtype)
+    noise = torch.empty((1,) + state.pos.shape, dtype=dtype)
     nts = 4
+    consts = sampling._consts(dtype, "cpu")
     for step, (comb_u, xi) in enumerate(
-            sampling._block_draws(2, nts, state, noise)):
+            sampling._draws(consts, 2, nts, noise, None)):
         assert xi is noise
         want = sampling.sigma_spread * prng.normal_plain(
             sampling.rng_seed, 2 * nts + step, state.pos.shape, dtype)
-        assert torch.equal(xi, want)
-        assert comb_u.shape == state.weights.shape
+        assert torch.equal(xi[0], want)
+        assert comb_u.shape == (1,) + state.weights.shape
 
 
 def test_vmc_draws_scaled_gaussian_moves_into_one_buffer():
@@ -219,14 +220,16 @@ def test_vmc_draws_scaled_gaussian_moves_into_one_buffer():
                             num_walkers=6, gaussian=True)
     state = sampling.build_state(
         np.random.default_rng(1).uniform(0, 8.0, (6, 8)), device="cpu")
-    noise = torch.empty(state.pos.shape, dtype=state.pos.dtype)
-    for step, (disp, u) in enumerate(
-            sampling._block_draws(1, 3, state, noise)):
-        assert disp is noise
+    noise = torch.empty((1,) + state.pos.shape, dtype=state.pos.dtype)
+    consts = sampling._consts(state.pos.dtype, "cpu")
+    for step, (disp, u) in enumerate(sampling._draws(
+            consts, 1, 3, noise.shape, noise.dtype, noise.device, noise,
+            None)):
+        assert disp.data_ptr() == noise.data_ptr()
         want = 0.15 * prng.normal_plain(3, 3 + step, state.pos.shape,
                                         state.pos.dtype)
-        assert torch.equal(disp, want)
-        assert u.shape == state.pos.shape[:1]
+        assert torch.equal(disp[0], want)
+        assert u.shape == (1,) + state.pos.shape[:1]
 
 
 def test_blocks_reuse_the_noise_buffer_without_changing_the_chain():

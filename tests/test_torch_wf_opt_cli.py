@@ -130,8 +130,11 @@ def test_stanza_validation_matches_jax():
         jcli_app.WFOptAppSpec.from_config(bare)
     assert str(ours.value) == str(theirs.value)
     assert "stored VMC result" in str(ours.value)
-    # fused sweeps stay refused by name, wf_opt stanza or not.
+    # A wf_opt stanza cannot ride a fused sweep: the JAX package's text.
     config = {"fused_sweep": True, "app_spec": [
         {"proc_type": "wf_opt", "proc": VMC_PROC}]}
-    with pytest.raises(ValueError, match="fused_sweep"):
+    with pytest.raises(ValueError, match="fused sweep") as ours:
         cli_app.CLIApp.from_config(config, "dmc")
+    with pytest.raises(ValueError) as theirs:
+        jcli_app.CLIApp.from_config(config, "dmc")
+    assert str(ours.value) == str(theirs.value)
