@@ -168,9 +168,24 @@ S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
    4,096 chains at rm 0.3-0.6 (``VmcSweep``), one burn-in and one
    measured block, each row bit-equal to its standalone ``vmc.Sampling``
    run; chain-steps/s fused and sequential.
+M. several ranks, a walker mesh (one process per rank,
+   ``parallel.launch``): M0, the bench configuration through
+   ``Proc.exec`` with ``num_mesh_devices: 1``, one rank over NCCL (its
+   collectives every step), E/N in the band, ms/step beside R0's; M1, 4
+   gloo ranks on the card (NCCL takes one rank per GPU), 4 x 4,352 slots
+   from D's state with density and S(k) and a rebalance at every block:
+   E/N in the band, the sum rules at every measured step, a rebalance
+   keeping the sorted positions bit-equal; M2, the 2-shard f64
+   injected-noise replay on the card against the CPU; M3, a forced shard
+   collapse (two of four shards empty) rebalanced and resumed, and its
+   checkpoint resumed on 2 ranks; M4, ``fused_sweep_mesh: [2, 2]``, two
+   EOS rows on 4 ranks, each bit-equal to its run alone on 2 ranks; M5,
+   the variational example on 2 ranks.  Step times over gloo on one card
+   measure correctness only.
 
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b and S2, in
+G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b, S2, M0,
+and M1 and M5 (their rank 0, in this process), in
 all and per step of each run; K1 must run on every DMC step and K1 log
 on every VMC step, a fused DMC step must launch K1's table and K2's rows
 once, a fused VMC step K1 log's table.  K3 lies on none of them (the DMC
@@ -1434,7 +1449,8 @@ def require_equal(got, want, what: str) -> None:
 
 def run_proc_bench(device, card: str, baseline: dict):
     """Phase R0: the bench configuration from nothing, through the
-    execution layer.  Returns the launch counts and the steps run."""
+    execution layer.  Returns the launch counts, the steps run and the
+    CUDA-event ms per step."""
     proc = dmc_exec.Proc.from_config(BENCH_PROC)
     reset_counts()
     t0 = time.perf_counter()
@@ -1476,7 +1492,7 @@ def run_proc_bench(device, card: str, baseline: dict):
           D_timed_blocks=baseline, mean_num_walkers=mean_nw,
           energy_per_boson=e_per_boson, energy_err_two_blocks=e_err,
           energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
-    return launches, steps_run
+    return launches, steps_run, exec_ms / steps_run
 
 
 def proc_sum_rules(proc, data) -> dict:
@@ -1606,7 +1622,7 @@ def run_proc_production(device, card: str, state, g3: dict,
 def run_proc_vmc_example(device, card: str, v2: dict):
     """Phase R2: the variational example through ``vmc.Proc.exec`` from
     its regular start, held against V2's block bit for bit.  Returns the
-    launch counts and the steps run."""
+    launch counts, the steps run and E/N."""
     proc = vmc_exec.Proc.from_config(VARIATIONAL_PROC).evolve(dict(
         num_blocks=1, burn_in_blocks=1, keep_iter_data=True))
     t0 = time.perf_counter()
@@ -1642,7 +1658,7 @@ def run_proc_vmc_example(device, card: str, v2: dict):
           step_ms_cuda_events=exec_ms / steps_run, V2_step_ms=v2["step_ms"],
           series_bit_equal_to_V2_block=0, energy_per_boson=e_per_n,
           accept_rate=accept, launches=launches, ok=True)
-    return launches, steps_run
+    return launches, steps_run, e_per_n
 
 
 def check_proc_resume(device, card: str) -> None:
@@ -2601,6 +2617,350 @@ def run_vmc_sweep(device, card: str):
     return counts, steps
 
 
+# -- phase M: several ranks, a walker mesh -------------------------------------
+
+def card_mesh(device, ranks: int, rows: int = 1):
+    """Phase M's mesh on the one card: ``ranks`` gloo ranks on
+    ``device`` (NCCL takes one rank per GPU; M0 runs NCCL at one
+    rank)."""
+    return parallel.make_walker_mesh(devices=[device] * ranks,
+                                     backend="gloo", rows=rows)
+
+
+#: M1: the bench model on 4 ranks of 4,352 slots from D's (equilibrated)
+#: state, density and S(k) every 8th step, a rebalance at every block.
+M1_PROC = dict(BENCH_PROC, num_mesh_devices=4, rebalance_every=1,
+               burn_in_blocks=0, num_blocks=2, keep_iter_data=True,
+               est_every=8, density_spec=dict(num_bins=128, as_pure_est=False),
+               ssf_spec=dict(num_modes=64, as_pure_est=False))
+#: M3: the bench model on 4 ranks of 512 slots, a pure density window of
+#: two blocks, cut after block 2 and resumed on 2 ranks.
+M3_PROC = dict(BENCH_PROC, max_num_walkers=2048, target_num_walkers=1536,
+               num_mesh_devices=4, num_blocks=4, burn_in_blocks=1,
+               num_time_steps_block=64, checkpoint_every=1, est_every=8,
+               density_spec=dict(num_bins=128, as_pure_est=True,
+                                 pfw_num_time_steps=128))
+#: M5: the variational example's blocks on 2 ranks, in steps.
+M5_STEPS = 512
+#: M4: two EOS rows on a 2 x 2 mesh, and each on 2 ranks alone.
+M4_DEPTH = dict(num_blocks=2, burn_in_blocks=1, num_time_steps_block=128)
+
+
+def mesh_sum_rules(label: str, data, every: int) -> dict:
+    """Density N nw and S(0) N^2 nw at every measured step of every
+    block (a run with its series)."""
+    series = data.series
+    devs = {}
+    for name, rows, per_walker in (
+            ("density", series.density.sum(-1), NOP),
+            ("ssf", series.ssf[..., 0, 0], NOP ** 2)):
+        want = per_walker * series.iter_props.num_walkers[:, every - 1::every]
+        require(rows.shape == want.shape,
+                f"{label} {name}: a row per measured step")
+        devs[name] = float((np.abs(rows - want) / want).max())
+        require(devs[name] < SUM_RULE_RTOL,
+                f"{label} {name} sum rule within {SUM_RULE_RTOL}: "
+                f"{devs[name]}")
+    return devs
+
+
+def energy_per_boson(label: str, blocks) -> float:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # two blocks: no converged reblocking
+        e_per_boson = float(blocks.energy.mean) / NOP
+    lo, hi = ENERGY_BRACKET
+    require(abs(e_per_boson - ENERGY_REF) < ENERGY_TOL
+            and lo < e_per_boson < hi,
+            f"{label}: E/N {e_per_boson} within {ENERGY_TOL} of "
+            f"{ENERGY_REF}")
+    return e_per_boson
+
+
+def steady_step_ms(mesh, sampling, state, burn: int, timed: int) -> float:
+    """CUDA-event ms per step of ``timed`` blocks of ``sampling`` from
+    ``state`` after ``burn`` blocks, on the rank ``mesh`` (``None``: one
+    device, unsharded)."""
+    if mesh is not None:
+        sampling = dataclasses.replace(sampling, mesh=mesh)
+    blocks = sampling.blocks(state, NTS, block_offset=BURN_BLOCKS)
+    for _ in range(burn):
+        next(blocks)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        next(blocks)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (timed * NTS)
+
+
+def run_mesh_bench(device, card: str, r0_step_ms: float, state):
+    """Phase M0: the bench configuration through ``Proc.exec`` with
+    ``num_mesh_devices: 1``, one rank over NCCL on the card (its
+    collectives every step); then the steady step of the same sampling
+    from D's last state, unsharded and on the NCCL rank, in turns.
+    Returns the launch counts and the steps run."""
+    proc = dmc_exec.Proc.from_config(dict(BENCH_PROC, num_mesh_devices=1))
+    spec = proc.mesh_spec(device)
+    require(spec.backend == "nccl" and spec.devices == (str(device),),
+            f"M0 mesh {spec}: one rank over NCCL on {device}")
+    proc_input = dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
+    result, exec_ms, wall_s, launches = timed_exec(proc, proc_input)
+    steps_run = (proc.burn_in_blocks + proc.num_blocks) * NTS
+    require(tuple(result.state.num_walkers.shape) == (1,)
+            and result.state.pos.device.type == "cuda",
+            "M0: the global state, one shard, on the card")
+    e_per_boson = energy_per_boson("M0", result.data.blocks)
+    require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
+            f"M0 kernel launches {launches}")
+    # The steady step: 1 + 2 blocks each, unsharded and NCCL in turns.
+    steady = {"unsharded": [], "nccl": []}
+    for kind in ("unsharded", "nccl", "nccl", "unsharded"):
+        if kind == "nccl":
+            steady[kind].append(parallel.launch(
+                steady_step_ms, spec, proc.sampling, state, 1, 2))
+        else:
+            steady[kind].append(steady_step_ms(None, proc.sampling, state,
+                                               1, 2))
+    phase("M0", check="bench configuration, num_mesh_devices 1 over NCCL",
+          card=card, backend=spec.backend, steps_run=steps_run,
+          exec_wall_s=wall_s, step_ms_cuda_events=exec_ms / steps_run,
+          R0_step_ms_cuda_events=r0_step_ms,
+          steady_step_ms_cuda_events=steady,
+          launches_per_step={k: v / steps_run for k, v in launches.items()
+                             if v},
+          energy_per_boson=e_per_boson, energy_dev=e_per_boson - ENERGY_REF,
+          launches=launches, ok=True)
+    return launches, steps_run
+
+
+def run_mesh_estimators(device, card: str, state, block_offset: int):
+    """Phase M1: 4 gloo ranks on the card, 4 x 4,352 slots at the bench
+    model from D's last state (re-laid out onto 4 shards), density and
+    S(k), a rebalance at every block.  Returns the launch counts of rank
+    0 and the steps run."""
+    proc = dmc_exec.Proc.from_config(dict(M1_PROC, block_offset=block_offset))
+    mesh = card_mesh(device, 4)
+    result, exec_ms, wall_s, launches = timed_exec(
+        proc, dmc_exec.ProcInput(state), mesh=mesh)
+    steps_run = (proc.burn_in_blocks + proc.num_blocks) * NTS
+    last = result.state
+    require(tuple(last.num_walkers.shape) == (4,)
+            and bool(torch.isfinite(last.pos).all()),
+            "M1: the global state of 4 shards, finite")
+    devs = mesh_sum_rules("M1", result.data, proc.est_every)
+    e_per_boson = energy_per_boson("M1", result.data.blocks)
+    # A rebalance moves walkers, never changes one.
+    sampling = proc.sampling
+    dealt = sampling.rebalance(last)
+    counts = dealt.num_walkers.tolist()
+    require(max(counts) - min(counts) <= 1
+            and torch.equal(dealt.pos[~dealt.masks].flatten().sort().values,
+                            last.pos[~last.masks].flatten().sort().values),
+            "M1: a rebalance deals the walkers evenly and keeps their "
+            "sorted positions bit-equal")
+    require(launches["K1"] >= steps_run and launches["K2"] == steps_run
+            and launches["K4"] > 0,
+            f"M1 rank 0's kernel launches {launches}")
+    nw = result.data.series.iter_props.num_walkers
+    phase("M1", check="4 gloo ranks on one card: density, S(k), rebalance",
+          card=card, backend="gloo", ranks=4,
+          slots_per_rank=proc.max_num_walkers // 4,
+          steps_run=steps_run, exec_wall_s=wall_s,
+          step_ms_cuda_events_gloo=exec_ms / steps_run,
+          mean_num_walkers=float(nw.mean()),
+          walker_steps_per_s_gloo=float(nw.sum()) / wall_s,
+          sum_rule_max_rel_dev=devs, final_shard_counts=last.num_walkers
+          .tolist(), energy_per_boson=e_per_boson,
+          energy_dev=e_per_boson - ENERGY_REF, rank0_launches=launches,
+          ok=True)
+    return launches, steps_run
+
+
+def mesh_replay(mesh, sampling, confs, comb_u, xi):
+    """Rank function of phase M2: the 2-shard injected-noise replay on
+    the rank's card and on the CPU, f64; the global positions of both."""
+    out = []
+    for where in (mesh, dataclasses.replace(mesh, device=torch.device("cpu"))):
+        run = dataclasses.replace(sampling, mesh=where)
+        state = run.build_state(confs, device=where.device)
+        replay = run.replay_states(state, comb_u, xi)
+        out.append({name: torch.stack([where.cat(x) for x in replay[name]])
+                    .cpu() for name in ("pos", "energies", "weights")}
+                   | {name: replay[name].cpu() for name in
+                      ("num_walkers", "ref_energy")})
+    return out
+
+
+def check_mesh_replay(device) -> None:
+    """Phase M2: the sharded step of 2 gloo ranks on the card against the
+    same ranks on the CPU, f64, injected draws, as phase D does."""
+    spec = mrbp.Spec(**dict(BENCH_SPEC, boson_number=16,
+                            supercell_size=16.0))
+    sampling = dmc.Sampling(spec, time_step=1e-2, max_num_walkers=64,
+                            target_num_walkers=48, rng_seed=3)
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng) for _ in range(48)])
+    comb_u = rng.random((10, 64))
+    xi = sampling.sigma_spread * rng.standard_normal((10, 64, 16))
+    on_card, on_cpu = parallel.launch(mesh_replay, card_mesh(device, 2),
+                                      sampling, confs, comb_u, xi)
+    require(torch.equal(on_card["num_walkers"], on_cpu["num_walkers"]),
+            "M2: the walker counts equal")
+    errs = {}
+    for name in ("pos", "energies", "weights", "ref_energy"):
+        torch.testing.assert_close(on_card[name], on_cpu[name], rtol=1e-9,
+                                   atol=1e-9)
+        errs[name] = float((on_card[name] - on_cpu[name]).abs().max())
+    phase("M2", check="f64 2-shard replay card vs CPU", ranks=2, steps=10,
+          max_abs_err=errs, ok=True)
+
+
+def check_mesh_collapse(device, card: str) -> None:
+    """Phase M3: all walkers packed into two of four shards; the first
+    block collapses, the run rebalances and goes on; its in-memory
+    checkpoint after block 2 resumes on 2 ranks."""
+    proc = dmc_exec.Proc.from_config(M3_PROC)
+    sampling = proc.sampling
+    rng = np.random.default_rng(3)
+    spec = proc.model_spec
+    shard = proc.max_num_walkers // 4
+    confs = np.stack([spec.init_get_sys_conf(rng=rng)
+                      for _ in range(2 * shard)])
+    # The first half of the slots valid: shards 0 and 1 full, 2 and 3
+    # empty.
+    packed = sampling.build_state(confs, dtype=np.float32, device=device,
+                                  num_shards=1)
+    start_counts = [shard, shard, 0, 0]
+    state = packed._replace(num_walkers=torch.tensor(start_counts,
+                                                     device=device))
+    kept = []
+
+    def hook(resume_input):
+        if resume_input.resume["blocks_completed"] == 2:
+            kept.append(resume_input)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        result = proc.exec(dmc_exec.ProcInput(state), checkpoint_hook=hook,
+                           mesh=card_mesh(device, 4))
+    counts = result.state.num_walkers.tolist()
+    blocks = result.data.blocks
+    require(min(counts) > 0 and np.isfinite(blocks.energy.mean),
+            f"M3: every shard populated after the collapse: {counts}")
+    require(blocks.density.totals.shape[0] < 2,
+            "M3: the interrupted window contributed no sample")
+    (cut,) = kept
+    require(tuple(cut.state.num_walkers.shape) == (4,)
+            and cut.resume["it_offset"] > proc.block_offset,
+            "M3: the checkpoint after block 2 holds the global state and "
+            "the restarted stream")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        resumed = proc.evolve({"num_mesh_devices": 2}).exec(
+            cut, mesh=card_mesh(device, 2))
+    rcounts = resumed.state.num_walkers.tolist()
+    require(len(rcounts) == 2 and min(rcounts) > 0
+            and np.isfinite(resumed.data.blocks.energy.mean),
+            f"M3: resumed on 2 ranks: {rcounts}")
+    phase("M3", check="forced shard collapse, then a 4 -> 2 resume",
+          card=card, start_counts=start_counts, final_counts=counts,
+          resumed_counts=rcounts,
+          energy_per_boson=float(blocks.energy.mean) / NOP,
+          resumed_energy_per_boson=float(resumed.data.blocks.energy.mean)
+          / NOP, ok=True)
+
+
+def mesh_rows_alone(mesh, procs, host_inputs):
+    """Rank function of phase M4: each row's procedure alone on this
+    2-rank mesh, one after the other."""
+    from phd_qmclib_torch.qmc_exec import sharded
+    sharded.silence(mesh)
+    results = [proc._exec(sharded.from_host(host, mesh.device), mesh=mesh)
+               for proc, host in zip(procs, host_inputs)]
+    return results if mesh.rank == 0 else None
+
+
+def check_mesh_sweep(device, card: str) -> None:
+    """Phase M4: two EOS rows on a 2 x 2 mesh of gloo ranks on the card
+    (``SweepProc`` with a mesh: ``fused_sweep_mesh: [2, 2]``), each row
+    bit-equal to its run alone on 2 ranks."""
+    from phd_qmclib_torch.qmc_exec import sharded
+    procs = tuple(dmc_exec.Proc.from_config(dict(row, **M4_DEPTH))
+                  for row in EOS_PROCS[:2])
+    inputs = [dmc_exec.ProcInput.from_model_sys_conf_spec(
+        dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
+        for proc in procs]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fused = sweep_exec.SweepProc(procs, mesh=card_mesh(device, 4, 2)) \
+            .exec(inputs)
+    fused_s = time.perf_counter() - t0
+    # Alone: the same start as the sweep lays it out over 2 shards.
+    alone_inputs = [sharded.to_host(dmc_exec.ProcInput(
+        proc.sampling.build_state(
+            pi.state.pos[~pi.state.masks].cpu().numpy(), dtype=np.float32,
+            device=device, num_shards=2)))
+        for proc, pi in zip(procs, inputs)]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        alone = parallel.launch(mesh_rows_alone, card_mesh(device, 2), procs,
+                                alone_inputs)
+    alone_s = time.perf_counter() - t0
+    energies = []
+    for r, (a, b) in enumerate(zip(fused, alone)):
+        for name in ("energy", "weight", "num_walkers"):
+            require_equal(getattr(a.data.blocks, name).totals,
+                          getattr(b.data.blocks, name).totals,
+                          f"M4 row {r} {name} totals")
+        require(torch.equal(a.state.pos, b.state.pos)
+                and torch.equal(a.state.num_walkers, b.state.num_walkers),
+                f"M4 row {r}: final state bit-equal to its run alone")
+        energies.append(float(a.data.blocks.energy.mean) / EOS_NOP)
+    phase("M4", check="fused_sweep_mesh [2, 2], rows vs alone on 2 ranks",
+          card=card, backend="gloo", rows=2, ranks_per_row=2,
+          steps_per_row=3 * M4_DEPTH["num_time_steps_block"],
+          fused_wall_s_gloo=fused_s,
+          alone_wall_s_gloo=alone_s, rows_bit_equal=True,
+          energy_per_boson=energies, ok=True)
+
+
+def run_mesh_vmc(device, card: str, r2_energy: float):
+    """Phase M5: the variational example on 2 gloo ranks on the card, 1
+    burn-in and 1 measured block of ``M5_STEPS``.  Returns rank 0's
+    launch counts and the steps run."""
+    proc = vmc_exec.Proc.from_config(VARIATIONAL_PROC).evolve(dict(
+        num_blocks=1, burn_in_blocks=1, num_steps_block=M5_STEPS,
+        keep_iter_data=True, num_mesh_devices=2))
+    proc_input = vmc_exec.ProcInput.from_model_sys_conf_spec(
+        vmc_exec.ModelSysConfSpec(dist_type="REGULAR"), proc, device=device)
+    result, exec_ms, wall_s, launches = timed_exec(
+        proc, proc_input, mesh=card_mesh(device, 2))
+    steps_run = 2 * M5_STEPS
+    series = result.data.series
+    e_per_n = float(result.data.blocks.energy.totals.mean()) / VMC_NOP
+    accept = float(series.iter_props.move_stat[0].mean())
+    s0 = series.ssf[0][:, 0, 0]
+    require(result.state.pos.shape == (VMC_CHAINS, VMC_NOP)
+            and np.allclose(s0, VMC_NOP ** 2, rtol=SUM_RULE_RTOL)
+            and np.allclose(series.obd[0][:, 0], 1.0, rtol=OBDM_RTOL)
+            and 0.0 < accept < 1.0 and abs(e_per_n - r2_energy) < 0.02,
+            f"M5: all chains back, S(0) = N^2 and OBDM(0) = 1 per chain, "
+            f"E/N {e_per_n} near R2's {r2_energy}")
+    require(launches["K1 log"] >= steps_run,
+            f"M5 rank 0's kernel launches {launches}")
+    phase("M5", check="variational example on 2 gloo ranks", card=card,
+          backend="gloo", ranks=2, chains=VMC_CHAINS, steps_run=steps_run,
+          exec_wall_s=wall_s, step_ms_cuda_events_gloo=exec_ms / steps_run,
+          energy_per_boson=e_per_n, R2_energy_per_boson=r2_energy,
+          accept_rate=accept, rank0_launches=launches, ok=True)
+    return launches, steps_run
+
+
 def bound(flops: float, num_bytes: float) -> dict:
     """The least time the card could take: the larger of the flops over
     the FP32 peak and the bytes (each input read once, each output
@@ -2787,7 +3147,7 @@ def main() -> None:
     dmc_launches, state, baseline = run_dmc(device, smi)  # D
     # Each run's launch counts and the steps it ran.
     runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS)}
-    runs["R0"] = run_proc_bench(device, smi, baseline)
+    *runs["R0"], r0_step_ms = run_proc_bench(device, smi, baseline)
     check_proc_resume(device, smi)  # R3
     err_k4 = check_k4(device)  # F
     sweep_times = check_sweep_kernels(device, smi)  # S0
@@ -2815,13 +3175,22 @@ def main() -> None:
     runs["V1"] = run_vmc_bench(device, smi)
     v2 = run_vmc_example(device, smi)
     runs["V2"] = (v2["launches"], v2["steps_run"])
-    runs["R2"] = run_proc_vmc_example(device, smi, v2)
+    *runs["R2"], r2_energy = run_proc_vmc_example(device, smi, v2)
     del v2
     err_vjp, vjp_times = check_k1_vjp(device, smi)  # W0
     runs.update(run_wf_opt_pipeline(device, smi))  # W1
     runs["W2"], w2_counts = run_wf_opt_ab(device, smi)
     runs.update(run_eos_sweep(device, smi))  # S1, S1b
     runs["S2"] = run_vmc_sweep(device, smi)
+    # M: several ranks.  M0 over NCCL at one rank; M1-M5 S gloo ranks on
+    # the card (rank 0's launches, in this process, counted).
+    runs["M0"] = run_mesh_bench(device, smi, r0_step_ms, state)
+    runs["M1"] = run_mesh_estimators(device, smi, state,
+                                     BURN_BLOCKS + 3 * TIMED_BLOCKS)
+    check_mesh_replay(device)  # M2
+    check_mesh_collapse(device, smi)  # M3
+    check_mesh_sweep(device, smi)  # M4
+    runs["M5"] = run_mesh_vmc(device, smi, r2_energy)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 
@@ -2845,13 +3214,13 @@ def main() -> None:
             f"a fused DMC step launches K1's table and K2's rows once, a "
             f"fused VMC step K1 log's table: {per_step}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
-    dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc")
+    dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc", "M0", "M1")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
             and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)
             and all(per_step["K4"].get(label, 0) > 0
                     for label in ("G3", "R1"))
             and all(per_step["K1 log"].get(label, 0) >= 1
-                    for label in ("V1", "V2", "R2", "W1", "W2")),
+                    for label in ("V1", "V2", "R2", "W1", "W2", "M5")),
             f"K1 on every DMC step (K2 once, K4 on G3's and R1's density "
             f"and g2 steps) and K1 log on every VMC step: {per_step}")
 

@@ -24,7 +24,9 @@ loader, the CLI application objects and the report of result files) and
 ``mrbp_cli`` turn a config file into a run on the GPU and a result file
 that both packages read, and report it.  ``parallel`` fuses the rows of
 a parameter sweep into one batch on the GPU (``qmc_exec.sweep`` runs
-such a sweep's procedures, ``fused_sweep: true`` in a config).
+such a sweep's procedures, ``fused_sweep: true`` in a config), and
+shards a run's walkers over several devices, one process each over a
+``torch.distributed`` group (``num_mesh_devices``, ``fused_sweep_mesh``).
 
 Importing the package needs neither a GPU, nor ``nvcc``, nor ``triton``,
 nor ``h5py``, ``yaml``, ``jinja2`` or ``click`` (each is imported by the

@@ -1,5 +1,6 @@
 """Fused parameter sweeps: R samplings that share their static structure
-advance as one R x W-walker batch on one device.
+advance as one R x W-walker batch on one device (or, on a mesh, each on
+ranks of its own).
 
 Counterpart of ``phd_qmclib_tpu.parallel.sweep`` without its mesh: each
 row runs an independent sampling with its own model parameters (one
@@ -22,8 +23,12 @@ sizes, estimator specs), enforced at construction.  A sweep that
 underfills the card alone (a row of a few thousand walkers) batches
 into one wide dispatch per step.
 
-Several GPUs (the JAX package's ``mesh``) are not here: ``mesh`` must
-be ``None``.
+With a ``mesh`` of ``(R, W)`` ranks (``parallel.make_walker_mesh(...,
+rows=R)``) the rows spread over the ranks instead, as the JAX package's
+``(sweep, walkers)`` mesh does: rank ``(r, w)`` steps row ``r``'s walker
+shard ``w``, its collectives over the row's own group, so that each row
+is its standalone W-shard run bit for bit (W = 1: its unsharded run).
+No rebalancing runs under a sweep.
 """
 import typing as t
 from dataclasses import dataclass
@@ -35,12 +40,6 @@ from ..samplers import dmc, vmc
 from ..samplers.dmc import SamplingBlock, State
 
 __all__ = ["ParamSweep", "VmcSweep"]
-
-#: What a mesh asks for, and why it is refused.
-_NO_MESH = ("fused sweeps across several GPUs (the JAX package's "
-            "sweep mesh) are not ported yet: pass mesh=None to fuse the "
-            "rows on one device")
-
 
 def _stack(states):
     """Per-row states stacked on a leading row axis."""
@@ -55,8 +54,10 @@ class ParamSweep:
 
     ``samplings`` must share static structure; leaf parameters, the
     time step, the control factor, the walker target's value and the
-    seed may differ per row.  ``mesh`` must be ``None``: the rows fuse
-    on one device.
+    seed may differ per row.  With ``mesh=None`` the rows fuse on one
+    device; a ``MeshSpec`` of one sweep row per sampling is checked here
+    as the JAX package checks its mesh, and
+    ``phd_qmclib_torch.qmc_exec.sweep.SweepProc`` runs the rows on it.
     """
     samplings: t.Tuple[dmc.Sampling, ...]
     mesh: t.Optional[t.Any] = None
@@ -89,8 +90,16 @@ class ParamSweep:
             if s.ref_compat != ref.ref_compat:
                 raise ValueError("all sweep rows must use the same "
                                  "ref_compat")
-        if self.mesh is not None:
-            raise ValueError(_NO_MESH)
+        if self.mesh is None:
+            return
+        if self.mesh.rows != len(self.samplings):
+            raise ValueError(
+                f"mesh 'sweep' axis size {self.mesh.rows} != number of "
+                f"sweep rows {len(self.samplings)}")
+        n_w = self.mesh.size // self.mesh.rows
+        if ref.max_num_walkers % n_w or ref.target_num_walkers % n_w:
+            raise ValueError("walker buffers must divide the 'walkers' "
+                             f"axis size ({n_w})")
 
     @property
     def num_rows(self) -> int:
@@ -128,6 +137,10 @@ class ParamSweep:
         fill restarts after it, and the CM windows and forward-walking
         windows open at the standalone run's blocks.
         """
+        if self.mesh is not None:
+            raise ValueError("a sweep on a mesh runs through "
+                             "qmc_exec.sweep.SweepProc, each row on its "
+                             "ranks")
         ref = self.samplings[0]
         consts = dmc._row_consts(self.samplings, ini_state.pos.dtype,
                                  ini_state.pos.device)

@@ -13,14 +13,14 @@ into every later stanza.  With ``fused_sweep: true`` the procedures of
 one config advance as a single fused sweep
 (:class:`~phd_qmclib_torch.qmc_exec.sweep.SweepProc`,
 :class:`~phd_qmclib_torch.qmc_exec.sweep.VmcSweepProc`), each still
-dumping to its own output file.  The procedures run on the ``device``
-given to :meth:`CLIApp.exec`; a config never names one.
-
-Not here yet, and refused by name when a config asks for it:
-``fused_sweep_mesh`` (a fused sweep across several GPUs).
+dumping to its own output file, and ``fused_sweep_mesh: [R, W]``
+spreads such a DMC sweep over R x W ranks.  The procedures run on the
+``device`` given to :meth:`CLIApp.exec`; a config never names one.
 """
 import typing as t
 from dataclasses import dataclass, replace
+
+import torch
 
 from . import dmc as dmc_proc, io as io_mod, vmc as vmc_proc
 from .logging import exec_logger
@@ -251,11 +251,17 @@ class CLIApp:
     device (:class:`~phd_qmclib_torch.qmc_exec.sweep.SweepProc`) instead
     of one after the other; each still dumps to its own output file,
     bit-identical to its sequential result.  A single procedure runs
-    unfused."""
+    unfused.  ``fused_sweep_mesh: [R, W]`` (DMC only) spreads the fused
+    sweep over R x W ranks instead, R rows with walkers sharded over W
+    devices each (on the CPU, gloo ranks); every row stays bit-identical
+    to its standalone run on a W-shard mesh."""
     meta: AppMeta
     app_spec: t.Sequence[AppSpec]
     sampling_type: str = "dmc"
     fused_sweep: bool = False
+    #: Optional (rows, walker-devices) shape of a meshed fused sweep;
+    #: ``None`` = the rows fused on one device.
+    fused_sweep_mesh: t.Optional[t.Tuple[int, int]] = None
 
     @classmethod
     def from_config(cls, config: t.Mapping, sampling_type: str):
@@ -267,7 +273,7 @@ class CLIApp:
                              "procedures only")
         mesh_shape = self_config.pop("fused_sweep_mesh", None)
         if mesh_shape is not None:
-            # The JAX package's checks, then the refusal by name.
+            # The JAX package's checks.
             if not fused_sweep:
                 raise ValueError(
                     "fused_sweep_mesh needs fused_sweep: true")
@@ -284,10 +290,7 @@ class CLIApp:
             if rows < 1 or walker_devs < 1:
                 raise ValueError(
                     "fused_sweep_mesh entries must be positive")
-            raise ValueError(
-                "fused_sweep_mesh: a fused sweep across several GPUs "
-                "(torch.distributed) is not available in this package "
-                "yet; drop the key to fuse the rows on one GPU")
+            mesh_shape = (rows, walker_devs)
         app_spec_data = self_config.pop("app_spec")
         app_spec_set = []
         for proc_num, app_spec_config in enumerate(app_spec_data):
@@ -306,7 +309,8 @@ class CLIApp:
             app_spec_set.append(
                 AppSpec.from_config(app_spec_config, sampling_type))
         return cls(meta=app_meta, app_spec=app_spec_set,
-                   sampling_type=sampling_type, fused_sweep=fused_sweep)
+                   sampling_type=sampling_type, fused_sweep=fused_sweep,
+                   fused_sweep_mesh=mesh_shape)
 
     def _exec_fused(self, device="cuda"):
         """The procedures as one fused sweep on ``device``, each result
@@ -315,12 +319,34 @@ class CLIApp:
 
         sweep_cls = VmcSweepProc if self.sampling_type == "vmc" \
             else SweepProc
+        mesh = None
+        if self.fused_sweep_mesh is not None:
+            from ..parallel import make_walker_mesh
+
+            rows, walker_devs = self.fused_sweep_mesh
+            if rows != len(self.app_spec):
+                raise ValueError(
+                    f"fused_sweep_mesh rows ({rows}) must equal the "
+                    f"number of procedures ({len(self.app_spec)})")
+            need = rows * walker_devs
+            if torch.device(device).type == "cuda" \
+                    and torch.cuda.device_count() < need:
+                raise ValueError(
+                    f"fused_sweep_mesh {rows}x{walker_devs} needs "
+                    f"{need} devices; {torch.cuda.device_count()} visible")
+            mesh = make_walker_mesh(need, device, rows=rows)
         exec_logger.info(
             f"Executing {len(self.app_spec)} "
             f"{self.sampling_type.upper()} procedures as one fused "
-            f"sweep...")
+            f"sweep..." + (f" (2-D {self.fused_sweep_mesh[0]}x"
+                           f"{self.fused_sweep_mesh[1]} mesh)"
+                           if mesh is not None else ""))
         pairs = [spec.build_input(device=device) for spec in self.app_spec]
-        sweep_proc = sweep_cls(tuple(proc for proc, _ in pairs))
+        if mesh is None:
+            sweep_proc = sweep_cls(tuple(proc for proc, _ in pairs))
+        else:
+            sweep_proc = sweep_cls(tuple(proc for proc, _ in pairs),
+                                   mesh=mesh)
         results = sweep_proc.exec([pi for _, pi in pairs])
         for spec, result in zip(self.app_spec, results):
             spec.proc_output.dump(result)

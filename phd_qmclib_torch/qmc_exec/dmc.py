@@ -1,7 +1,7 @@
 """DMC procedure: the production run loop.
 
-Counterpart of ``phd_qmclib_tpu.qmc_exec.dmc`` on one device, after the
-upstream library's model-agnostic procedure (``qmc_exec/dmc/proc.py``)
+Counterpart of ``phd_qmclib_tpu.qmc_exec.dmc``, after the upstream
+library's model-agnostic procedure (``qmc_exec/dmc/proc.py``)
 and its concrete mrbp binding (``mrbp_qmc/dmc_exec/proc.py``): burn-in
 stage, per-block accumulation (full series or reduced totals),
 pure-estimator reduction factors, and packaging into the
@@ -12,11 +12,13 @@ files and stored ``proc_spec`` groups load in both.  The device is a
 property of a run and never of the configuration: :meth:`Proc.exec`
 runs where its input's state lives, and the functions that build a
 state (:meth:`ProcInput.from_model_sys_conf_spec`,
-:meth:`Proc.restore_checkpoint`) take a ``device``.  The fields that
-shard a run over several devices are kept and refused by name when set
-(see :attr:`Proc.sampling`).  The block accumulator is NumPy on the
-host: a block's per-step scalars and estimator rows arrive there in one
-fetch (:meth:`phd_qmclib_torch.samplers.dmc.Sampling.blocks`).
+:meth:`Proc.restore_checkpoint`) take a ``device``.  ``num_mesh_devices``
+shards the walkers over that many devices of the input's kind, one
+process each (:mod:`phd_qmclib_torch.qmc_exec.sharded`): the result,
+its files and its checkpoints hold the global view, as the JAX
+package's do.  The block accumulator is NumPy on the host: a block's
+per-step scalars and estimator rows arrive there in one fetch
+(:meth:`phd_qmclib_torch.samplers.dmc.Sampling.blocks`).
 """
 import os
 import time
@@ -26,10 +28,11 @@ from dataclasses import dataclass, replace
 from functools import cached_property
 
 import numpy as np
+import torch
 
 from ..models import mrbp
 from ..samplers import dmc as dmc_sampler
-from . import proc as proc_base
+from . import proc as proc_base, sharded
 from .data import dmc as dmc_data
 from .logging import exec_logger
 from ..constants import ER
@@ -82,9 +85,10 @@ class ProcInput(proc_base.ProcInput):
         sys_conf_set = np.stack([
             model_spec.init_get_sys_conf(dist_type=dist_type, rng=rng)
             for _ in range(num_sys_conf)])
-        state = proc.sampling.build_state(sys_conf_set,
-                                          dtype=np.dtype(proc.dtype),
-                                          device=device)
+        spec = proc.mesh_spec(device)
+        state = proc.sampling.build_state(
+            sys_conf_set, dtype=np.dtype(proc.dtype), device=device,
+            num_shards=1 if spec is None else spec.size)
         return cls(state)
 
     @classmethod
@@ -136,11 +140,9 @@ class Proc(proc_base.Proc):
     itc_spec: t.Optional[ITCEstSpec] = None
     #: Compute dtype on the device ("float32" or "float64").
     dtype: str = "float32"
-    #: Several devices: shard walkers over this many local devices
-    #: (None = single device, 0 = all available devices).  Kept so that
-    #: configurations round-trip with the JAX package; this package
-    #: runs on one device and :attr:`sampling` refuses any other value
-    #: than ``None`` or 1.
+    #: Several devices: shard walkers over this many local devices of
+    #: the input state's kind, one process each (None = single device,
+    #: 0 = all available devices; on the CPU, gloo ranks).
     num_mesh_devices: t.Optional[int] = None
     #: Several devices: rebalance the walker population across shards
     #: every K blocks.  It has no effect on one device, here as in the
@@ -479,11 +481,17 @@ class Proc(proc_base.Proc):
         return int(spec.pfw_num_time_steps
                    or self.num_time_steps_block)
 
+    def mesh_spec(self, device="cuda"):
+        """The walker mesh of ``num_mesh_devices`` on ``device``'s kind
+        (``None`` unsharded): ranks on ``cuda:0..n-1`` over NCCL, or on
+        the CPU over gloo."""
+        return sharded.mesh_spec(self.num_mesh_devices, device)
+
     @cached_property
     def sampling(self) -> dmc_sampler.Sampling:
-        """The bound sampler (``mrbp_qmc/dmc_exec/proc.py:331-365``).
-        Raises on a ``num_mesh_devices`` that asks for more than one
-        device."""
+        """The bound sampler (``mrbp_qmc/dmc_exec/proc.py:331-365``),
+        unsharded: a run on a mesh gives each rank its own with the
+        rank's mesh."""
         density_est_spec = dmc_sampler.DensityEstSpec(
             self.density_spec.num_bins, self.density_spec.as_pure_est,
             self._pfw(self.density_spec)) \
@@ -510,12 +518,6 @@ class Proc(proc_base.Proc):
                                 if self.itc_spec.as_pure_est
                                 else None)) \
             if self.should_eval_itc else None
-        if self.num_mesh_devices not in (None, 1):
-            raise ValueError(
-                f"num_mesh_devices={self.num_mesh_devices!r}: this "
-                f"package runs a procedure on one device; sharding the "
-                f"walkers over several is not available yet (leave "
-                f"num_mesh_devices unset)")
         cmd = self.cm_diffusion_spec
         return dmc_sampler.Sampling(
             self.model_spec, self.time_step, self.max_num_walkers,
@@ -527,7 +529,8 @@ class Proc(proc_base.Proc):
             est_every=self.est_every,
             cm_diffusion_est=cmd is not None,
             cm_window_blocks=(cmd.window_blocks
-                              if cmd is not None else 1))
+                              if cmd is not None else 1),
+            rebalance_every=self.rebalance_every)
 
     def describe_model_spec(self):
         spec = self.model_spec
@@ -563,7 +566,8 @@ class Proc(proc_base.Proc):
     def _checkpoint_input(self, state, blocks_completed: int,
                           it_offset: int, it_burn: int, it_next: int,
                           aux: t.Optional[dict] = None,
-                          accum: "t.Optional[_BlockAccumulator]" = None
+                          accum: "t.Optional[_BlockAccumulator]" = None,
+                          sampling: t.Optional[dmc_sampler.Sampling] = None
                           ) -> ProcInput:
         """The input that resumes this run after ``blocks_completed``
         blocks: the walker state and, as ``resume``, the COMPLETE
@@ -581,7 +585,9 @@ class Proc(proc_base.Proc):
         forward-walking pair are dropped: the resume restarts the lag
         fill (discounted by the counts, bias-free).  The paired
         sums/counts carry must drop TOGETHER so the window sample's
-        ratio stays unbiased."""
+        ratio stays unbiased.  A cadence rebalance that the sampler
+        (``sampling``, this procedure's by default) holds until its
+        window's start is recorded as ``rebalance_pending``."""
         if self.checkpoint_light and state.itc_buf is not None:
             state = state._replace(itc_buf=None, itc_filled=None)
             if aux is not None:
@@ -592,8 +598,9 @@ class Proc(proc_base.Proc):
             "it_offset": int(it_offset),
             "it_burn": int(it_burn),
             "it_next": int(it_next),
-            # One device: no cadence rebalance is ever outstanding.
-            "rebalance_pending": False,
+            "rebalance_pending": _outstanding_rebalance(
+                sampling or self.sampling, it_burn, it_next,
+                self.num_time_steps_block),
         }
         if aux is not None:
             resume["aux"] = dict(aux)
@@ -699,14 +706,40 @@ class Proc(proc_base.Proc):
 
     def exec(self, proc_input: ProcInput,
              checkpoint_hook: t.Optional[t.Callable[[ProcInput], None]]
-             = None) -> ProcResult:
+             = None, mesh=None) -> ProcResult:
         """Run the DMC sampling on the device of ``proc_input.state``
         (the upstream library's loop: ``qmc_exec/dmc/proc.py:136-415``).
 
         Every ``checkpoint_every`` blocks the resume input of
         :meth:`_checkpoint_input` is written to ``checkpoint_file``,
         when one is set, and handed to ``checkpoint_hook``, when one is
-        given: an in-memory checkpoint for a caller without a file."""
+        given: an in-memory checkpoint for a caller without a file.
+
+        With ``num_mesh_devices`` the walkers shard over
+        :meth:`mesh_spec` of the state's device, or over ``mesh`` (a
+        ``phd_qmclib_torch.parallel.MeshSpec``, e.g. S gloo ranks on
+        one card), one process per rank: the state given is the global
+        view (any shard count: it is re-laid out), and so are the
+        result's state, the checkpoints and the files.  A shard whose
+        population collapses restarts the stream from a rebalanced
+        state, with the JAX package's warning."""
+        if not isinstance(proc_input, ProcInput):
+            raise proc_base.ProcInputError(
+                "DMC procedure input must be a dmc ProcInput instance")
+        if mesh is None:
+            mesh = self.mesh_spec(proc_input.state.pos.device)
+        if mesh is None:
+            return self._exec(proc_input, checkpoint_hook)
+        return sharded.exec_on_mesh(self, proc_input, mesh, checkpoint_hook)
+
+    def _exec(self, proc_input: ProcInput,
+              checkpoint_hook: t.Optional[t.Callable[[ProcInput], None]]
+              = None, mesh=None, on_checkpoint=None) -> ProcResult:
+        """:meth:`exec` on one device, or on the rank ``mesh`` (a
+        ``WalkerMesh``) of a walker mesh, where rank 0 writes the
+        checkpoint file and calls ``checkpoint_hook``.  ``on_checkpoint``
+        (a fused sweep's, on every rank) takes each checkpoint's resume
+        input instead."""
         num_blocks = self.num_blocks
         nts_block = self.num_time_steps_block
         burn_in_blocks = self.burn_in_blocks
@@ -718,20 +751,18 @@ class Proc(proc_base.Proc):
         should_eval_g2 = self.should_eval_pair_corr
         should_eval_itc = self.should_eval_itc
 
-        if not isinstance(proc_input, ProcInput):
-            raise proc_base.ProcInputError(
-                "DMC procedure input must be a dmc ProcInput instance")
-
         exec_logger.info("Starting DMC sampling...")
         self.describe_model_spec()
         self.describe_sampling()
 
         sampling = self.sampling
+        if mesh is not None:
+            sampling = replace(sampling, mesh=mesh)
         # The sampler-iterator stream position, tracked so mid-run
-        # checkpoints can record it: block streams are keyed by
-        # ``(seed, it_offset + internal_idx)`` and ``it_offset +
-        # it_next`` always points at the next unconsumed stream
-        # position.
+        # checkpoints can record it and a shard-collapse restart can
+        # advance it: block streams are keyed by ``(seed, it_offset +
+        # internal_idx)`` and ``it_offset + it_next`` always points at
+        # the next unconsumed stream position.
         resume = proc_input.resume
         start_block = 0
         if resume is not None:
@@ -742,7 +773,8 @@ class Proc(proc_base.Proc):
             blocks_iter = sampling.blocks(
                 proc_input.state, nts_block, burn_in_blocks=it_burn,
                 block_offset=it_offset, start_block_idx=it_next,
-                aux_init=resume.get("aux"))
+                aux_init=resume.get("aux"),
+                rebalance_pending0=resume.get("rebalance_pending", False))
             exec_logger.info(
                 f"resuming from a mid-run checkpoint at block "
                 f"{start_block}/{num_blocks} (full measurement state: "
@@ -781,13 +813,52 @@ class Proc(proc_base.Proc):
         total_walker_steps = 0.0
         block_data = None
         checkpointing = self.checkpoint_file is not None \
-            or checkpoint_hook is not None
+            or checkpoint_hook is not None or on_checkpoint is not None
+        writer = mesh is None or mesh.rank == 0
+        num_rebalances = 0
         for block_idx in range(start_block, num_blocks):
             if block_idx == 0 and self.profile_dir is not None:
                 block_data = self._profiled_block(blocks_iter)
             else:
                 block_data = next(blocks_iter)
             it_next += 1
+            shard_nw = None if mesh is None or mesh.size == 1 \
+                else _shard_counts(mesh, block_data.last_state)
+            if shard_nw is not None and shard_nw.min() <= 0:
+                # Per-shard combs cannot repopulate an empty shard; a
+                # collapsed shard silently biases the global ensemble
+                # while the controller only sees the global weight.
+                # Remediate immediately: redistribute the surviving
+                # walkers evenly across the shards and continue the run
+                # from the rebalanced state (same RNG stream position).
+                # Every rank decides from the same gathered counts.
+                balanced = sampling.rebalance(
+                    mesh.gather_state(block_data.last_state))
+                it_offset = it_offset + it_next
+                it_burn = 0
+                it_next = 0
+                blocks_iter = sampling.blocks(
+                    balanced, nts_block, burn_in_blocks=0,
+                    block_offset=it_offset)
+                block_data = block_data._replace(
+                    last_state=sampling._shard_of(balanced)[0])
+                # The restarted iterator opens a fresh forward-walking
+                # window at the next block; realign the accumulator's
+                # window phase so partial windows are DROPPED instead
+                # of being stored as under-projected samples.
+                accumulator.restart_window(block_idx + 1)
+                num_rebalances += 1
+                if num_rebalances <= 3:
+                    exec_logger.warning(
+                        f"walker population collapsed on a shard "
+                        f"(per-shard counts {shard_nw.tolist()}); "
+                        f"rebalanced the surviving walkers evenly "
+                        f"across shards and resumed"
+                        + (" (forward-walking window restarted; the "
+                           "interrupted window contributes no sample)"
+                           if accumulator.window > 1 else "")
+                        + ". Consider rebalance_every or a larger "
+                        f"target_num_walkers.")
             bp = block_data.iter_props
             energy = np.asarray(bp.energy, dtype=np.float64)
             weight = np.asarray(bp.weight, dtype=np.float64)
@@ -821,17 +892,24 @@ class Proc(proc_base.Proc):
 
             if checkpointing and \
                     (block_idx + 1) % self.checkpoint_every == 0:
+                state, aux = block_data.last_state, block_data.aux_carry
+                if mesh is not None:
+                    # The global view: every rank takes part.
+                    state = mesh.gather_state(state)
+                    aux = None if aux is None else {
+                        name: mesh.cat(value) for name, value in aux.items()}
                 resume_input = self._checkpoint_input(
-                    block_data.last_state,
-                    blocks_completed=block_idx + 1,
+                    state, blocks_completed=block_idx + 1,
                     it_offset=it_offset, it_burn=it_burn,
-                    it_next=it_next,
-                    aux=block_data.aux_carry,
-                    accum=accumulator)
-                if self.checkpoint_file is not None:
-                    self._write_checkpoint(resume_input)
-                if checkpoint_hook is not None:
-                    checkpoint_hook(resume_input)
+                    it_next=it_next, aux=aux, accum=accumulator,
+                    sampling=sampling)
+                if on_checkpoint is not None:
+                    on_checkpoint(resume_input)
+                elif writer:
+                    if self.checkpoint_file is not None:
+                        self._write_checkpoint(resume_input)
+                    if checkpoint_hook is not None:
+                        checkpoint_hook(resume_input)
 
             # Throughput observability (absent in the upstream
             # library).
@@ -848,8 +926,12 @@ class Proc(proc_base.Proc):
         exec_logger.info("Evaluation of estimators completed.")
         exec_logger.info("DMC sampling completed.")
 
-        last_state = block_data.last_state if block_data is not None \
-            else proc_input.state
+        if block_data is None:
+            last_state = proc_input.state
+        elif mesh is None:
+            last_state = block_data.last_state
+        else:
+            last_state = mesh.gather_state(block_data.last_state)
         return self.build_result(last_state, accumulator.package())
 
     def _profiled_block(self, blocks_iter):
@@ -874,6 +956,40 @@ class Proc(proc_base.Proc):
         exec_logger.info(f"profiler trace written to "
                          f"{self.profile_dir}")
         return block_data
+
+
+def _shard_counts(mesh, state) -> np.ndarray:
+    """The walker count of every shard of ``mesh`` after a block, whose
+    last ``state`` is the rank's shard: every rank gets every count."""
+    return torch.stack(mesh.all_gather(
+        state.num_walkers.reshape(()))).cpu().numpy()
+
+
+def _outstanding_rebalance(sampling, it_burn: int, it_next: int,
+                           nts_block: int) -> bool:
+    """Whether the block generator holds a cadence rebalance deferred
+    to the next forward-walking window boundary, reconstructed from
+    the iterator position alone (mirrors the pending/clear logic of
+    :meth:`phd_qmclib_torch.samplers.dmc.Sampling.blocks`): pending is
+    set at internal blocks ``j > 0`` with ``j % rebalance_every == 0``
+    and cleared (executed) at every block ``b <= it_burn`` or ``(b -
+    it_burn) % pfw_window == 0``.  Needed so a checkpoint cut between a
+    cadence point and its window boundary re-arms the rebalance on
+    resume.  The JAX package's function."""
+    re_every = sampling.rebalance_every if sampling.num_shards > 1 \
+        else None
+    if not re_every:
+        return False
+    p = it_next - 1  # last internal block already processed
+    if p < 1:
+        return False
+    window = sampling.pfw_window_blocks(nts_block)
+    if p <= it_burn:
+        b_star = p
+    else:
+        b_star = it_burn + ((p - it_burn) // window) * window
+    j_max = (p // re_every) * re_every
+    return j_max > 0 and j_max > b_star
 
 
 class _BlockAccumulator:

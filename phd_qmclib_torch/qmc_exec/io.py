@@ -279,17 +279,17 @@ class DmcHDF5FileHandler(HDF5FileHandler):
         group.attrs.update({
             "energy": float(state.energy),
             "weight": float(state.weight),
-            "num_walkers": int(state.num_walkers),
+            "num_walkers": int(state.num_walkers.sum()),
             "ref_energy": float(state.ref_energy),
             "accum_energy": float(state.accum_energy),
             "max_num_walkers": int(state.max_num_walkers),
         })
         # Per-shard walker counts (extra dataset of the JAX package's
         # layout; a state on one device has one entry equal to the
-        # num_walkers attr).
+        # num_walkers attr, a sharded run's global view one per shard).
         group.create_dataset("shard_num_walkers",
-                             data=np.array([int(state.num_walkers)],
-                                           dtype=np.int32))
+                             data=np.atleast_1d(_numpy(state.num_walkers))
+                             .astype(np.int32))
         if state.cmd_accum is not None:
             # CM-diffusion window accumulator (extra dataset; absent
             # in the reference layout and ignored by its readers).  A
@@ -336,11 +336,6 @@ class DmcHDF5FileHandler(HDF5FileHandler):
         dtype = pos.dtype
         cmd_ds = group.get("cmd_accum")
         itc_ds = group.get("itc_buf")
-        if shard_nw.size != 1:
-            raise ValueError(
-                f"the stored state is sharded over {shard_nw.size} "
-                f"devices (shard_num_walkers); resuming a sharded state "
-                f"on one device is not available yet")
 
         def scalar(value):
             return np.asarray(value, dtype=dtype)

@@ -1,12 +1,13 @@
 """Fused parameter-sweep execution: many procedures, one batch.
 
-Counterpart of ``phd_qmclib_tpu.qmc_exec.sweep`` on one device: R DMC
-(or VMC) procedures whose model specs differ only in continuous
-parameters (coupling, lattice depth, supercell, time step, seed) advance
-as one fused batch per step through
-:class:`phd_qmclib_torch.parallel.ParamSweep` (:class:`VmcSweep`), then
-split into R independent ``ProcResult`` objects, each what its
-procedure's standalone ``exec`` gives, bit for bit.
+Counterpart of ``phd_qmclib_tpu.qmc_exec.sweep``: R DMC (or VMC)
+procedures whose model specs differ only in continuous parameters
+(coupling, lattice depth, supercell, time step, seed) advance as one
+fused batch per step through :class:`phd_qmclib_torch.parallel.ParamSweep`
+(:class:`VmcSweep`), then split into R independent ``ProcResult``
+objects, each what its procedure's standalone ``exec`` gives, bit for
+bit.  A DMC sweep on a mesh of R x W ranks (``fused_sweep_mesh``) runs
+each row on W ranks instead, each row its standalone W-shard run.
 
 Mid-run checkpoints are per row: all rows or none, into distinct files,
 at one cadence; each row's checkpoint is its standalone checkpoint, so
@@ -14,13 +15,16 @@ it resumes unfused with ``Proc.restore_checkpoint`` or, with the other
 rows' from the same block, as a fused continuation.
 """
 import typing as t
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import mesh as mesh_mod
 from ..parallel.sweep import ParamSweep, VmcSweep, _stack
 from ..samplers.dmc import _row
+from . import sharded
 from . import vmc as vmc_exec
 from .dmc import Proc, ProcInput, ProcResult, _BlockAccumulator
 from .logging import exec_logger
@@ -78,13 +82,22 @@ def _checkpoint(procs, row_inputs, checkpoint_hook):
 
 @dataclass(frozen=True)
 class SweepProc:
-    """Run R DMC procedures as one fused sweep on one device.
+    """Run R DMC procedures as one fused sweep: on one device, or on a
+    mesh of R x W ranks.
 
     All procs must share the sampling *shape*: block counts, walker
     buffers, estimator specs, ``keep_iter_data``: anything that sets
     static structure.  Row-varying knobs are the continuous model
-    parameters, ``time_step`` and ``rng_seed``.  ``mesh`` must be
-    ``None`` (several GPUs are not ported yet).
+    parameters, ``time_step`` and ``rng_seed``.
+
+    With ``mesh`` (a ``phd_qmclib_torch.parallel.MeshSpec`` of R rows,
+    ``make_walker_mesh(R * W, device, rows=R)``) row ``r`` runs on the
+    ranks ``r W .. r W + W - 1``, its walkers sharded over them, and is
+    bit for bit its standalone run on a W-shard mesh (same seed, same
+    per-shard streams): estimators, pure windows, cadence, per-row
+    checkpoints and all.  Rows' own ``num_mesh_devices`` stays refused:
+    the mesh belongs to the sweep.  Shard rebalancing does not run under
+    a fused sweep.
     """
 
     procs: t.Tuple[Proc, ...]
@@ -128,7 +141,8 @@ class SweepProc:
                  t.Callable[[t.List[ProcInput]], None]] = None) \
             -> t.List[ProcResult]:
         """Advance every row through its full procedure, all rows in one
-        batch per step, on the device of the inputs' states.
+        batch per step, on the device of the inputs' states (on a mesh:
+        each row on its ranks).
 
         Every ``checkpoint_every`` blocks each row's resume input (its
         standalone ``Proc._checkpoint_input``) is written to the row's
@@ -137,6 +151,9 @@ class SweepProc:
         procs = self.procs
         if len(proc_inputs) != len(procs):
             raise ValueError("one ProcInput per procedure")
+        if self.mesh is not None:
+            self.sweep  # raises on a mesh of another shape than the rows'
+            return self._exec_mesh(proc_inputs, checkpoint_hook)
         ref = procs[0]
         num_blocks = ref.num_blocks
         nts_block = ref.num_time_steps_block
@@ -219,6 +236,64 @@ class SweepProc:
             _row(block_data.last_state, r) if block_data is not None
             else proc_inputs[r].state, acc.package())
             for r, (proc, acc) in enumerate(zip(procs, accumulators))]
+
+    def _exec_mesh(self, proc_inputs, checkpoint_hook):
+        """:meth:`exec` on ``mesh``: one launch, each row on its ranks;
+        rank 0 writes the rows' files and calls the hook."""
+        procs = self.procs
+        walkers = self.mesh.walkers
+        resumes = [pi.resume for pi in proc_inputs]
+        if _check_resumes(resumes) == 0:
+            # Fresh inputs hold a one-shard layout: each row starts from
+            # its valid walkers laid out over its W shards, as its
+            # standalone W-shard run builds them.
+            proc_inputs = [replace(pi, state=p.sampling.build_state(
+                pi.state.pos[~pi.state.masks].cpu().numpy(),
+                dtype=pi.state.pos.dtype, device=pi.state.pos.device,
+                num_shards=walkers))
+                for p, pi in zip(procs, proc_inputs)]
+        exec_logger.info(
+            f"Starting fused DMC sweep ({len(procs)} rows on a "
+            f"{self.mesh.rows}x{walkers} mesh)...")
+        hooked = checkpoint_hook is not None
+        return mesh_mod.launch(
+            _sweep_rank, self.mesh, self,
+            [sharded.to_host(pi) for pi in proc_inputs], hooked,
+            rank0_kwargs={"checkpoint_hook": checkpoint_hook})
+
+
+def _gather_rows(world, obj, device):
+    """The objects of the sweep's rows (each row's first rank sends its
+    own, the others nothing), on world rank 0 in row order, with their
+    states on ``device``; ``None`` on the other ranks."""
+    walkers = world.size // world.rows
+    host = sharded.to_host(obj) if world.rank % walkers == 0 else None
+    gathered = [None] * world.size if world.rank == 0 else None
+    dist.gather_object(host, gathered, dst=0)
+    if world.rank:
+        return None
+    return [sharded.from_host(gathered[r * walkers], device)
+            for r in range(world.rows)]
+
+
+def _sweep_rank(world, sweep_proc, host_inputs, hooked,
+                checkpoint_hook=None):
+    """Rank ``(r, w)`` of a mesh sweep: row ``r``'s procedure on the
+    row's walker mesh; rank 0 returns every row's result."""
+    sharded.silence(world)
+    procs = sweep_proc.procs
+    r = world.row
+    proc = replace(procs[r], rebalance_every=None)
+    on_checkpoint = None
+    if hooked or proc.checkpoint_file is not None:
+        def on_checkpoint(resume_input):
+            inputs = _gather_rows(world, resume_input, world.device)
+            if inputs is not None:
+                _checkpoint(procs, inputs, checkpoint_hook)
+    result = proc._exec(sharded.from_host(host_inputs[r], world.device),
+                        mesh=world.row_mesh(), on_checkpoint=on_checkpoint)
+    return _gather_rows(world, replace(result, proc=procs[r]),
+                        world.device)
 
 
 @dataclass(frozen=True)

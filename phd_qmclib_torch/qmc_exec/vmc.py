@@ -1,13 +1,14 @@
 """VMC procedure: the variational run loop.
 
-Counterpart of ``phd_qmclib_tpu.qmc_exec.vmc`` on one device, after the
-upstream library's procedure (``qmc_exec/vmc/proc.py``) and its
+Counterpart of ``phd_qmclib_tpu.qmc_exec.vmc``, after the upstream
+library's procedure (``qmc_exec/vmc/proc.py``) and its
 concrete mrbp binding (``mrbp_qmc/vmc_exec/proc.py``), with a
 walker-batch axis: ``num_walkers`` independent chains advance together,
 and block statistics average over steps and chains.
 
 The configuration is the JAX package's, key for key; the device is a
-property of a run (see :mod:`phd_qmclib_torch.qmc_exec.dmc`).
+property of a run, and ``num_mesh_devices`` splits the chains over that
+many devices, one process each (see :mod:`phd_qmclib_torch.qmc_exec.dmc`).
 """
 import os
 import typing as t
@@ -19,7 +20,7 @@ import numpy as np
 
 from ..models import mrbp
 from ..samplers import vmc as vmc_sampler
-from . import proc as proc_base
+from . import proc as proc_base, sharded
 from .data import vmc as vmc_data
 from .logging import exec_logger
 from ..constants import ER
@@ -157,11 +158,9 @@ class Proc(proc_base.Proc):
     #: the upstream library's single chain).
     num_walkers: int = 1
     dtype: str = "float32"
-    #: Several devices: shard chains over this many local devices
-    #: (None = single device, 0 = all available devices).  Kept so that
-    #: configurations round-trip with the JAX package; this package
-    #: runs on one device and :attr:`sampling` refuses any other value
-    #: than ``None`` or 1.
+    #: Several devices: shard chains over this many local devices of
+    #: the input state's kind, one process each (None = single device,
+    #: 0 = all available devices; on the CPU, gloo ranks).
     num_mesh_devices: t.Optional[int] = None
     #: Mid-procedure checkpointing: dump the chain state to this HDF5
     #: file every ``checkpoint_every`` blocks (DMC parity; the
@@ -319,8 +318,15 @@ class Proc(proc_base.Proc):
                        obd_spec=obd_spec, pair_corr_spec=pair_corr_spec,
                        **self_config)
 
+    def mesh_spec(self, device="cuda"):
+        """The walker mesh of ``num_mesh_devices`` on ``device``'s kind
+        (``None`` unsharded)."""
+        return sharded.mesh_spec(self.num_mesh_devices, device)
+
     @cached_property
     def sampling(self) -> vmc_sampler.Sampling:
+        """The bound sampler, unsharded: a run on a mesh gives each rank
+        its own with the rank's mesh."""
         ssf_est_spec = vmc_sampler.SSFEstSpec(self.ssf_spec.num_modes) \
             if self.should_eval_ssf else None
         obd_est_spec = vmc_sampler.OBDEstSpec(
@@ -331,12 +337,6 @@ class Proc(proc_base.Proc):
             self.pair_corr_spec.num_bins,
             est_every_mult=self.pair_corr_spec.est_every_mult) \
             if self.should_eval_pair_corr else None
-        if self.num_mesh_devices not in (None, 1):
-            raise ValueError(
-                f"num_mesh_devices={self.num_mesh_devices!r}: this "
-                f"package runs a procedure on one device; sharding the "
-                f"chains over several is not available yet (leave "
-                f"num_mesh_devices unset)")
         return vmc_sampler.Sampling(
             self.model_spec, self.move_spread, self.rng_seed,
             ssf_est_spec=ssf_est_spec, obd_est_spec=obd_est_spec,
@@ -440,11 +440,26 @@ class Proc(proc_base.Proc):
 
     def exec(self, proc_input: ProcInput,
              checkpoint_hook: t.Optional[t.Callable[[ProcInput], None]]
-             = None) -> ProcResult:
+             = None, mesh=None) -> ProcResult:
         """Run the VMC sampling on the device of ``proc_input.state``
         (the upstream library's loop: ``qmc_exec/vmc/proc.py:87-250``).
         ``checkpoint_hook`` receives every checkpoint's resume input,
-        as in :meth:`phd_qmclib_torch.qmc_exec.dmc.Proc.exec`."""
+        and ``num_mesh_devices`` (or ``mesh``) splits the chains, as in
+        :meth:`phd_qmclib_torch.qmc_exec.dmc.Proc.exec`."""
+        if not isinstance(proc_input, ProcInput):
+            raise proc_base.ProcInputError(
+                "VMC procedure input must be a vmc ProcInput instance")
+        if mesh is None:
+            mesh = self.mesh_spec(proc_input.state.pos.device)
+        if mesh is None:
+            return self._exec(proc_input, checkpoint_hook)
+        return sharded.exec_on_mesh(self, proc_input, mesh, checkpoint_hook)
+
+    def _exec(self, proc_input: ProcInput,
+              checkpoint_hook: t.Optional[t.Callable[[ProcInput], None]]
+              = None, mesh=None) -> ProcResult:
+        """:meth:`exec` on one device, or on the rank ``mesh`` (a
+        ``WalkerMesh``) of a walker mesh."""
         num_blocks = self.num_blocks
         ns_block = self.num_steps_block
         burn_in_blocks = self.burn_in_blocks
@@ -454,14 +469,13 @@ class Proc(proc_base.Proc):
         should_eval_g2 = self.should_eval_pair_corr
         num_walkers = self.num_walkers
 
-        if not isinstance(proc_input, ProcInput):
-            raise proc_base.ProcInputError(
-                "VMC procedure input must be a vmc ProcInput instance")
-
         exec_logger.info("Starting VMC sampling...")
         self.describe_model_spec()
 
         sampling = self.sampling
+        if mesh is not None:
+            sampling = replace(sampling, mesh=mesh)
+        writer = mesh is None or mesh.rank == 0
         resume = proc_input.resume
         start_block = 0
         it_offset = self.block_offset
@@ -524,13 +538,13 @@ class Proc(proc_base.Proc):
                 # AFTER the accumulator folds this block, so the
                 # snapshot carries the checkpointed block's statistics.
                 resume_input = self._checkpoint_input(
-                    block_data.last_state,
+                    _global_state(mesh, block_data.last_state),
                     blocks_completed=block_idx + 1,
                     it_offset=it_offset, it_next=it_next,
                     accum=accumulator)
-                if self.checkpoint_file is not None:
+                if writer and self.checkpoint_file is not None:
                     self._write_checkpoint(resume_input)
-                if checkpoint_hook is not None:
+                if writer and checkpoint_hook is not None:
                     checkpoint_hook(resume_input)
 
         exec_logger.info("VMC sampling completed.")
@@ -538,9 +552,17 @@ class Proc(proc_base.Proc):
             f"Mean acceptance rate: {accumulator.mean_accept_rate:.4f}")
 
         sampling_data = accumulator.package()
-        last_state = block_data.last_state if block_data is not None \
-            else proc_input.state
+        last_state = _global_state(mesh, block_data.last_state) \
+            if block_data is not None else proc_input.state
         return self.build_result(last_state, sampling_data)
+
+
+def _global_state(mesh, state: vmc_sampler.State) -> vmc_sampler.State:
+    """All the chains of a mesh, whose rank holds ``state`` (every rank
+    takes part); the state itself unsharded."""
+    if mesh is None:
+        return state
+    return type(state)(*(None if x is None else mesh.cat(x) for x in state))
 
 
 class _VmcBlockAccumulator:

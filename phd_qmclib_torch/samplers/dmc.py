@@ -1,8 +1,8 @@
 """Diffusion Monte Carlo: drift-diffusion propagation with birth/death
 branching and population control, and the DMC estimators.
 
-Counterpart of ``phd_qmclib_tpu.samplers.dmc`` on one device.  Each
-step, as in the JAX package:
+Counterpart of ``phd_qmclib_tpu.samplers.dmc``.  Each step, as in the
+JAX package:
 
 1. comb on the previous step's weights: each valid walker ``i`` is
    cloned ``floor(w_i + u_i)`` times, ``floor(w + u) -> cumsum ->
@@ -44,7 +44,25 @@ the per-step ensemble scalars and estimator rows are stacked and fetched
 once per block.  The comb uniforms come from a ``torch.Generator`` on
 the device, one stream per block; the diffusion noise from the Philox
 normals kernel keyed by ``(rng_seed, global step index)``.
+
+On a walker mesh (``mesh``, a ``phd_qmclib_torch.parallel.WalkerMesh``:
+one process per device) every rank steps its shard of the buffer, the
+``max_num_walkers / S`` slots ``rank * shard_size ..``, with a valid
+prefix and a walker count of its own: the comb, the gathers, the
+diffusion, the pair kernel and the weights stay on the shard, and the
+ensemble sums that the population controller reads (energy, weight, the
+walker count) are ``mesh.psum``-ed every step, where the JAX package
+``psum``-s them.  The estimator sums are shard-local and ``psum``-ed
+once per block.  Each shard draws its own streams: the comb's from
+``(rng_seed, block index, shard)``, the noise keyed by ``(rng_seed,
+shard)``.  Per-shard combs make the shards' populations random walks,
+so ``rebalance_every`` deals the valid walkers evenly over the shards
+every K blocks (:meth:`Sampling.rebalance`).  A state given to the
+sampler is the global view (``num_walkers`` with one entry per shard);
+a state saved under another shard count is re-laid out first
+(:meth:`Sampling.adapt_state_shards`).
 """
+import dataclasses
 import typing as t
 from dataclasses import dataclass
 from functools import cached_property
@@ -229,12 +247,19 @@ class ITCEstSpec:
 _ITC_AUX = ("aux_itc", "aux_itc_cnt")
 
 
+#: The State fields with one entry per walker slot.
+WALKER_FIELDS = ("pos", "drift", "energies", "weights", "masks",
+                 "cmd_accum", "itc_buf")
+
+
 class _Branch(t.NamedTuple):
     """The post-branching ensemble of a step, which the estimators
     measure, with the rows' leading axis."""
     parent: torch.Tensor  # (R, Wm) int64 branching table, flat over rows
     pos: torch.Tensor     # (R, Wm, N) children, before diffusion
     valid: torch.Tensor   # (R, Wm) bool
+    #: (R,) int64: the walkers of every shard (the step's own count).
+    num_walkers: t.Optional[torch.Tensor] = None
 
 
 class _Divisor(t.NamedTuple):
@@ -266,12 +291,23 @@ class _Consts(t.NamedTuple):
     nwc: t.Union[float, torch.Tensor]           # (R,)
     dt_divisor: _Divisor
     target_divisor: _Divisor
-    seeds: t.Tuple[int, ...]
+    seeds: t.Tuple[int, ...]      # the rows' rng_seed: the comb streams
+    noise_keys: t.Tuple[int, ...]  # the noise's keys (a shard's own)
     sigma: float                  # one row: the noise's scale
-    keys: t.Optional[torch.Tensor]    # rows: prng.key_table(seeds)
+    keys: t.Optional[torch.Tensor]    # rows: prng.key_table(noise_keys)
     sigmas: t.Optional[torch.Tensor]  # rows: (R,) scales
     slots: torch.Tensor           # (R, Wm) arange, the comb's slots
     offsets: t.Optional[torch.Tensor]  # (R, 1) row starts r Wm; None: R = 1
+    #: The walker mesh whose shard this run steps; ``None`` unsharded.
+    mesh: t.Any = None
+
+    @property
+    def shard(self) -> t.Optional[int]:
+        return None if self.mesh is None else self.mesh.rank
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the mesh's shards (itself unsharded)."""
+        return x if self.mesh is None else self.mesh.psum(x)
 
 
 def _rows_value(values, dtype, device, ndim: int):
@@ -333,11 +369,15 @@ def _row_sums(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([one(row) for row in x])
 
 
-def _row_consts(samplings, dtype, device) -> _Consts:
+def _row_consts(samplings, dtype, device, max_w: t.Optional[int] = None,
+                mesh=None) -> _Consts:
     """The constants of the rows ``samplings`` (a fused sweep's, or one
-    sampling) for a run in ``dtype`` on ``device``."""
+    sampling) for a run in ``dtype`` on ``device`` over buffers of
+    ``max_w`` slots (default: the sampling's; a shard of ``mesh``: its
+    share)."""
     ref = samplings[0]
-    num_rows, max_w = len(samplings), ref.max_num_walkers
+    num_rows = len(samplings)
+    max_w = ref.max_num_walkers if max_w is None else max_w
     cfc, params, offsets = _rows_model(samplings, dtype, device)
     bin_size = None
     if ref.density_est_spec is not None:
@@ -345,6 +385,8 @@ def _row_consts(samplings, dtype, device) -> _Consts:
         bin_size = sc / torch.full_like(sc, ref.density_est_spec.num_bins)
     dts = [s.time_step for s in samplings]
     seeds = tuple(int(s.rng_seed) for s in samplings)
+    noise_keys = seeds if mesh is None else tuple(
+        utils.shard_key(seed, mesh.rank) for seed in seeds)
     rows = num_rows > 1
     return _Consts(
         cfc=cfc, params=params, density_bin_size=bin_size,
@@ -355,13 +397,14 @@ def _row_consts(samplings, dtype, device) -> _Consts:
         dt_divisor=_rows_divisor(dts, dtype, device),
         target_divisor=_rows_divisor(
             [float(s.target_num_walkers) for s in samplings], dtype, device),
-        seeds=seeds, sigma=ref.sigma_spread,
-        keys=prng.key_table(seeds, device) if rows else None,
+        seeds=seeds, noise_keys=noise_keys, sigma=ref.sigma_spread,
+        keys=prng.key_table(noise_keys, device) if rows else None,
         sigmas=(torch.tensor([s.sigma_spread for s in samplings],
                              dtype=dtype, device=device) if rows else None),
         slots=torch.arange(max_w, device=device).repeat(num_rows, 1),
         offsets=(torch.arange(num_rows, device=device)[:, None] * max_w
-                 if rows else None))
+                 if rows else None),
+        mesh=mesh)
 
 
 def branching_comb(weights: torch.Tensor, num_walkers: torch.Tensor,
@@ -431,22 +474,35 @@ def state_from_numpy(state, device="cuda") -> State:
     """The port's :class:`State` from a JAX ``State`` (or any object with
     the same fields, as numpy-convertible arrays) on ``device``.
 
-    The JAX ``num_walkers`` has one entry per shard; only one-shard
-    states convert.  ``cmd_accum`` and the ITC ring buffer (``itc_buf``,
-    with row 0 the newest amplitude in both packages, and
-    ``itc_filled``) convert when present.
+    The JAX ``num_walkers`` has one entry per shard.  A one-shard state
+    converts with a 0-d count; an S-shard state is the global view, with
+    the ``(S,)`` counts: a sampling on an S-shard mesh steps each rank's
+    slice of it, any other re-lays it out first
+    (:meth:`Sampling.adapt_state_shards`).  ``cmd_accum`` and the ITC
+    ring buffer (``itc_buf``, with row 0 the newest amplitude in both
+    packages, and ``itc_filled``) convert when present.
     """
     fields = {}
     for name in State._fields:
         value = getattr(state, name, None)
         fields[name] = (None if value is None else
                         torch.tensor(np.asarray(value), device=device))
-    num_walkers = fields["num_walkers"]
-    if num_walkers.numel() != 1:
-        raise ValueError(f"only one-shard states convert, got "
-                         f"{num_walkers.numel()} walker counts")
-    fields["num_walkers"] = num_walkers.reshape(()).to(torch.int64)
+    num_walkers = fields["num_walkers"].to(torch.int64)
+    fields["num_walkers"] = num_walkers.reshape(
+        () if num_walkers.numel() == 1 else (-1,))
     return State(**fields)
+
+
+def _check_shards(max_w: int, target: int, num_shards: int) -> None:
+    if max_w % num_shards or target % num_shards:
+        raise ValueError(
+            f"max_num_walkers and target_num_walkers must be divisible by "
+            f"the mesh 'walkers' axis size ({num_shards})")
+
+
+def _shard_counts(state: State) -> torch.Tensor:
+    """A global state's walker count per shard, ``(S,)``."""
+    return state.num_walkers.reshape(-1)
 
 
 def aux_from_numpy(aux_carry: dict,
@@ -472,6 +528,13 @@ class Sampling:
     ``ref_compat`` takes the slot's previous-step energy as ``E_prev``
     in the branching weight instead of the parent's (the reference
     library's stale-slot read; both are O(dt) discretizations).
+
+    ``mesh`` (a ``phd_qmclib_torch.parallel.WalkerMesh``, given on each
+    rank of a :func:`phd_qmclib_torch.parallel.launch`) shards the
+    walker buffer over its ranks: branching per shard, population
+    control global.  ``rebalance_every`` deals the valid walkers evenly
+    over the shards every K blocks (``None``: never; one shard never
+    needs it).
     """
     model_spec: mrbp.Spec
     time_step: float
@@ -488,6 +551,8 @@ class Sampling:
     cm_window_blocks: t.Optional[int] = 1
     est_every: int = 1
     ref_compat: bool = False
+    mesh: t.Any = None
+    rebalance_every: t.Optional[int] = None
 
     def __post_init__(self):
         if self.rng_seed is None:
@@ -516,6 +581,23 @@ class Sampling:
                         "pfw_num_time_steps must be divisible by "
                         "est_every (x est_every_mult for the "
                         "OBDM/pair-correlation estimators)")
+        _check_shards(self.max_num_walkers, self.target_num_walkers,
+                      self.num_shards)
+
+    def __getstate__(self):
+        # The fields only: the cached functions (closures) are made again
+        # where the sampling is unpickled (a rank of a mesh).
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    @property
+    def num_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    @property
+    def shard_size(self) -> int:
+        """Walker slots of a shard."""
+        return self.max_num_walkers // self.num_shards
 
     @property
     def cfc_params(self) -> mrbp.CFCParams:
@@ -665,37 +747,50 @@ class Sampling:
 
     def _fresh_aux(self, dtype, device,
                    rows: t.Optional[int] = None) -> t.Dict[str, torch.Tensor]:
-        """Zero accumulators; with ``rows``, for that many rows."""
-        lead = () if rows is None else (rows,)
-        return {name: torch.zeros(lead + shape, dtype=dtype, device=device)
+        """Zero accumulators of a shard's slots; with ``rows``, for that
+        many rows."""
+        lead = (self.shard_size,) if rows is None \
+            else (rows, self.shard_size)
+        return {name: torch.zeros(lead + shape[1:], dtype=dtype,
+                                  device=device)
                 for name, shape in self._pure_aux_shapes().items()}
 
-    def _fresh_itc(self, dtype, device,
-                   rows: t.Optional[int] = None) -> t.Dict[str, torch.Tensor]:
-        """The :class:`State`'s ITC fields at the start of a fill; with
-        ``rows``, for that many rows."""
+    def _fresh_itc(self, dtype, device, rows: t.Optional[int] = None,
+                   slots: t.Optional[int] = None
+                   ) -> t.Dict[str, torch.Tensor]:
+        """The :class:`State`'s ITC fields at the start of a fill, for
+        ``slots`` walker slots (default: a shard's); with ``rows``, for
+        that many rows."""
         if self.itc_est_spec is None:
             return {}
         lead = () if rows is None else (rows,)
-        return {"itc_buf": torch.zeros(lead + self._itc_buf_shape,
+        slots = self.shard_size if slots is None else slots
+        return {"itc_buf": torch.zeros(lead + (slots,)
+                                       + self._itc_buf_shape[1:],
                                        dtype=dtype, device=device),
                 "itc_filled": torch.zeros(lead, dtype=torch.int32,
                                           device=device)}
 
     def _consts(self, dtype, device) -> _Consts:
-        return _row_consts((self,), dtype, device)
+        return _row_consts((self,), dtype, device, self.shard_size,
+                           self.mesh)
 
     # -- state construction ---------------------------------------------------
 
     def build_state(self, sys_conf_set: np.ndarray,
                     ref_energy: t.Optional[float] = None,
-                    dtype=None, device="cuda") -> State:
+                    dtype=None, device="cuda",
+                    num_shards: t.Optional[int] = None) -> State:
         """Build the initial ensemble on ``device`` from a configuration
         set ``(num, N)`` or ``(num, 2, N)``.
 
         Takes the last ``target_num_walkers`` configurations, computes
         their fused energy and drift, sets unit weights, and seeds
-        ``E_ref`` with the weighted ensemble energy.
+        ``E_ref`` with the weighted ensemble energy.  On ``num_shards``
+        shards (default: the mesh's) the state is the global view of the
+        JAX package's layout: shard ``s`` holds configurations ``s *
+        ceil(num / S) ..`` as a valid prefix of its slots, and
+        ``num_walkers`` has one entry per shard (0-d on one shard).
         """
         sys_conf_set = np.asarray(sys_conf_set)
         nop = self.model_spec.boson_number
@@ -716,10 +811,21 @@ class Sampling:
             dtype = pos_set.dtype if np.issubdtype(
                 pos_set.dtype, np.floating) else np.float64
         dtype = utils.torch_dtype(dtype)
+        num_shards = self.num_shards if num_shards is None else num_shards
+        _check_shards(max_w, self.target_num_walkers, num_shards)
 
+        shard_size = max_w // num_shards
+        per_shard = -(-num // num_shards)  # ceil
         pos = torch.zeros((max_w, nop), dtype=dtype, device=device)
-        pos[:num] = torch.as_tensor(pos_set, dtype=dtype, device=device)
-        valid = torch.arange(max_w, device=device) < num
+        valid = torch.zeros(max_w, dtype=torch.bool, device=device)
+        counts = []
+        for s in range(num_shards):
+            chunk = torch.as_tensor(pos_set[s * per_shard:(s + 1) * per_shard],
+                                    dtype=dtype, device=device)
+            start = s * shard_size
+            pos[start:start + len(chunk)] = chunk
+            valid[start:start + len(chunk)] = True
+            counts.append(len(chunk))
         cfc = self._cast_params(dtype, device)
         energies, drift = self.core_funcs.energy_and_drift(pos, cfc)
         weights = valid.to(dtype)
@@ -738,13 +844,151 @@ class Sampling:
         return State(
             pos=pos, drift=drift, energies=energies, weights=weights,
             masks=~valid, energy=f(state_energy), weight=f(state_weight),
-            num_walkers=torch.tensor(num, dtype=torch.int64,
-                                     device=device),
+            num_walkers=torch.tensor(counts if num_shards > 1 else num,
+                                     dtype=torch.int64, device=device),
             ref_energy=f(ref_energy), accum_energy=f(energy_mean),
             total_energy=f(0.0), total_weight=f(0.0),
             cmd_accum=(torch.zeros(max_w, dtype=dtype, device=device)
                        if self.cm_diffusion_est else None),
-            **self._fresh_itc(dtype, device))
+            **self._fresh_itc(dtype, device, slots=max_w))
+
+    # -- shards ---------------------------------------------------------------
+
+    def _adapt(self, state: State, aux: t.Optional[dict] = None):
+        """:meth:`adapt_state_shards` of ``state`` and of the pure
+        accumulators ``aux`` (global, in the state's layout, or
+        ``None``): ``(state, aux)``."""
+        if state.num_walkers.numel() == self.num_shards:
+            return state, aux
+        src = _shard_counts(state).tolist()
+        max_w, num_shards = state.max_num_walkers, self.num_shards
+        if max_w != self.max_num_walkers or max_w % len(src) \
+                or max_w % num_shards:
+            raise ValueError(
+                f"cannot re-layout a {len(src)}-shard state of {max_w} "
+                f"slots onto {num_shards} shards of {self.max_num_walkers}")
+        src_size = max_w // len(src)
+        valid_idx = [s * src_size + k for s, c in enumerate(src)
+                     for k in range(c)]
+        num = len(valid_idx)
+        shard_size = max_w // num_shards
+        per_shard = -(-num // num_shards)  # ceil, like build_state
+        dest_idx, counts = [], []
+        for s in range(num_shards):
+            chunk = min(per_shard, num - len(dest_idx), shard_size)
+            dest_idx.extend(range(s * shard_size, s * shard_size + chunk))
+            counts.append(chunk)
+        device = state.pos.device
+        dest = torch.tensor(dest_idx, dtype=torch.int64, device=device)
+        valid = torch.tensor(valid_idx[:len(dest_idx)], dtype=torch.int64,
+                             device=device)
+
+        def relayout(buf):
+            if buf is None:
+                return None
+            buf = torch.as_tensor(buf, device=device)
+            out = torch.zeros_like(buf)
+            out[dest] = buf[valid]
+            return out
+
+        masks = torch.ones(max_w, dtype=torch.bool, device=device)
+        masks[dest] = False
+        fields = {name: relayout(getattr(state, name))
+                  for name in WALKER_FIELDS if name != "masks"}
+        state = state._replace(
+            masks=masks, **fields, num_walkers=torch.tensor(
+                counts if num_shards > 1 else counts[0], dtype=torch.int64,
+                device=device))
+        if aux is not None:
+            aux = {name: relayout(value) for name, value in aux.items()}
+        return state, aux
+
+    def adapt_state_shards(self, state: State) -> State:
+        """Re-lay out a global state saved under another shard count
+        (``num_walkers`` with one entry per shard; a 0-d count is one
+        shard) onto this sampling's shards.
+
+        The valid walkers compact in slot order and fill this sampling's
+        per-shard prefixes as :meth:`build_state` does, each with every
+        per-walker buffer (positions, drift, energies, weights, the CM
+        accumulator and the ITC ring buffer): values kept, not
+        recomputed, so the physics continues from the saved ensemble (the
+        random streams are per shard, so the trajectory continues
+        statistically, not bit for bit).  Nothing changes when the
+        layouts match.
+        """
+        return self._adapt(state)[0]
+
+    def rebalance(self, state: State) -> State:
+        """Deal the valid walkers of a global state (``(S,)`` counts)
+        evenly over its S shards: packed in slot order, walker ``k`` goes
+        to slot ``(k % S) * shard_size + k // S``, a bijection of the
+        slots, so every shard keeps a valid prefix, and the per-walker
+        buffers (the CM accumulator and the ITC ring buffer included)
+        move with their walkers.  The JAX package's ``rebalance``, on a
+        sampling of S shards."""
+        num_shards = _shard_counts(state).numel()
+        max_w = state.max_num_walkers
+        shard_size = max_w // num_shards
+        device = state.pos.device
+        slots = torch.arange(max_w, device=device)
+        shard_of, row_of = slots // shard_size, slots % shard_size
+        valid = row_of < _shard_counts(state)[shard_of]
+        order = torch.argsort(torch.where(valid, 0, 1), stable=True)
+        dest = (slots % num_shards) * shard_size + slots // num_shards
+        n_total = valid.sum()
+        shards = torch.arange(num_shards, device=device)
+        counts = n_total // num_shards + (shards < n_total % num_shards)
+        new_valid = row_of < counts[shard_of]
+
+        def permute(buf, masked=True):
+            if buf is None:
+                return None
+            out = torch.zeros_like(buf)
+            out[dest] = buf[order]
+            if not masked:
+                return out
+            return torch.where(new_valid.view((-1,) + (1,) * (buf.dim() - 1)),
+                               out, 0.0)
+
+        return state._replace(
+            pos=permute(state.pos, masked=False),
+            drift=permute(state.drift), energies=permute(state.energies),
+            weights=permute(state.weights), masks=~new_valid,
+            num_walkers=counts.reshape(state.num_walkers.shape),
+            cmd_accum=permute(state.cmd_accum),
+            itc_buf=permute(state.itc_buf))
+
+    def _rebalance_shard(self, state: State) -> State:
+        """:meth:`rebalance` of the rank's shard ``state``: the rank's
+        shard of the rebalanced global view."""
+        return self._shard_of(self.rebalance(
+            self.mesh.gather_state(state)))[0]
+
+    def _shard_of(self, state: State, aux: t.Optional[dict] = None):
+        """This rank's shard of a global ``state`` (re-laid out first when
+        its shard count differs) and of the pure accumulators ``aux``,
+        with a 0-d walker count, on the mesh's device: ``(state, aux)``.
+        Unsharded, the state itself."""
+        state, aux = self._adapt(state, aux)
+        if self.mesh is None:
+            if aux is not None:
+                aux = {name: torch.as_tensor(value)
+                       for name, value in aux.items()}
+            return state._replace(
+                num_walkers=state.num_walkers.reshape(())), aux
+        device, rank = self.mesh.device, self.mesh.rank
+        lo, hi = rank * self.shard_size, (rank + 1) * self.shard_size
+        fields = {name: (value[lo:hi] if name in WALKER_FIELDS
+                         and value is not None else value)
+                  for name, value in state._asdict().items()}
+        fields["num_walkers"] = _shard_counts(state)[rank]
+        local = State(**{name: None if value is None else value.to(device)
+                         for name, value in fields.items()})
+        if aux is not None:
+            aux = {name: torch.as_tensor(value)[lo:hi].to(device)
+                   for name, value in aux.items()}
+        return local, aux
 
     # -- the step -------------------------------------------------------------
 
@@ -779,6 +1023,14 @@ class Sampling:
 
         state_energy = _row_sums(torch.where(valid, cenergy, 0.0))
         state_weight = nw.to(state.pos.dtype)
+        nw_total = nw
+        if consts.mesh is not None:
+            # The shards' sums in one collective; the counts are exact
+            # integers in the state's type.
+            sums = consts.psum(torch.stack([state_energy, state_weight],
+                                           dim=-1))
+            state_energy, state_weight = sums[..., 0], sums[..., 1]
+            nw_total = state_weight.to(torch.int64)
 
         # 3) Population-control update.
         total_energy = state.total_energy + state_energy
@@ -813,7 +1065,8 @@ class Sampling:
             total_energy=total_energy, total_weight=total_weight,
             cmd_accum=cmd_accum, itc_buf=state.itc_buf,
             itc_filled=state.itc_filled)
-        return new_state, e_prev_slots, _Branch(parent, cpos, valid)
+        return new_state, e_prev_slots, _Branch(parent, cpos, valid,
+                                                nw_total)
 
     def _diffuse(self, cpos, cdrift, e_prev, xi, ref_energy, cfc, params,
                  dt, neg_dt):
@@ -998,7 +1251,7 @@ class Sampling:
         for step, (comb_u, xi) in enumerate(draws):
             state, e_prev_slots, branch = self._step(
                 state, e_prev_slots, comb_u, xi, consts)
-            props.append((state.energy, state.weight, state.num_walkers,
+            props.append((state.energy, state.weight, branch.num_walkers,
                           state.ref_energy, state.accum_energy))
             if thin and (step + 1) % thin == 0:
                 ensembles.append((state.pos, state.energies, state.weights))
@@ -1033,20 +1286,24 @@ class Sampling:
         step index)``.  The noise goes into the run's buffer ``noise (R,
         Wm, N)`` (one launch for all rows), the rows' uniforms into
         ``comb (R, Wm)`` (a single sampling draws a fresh tensor):
-        each step consumes them before the next draw, in stream order."""
+        each step consumes them before the next draw, in stream order.
+        A shard of a mesh draws its own streams: the comb's seeded from
+        ``(rng_seed, block index, shard)``, the noise keyed by its
+        ``consts.noise_keys``."""
         dtype, device = noise.dtype, noise.device
         max_w = noise.shape[1]
         gens = []
         for seed in consts.seeds:
             gen = torch.Generator(device=device)
-            gen.manual_seed(utils.block_seed(seed, block_index))
+            gen.manual_seed(utils.block_seed(seed, block_index, consts.shard))
             gens.append(gen)
         for step in range(num_time_steps_block):
             global_step = block_index * num_time_steps_block + step
             if comb is None:
                 comb_u = torch.rand((max_w,), generator=gens[0], dtype=dtype,
                                     device=device)[None]
-                prng.normal(consts.seeds[0], global_step, noise.shape[1:],
+                prng.normal(consts.noise_keys[0], global_step,
+                            noise.shape[1:],
                             dtype, device, scale=consts.sigma, out=noise[0])
             else:
                 for gen, row in zip(gens, comb):
@@ -1059,14 +1316,20 @@ class Sampling:
     def _row_blocks(self, consts: _Consts, ini_state: State,
                     num_time_steps_block: int, burn_in_blocks: int,
                     block_offset: int, start_block_idx: int,
-                    aux_init: t.Optional[dict]):
+                    aux_init: t.Optional[dict],
+                    rebalance_pending0: bool = False):
         """The block loop of :meth:`blocks` on R rows: ``ini_state`` and
         ``aux_init`` have the rows' leading axis, this sampling gives
         the static structure and ``consts`` (:func:`_row_consts`) the
         rows' own constants.  Yields ``(props, rows, state, aux_carry)``
         per block: the per-step scalars ``(nts, R)`` on the host, the
         estimator rows ``(R, n, ...)`` on the host by name (none in
-        burn-in blocks), the last state and the carried accumulators."""
+        burn-in blocks), the last state and the carried accumulators.
+        On a mesh (one row, a shard of it) the estimator rows are the
+        shards' sums, and a due rebalance runs at the start of a block:
+        every ``rebalance_every`` blocks, held until a forward-walking
+        window starts (``rebalance_pending0`` re-arms one a checkpoint
+        cut before its window's start)."""
         state = ini_state
         num_rows = state.pos.shape[0]
         dtype, device = state.pos.dtype, state.pos.device
@@ -1095,9 +1358,21 @@ class Sampling:
                                               device=device))
                        for name, value in aux_init.items() if name in aux)
         block = start_block_idx
+        rebalance_every = self.rebalance_every if self.num_shards > 1 \
+            else None
+        rebalance_pending = bool(rebalance_pending0)
         while True:
             measured_idx = block - burn_in_blocks
             measuring = measured_idx >= 0
+            if rebalance_every and block and block % rebalance_every == 0:
+                rebalance_pending = True
+            if rebalance_pending and (measured_idx <= 0
+                                      or measured_idx % window == 0):
+                # The pure accumulators ride outside the state: a due
+                # rebalance waits for a window's start, where they are
+                # zero, as in the JAX package.
+                state = _as_rows(self._rebalance_shard(_row(state, 0)))
+                rebalance_pending = False
             if self.cm_diffusion_est and (
                     measured_idx == 0 or (cmd_window and measured_idx > 0
                                           and measured_idx % cmd_window
@@ -1119,7 +1394,8 @@ class Sampling:
                 state, draws, consts, measuring, aux, step_offset)
             props = PropsData(*(torch.stack(column).cpu()
                                 for column in zip(*steps)))
-            rows = {name: torch.stack(values, dim=1).cpu()
+            # The shards' estimator sums, once per block.
+            rows = {name: consts.psum(torch.stack(values, dim=1)).cpu()
                     for name, values in est.items()}
             yield (props, rows, state,
                    aux if measuring and window > 1 else None)
@@ -1131,7 +1407,8 @@ class Sampling:
                burn_in_blocks: int = 0,
                block_offset: int = 0,
                start_block_idx: int = 0,
-               aux_init: t.Optional[dict] = None
+               aux_init: t.Optional[dict] = None,
+               rebalance_pending0: bool = False
                ) -> t.Iterator[SamplingBlock]:
         """Yield :class:`SamplingBlock` objects indefinitely.
 
@@ -1161,15 +1438,26 @@ class Sampling:
 
         The loop is a fused sweep's (``phd_qmclib_torch.parallel.
         ParamSweep``) with this sampling as its one row.
+
+        On a mesh every rank calls this with the global view of the
+        state (and of ``aux_init``), and steps its shard of it on the
+        mesh's device: ``last_state`` and ``aux_carry`` are the rank's
+        shard (``mesh.gather_state`` gives the global view), the
+        per-step scalars and the estimator rows the whole ensemble's.
+        ``rebalance_pending0`` re-arms a cadence rebalance that a
+        checkpoint cut while it waited for its window's start.  A state
+        of another shard count is re-laid out first
+        (:meth:`adapt_state_shards`).
         """
-        state = _as_rows(ini_state)
+        state, aux_init = self._shard_of(ini_state, aux_init)
+        state = _as_rows(state)
         consts = self._consts(state.pos.dtype, state.pos.device)
         if aux_init is not None:
-            aux_init = {name: torch.as_tensor(value)[None]
-                        for name, value in aux_init.items()}
+            aux_init = {name: value[None] for name, value in aux_init.items()}
         for props, rows, last, carry in self._row_blocks(
                 consts, state, num_time_steps_block, burn_in_blocks,
-                block_offset, start_block_idx, aux_init):
+                block_offset, start_block_idx, aux_init,
+                rebalance_pending0):
             rows = {name: value[0] for name, value in rows.items()}
             yield SamplingBlock(
                 PropsData(*(column[:, 0] for column in props)),
@@ -1196,12 +1484,13 @@ class Sampling:
         ``thin``-th step's post-diffusion ensemble on the state's
         device, and ``block`` the usual :class:`SamplingBlock`.  No
         estimator is measured while recording, and the block streams are
-        those of :meth:`blocks` at the same ``block_offset``.
+        those of :meth:`blocks` at the same ``block_offset``.  On a mesh,
+        as in :meth:`blocks`, the ensembles are the rank's shard's.
         """
         if num_time_steps_block % thin:
             raise ValueError(
                 "num_time_steps_block must be divisible by thin")
-        state = _as_rows(ini_state)
+        state = _as_rows(self._shard_of(ini_state)[0])
         consts = self._consts(state.pos.dtype, state.pos.device)
         noise = torch.empty(state.pos.shape, dtype=state.pos.dtype,
                             device=state.pos.device)
@@ -1234,8 +1523,10 @@ class Sampling:
             state, e_prev_slots, branch = self._step(
                 state, e_prev_slots, comb_u[step], xi[step], consts)
             for name in out:
-                out[name].append(branch.parent - offsets if name == "parent"
-                                 else getattr(state, name))
+                out[name].append(
+                    branch.parent - offsets if name == "parent"
+                    else branch.num_walkers if name == "num_walkers"
+                    else getattr(state, name))
         return {name: torch.stack(values) for name, values in out.items()}
 
     def replay_states(self, ini_state: State, comb_u,
@@ -1247,14 +1538,28 @@ class Sampling:
         Returns per-step tensors: ``num_walkers, energy, weight,
         ref_energy, accum_energy`` (the ensemble scalars), ``pos,
         energies, weights`` (the post-diffusion ensemble) and ``parent``
-        (the branching table).
+        (the branching table).  On a mesh the state and the draws are
+        the global ones: each rank steps its shard with its slice of the
+        draws and returns its shard's ensemble (``parent`` within the
+        shard), and the whole ensemble's scalars.
         """
-        dtype, device = ini_state.pos.dtype, ini_state.pos.device
-        comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
-        xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
-        out = self._replay(self._consts(dtype, device), _as_rows(ini_state),
-                           comb_u[:, None], xi[:, None])
+        ini_state, _ = self._shard_of(ini_state)
+        comb_u, xi = self._shard_draws(ini_state, comb_u, diffusion_noise)
+        out = self._replay(
+            self._consts(ini_state.pos.dtype, ini_state.pos.device),
+            _as_rows(ini_state), comb_u[:, None], xi[:, None])
         return {name: value[:, 0] for name, value in out.items()}
+
+    def _shard_draws(self, state: State, comb_u, diffusion_noise):
+        """This rank's slice of injected global draws, as tensors like
+        ``state``'s."""
+        lo = 0 if self.mesh is None else self.mesh.rank * self.shard_size
+
+        def part(draws):
+            draws = torch.as_tensor(draws, dtype=state.pos.dtype)
+            return draws[:, lo:lo + self.shard_size].to(state.pos.device)
+
+        return part(comb_u), part(diffusion_noise)
 
     def replay_estimators(self, ini_state: State, comb_u, diffusion_noise,
                           aux_in: t.Optional[dict] = None,
@@ -1271,21 +1576,24 @@ class Sampling:
         estimator its rows stacked over the steps where it measured
         (``(nts // K, ...)``, or ``nts // (K m)`` with a multiplier),
         the final accumulators, and the final state with its ring
-        buffer.
+        buffer.  On a mesh, as in :meth:`replay_states`: the estimator
+        rows are the shards' sums, the accumulators and the state the
+        rank's shard.
         """
+        ini_state, aux_in = self._shard_of(ini_state, aux_in)
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
-        comb_u = torch.as_tensor(comb_u, dtype=dtype, device=device)
-        xi = torch.as_tensor(diffusion_noise, dtype=dtype, device=device)
+        comb_u, xi = self._shard_draws(ini_state, comb_u, diffusion_noise)
         aux = self._fresh_aux(dtype, device, 1)
         if aux_in is not None:
-            aux = {name: torch.as_tensor(aux_in[name], dtype=dtype,
-                                         device=device)[None]
+            aux = {name: aux_in[name].to(dtype=dtype, device=device)[None]
                    for name in aux}
         if self.itc_est_spec is not None and ini_state.itc_buf is None:
             ini_state = ini_state._replace(
                 **self._fresh_itc(dtype, device))
+        consts = self._consts(dtype, device)
         state, aux, _, est, _ = self._run(
             _as_rows(ini_state), zip(comb_u[:, None], xi[:, None]),
-            self._consts(dtype, device), True, aux, step_offset)
-        return ({name: torch.stack(rows)[:, 0] for name, rows in est.items()},
+            consts, True, aux, step_offset)
+        return ({name: consts.psum(torch.stack(rows))[:, 0]
+                 for name, rows in est.items()},
                 {name: acc[0] for name, acc in aux.items()}, _row(state, 0))

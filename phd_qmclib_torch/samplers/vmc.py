@@ -1,7 +1,7 @@
 """Variational Monte Carlo: Metropolis sampling of ``|psi|^2``.
 
-Counterpart of ``phd_qmclib_tpu.samplers.vmc`` on one device:
-``num_walkers`` independent Markov chains advance in lockstep.  Each
+Counterpart of ``phd_qmclib_tpu.samplers.vmc``: ``num_walkers``
+independent Markov chains advance in lockstep.  Each
 step, as in the JAX package:
 
 1. every particle of every chain moves by ``move_spread (u - 1/2)``
@@ -26,9 +26,19 @@ stay on the device and are stacked once per block, and the acceptance
 rate is the one value fetched per block.  The uniform draws (moves and
 acceptance) come from a ``torch.Generator`` on the device, seeded per
 block from ``(rng_seed, block index)``; the Gaussian moves from the
-Philox normals kernel keyed by ``(rng_seed, global step index)``.  The
-JAX package's multi-device ``mesh`` is not ported.
+Philox normals kernel keyed by ``(rng_seed, global step index)``.
+
+On a walker mesh (``mesh``, one process per device) the chains split
+over the ranks, ``num_walkers / S`` each, with their own streams (seeded
+from ``(rng_seed, block index, shard)``, the noise keyed by ``(rng_seed,
+shard)``).  The chains never couple: only the block's S(k), OBDM and g2
+sums (``mesh.psum``, once per block) and the acceptance rate (their
+mean, ``mesh.pmean``) cross the shards, and the per-step properties are
+gathered, so that a block holds what the whole ensemble did.  A state
+given to the sampler is the global one; ``last_state`` is the rank's
+chains.
 """
+import dataclasses
 import typing as t
 from dataclasses import dataclass
 from functools import cached_property
@@ -120,23 +130,29 @@ class _Consts(t.NamedTuple):
     params: torch.Tensor  # pack_params(cfc): (16,), or the (R, 16) table
     obd_offsets: t.Optional[torch.Tensor]  # (num_pos,), (num_pos, R, 1, 1)
     move_spread: t.Union[float, torch.Tensor]  # (R, 1, 1) where it differs
-    seeds: t.Tuple[int, ...]
-    keys: t.Optional[torch.Tensor]    # rows, gaussian: prng.key_table(seeds)
+    seeds: t.Tuple[int, ...]        # the rows' rng_seed: the uniform streams
+    noise_keys: t.Tuple[int, ...]   # the Gaussian moves' keys (a shard's own)
+    keys: t.Optional[torch.Tensor]  # rows, gaussian: key_table(noise_keys)
     spreads: t.Optional[torch.Tensor]  # rows, gaussian: (R,) scales
+    #: The walker mesh whose chains this run steps; ``None`` unsharded.
+    mesh: t.Any = None
 
 
-def _row_consts(samplings, dtype, device) -> _Consts:
+def _row_consts(samplings, dtype, device, mesh=None) -> _Consts:
     """The constants of the rows ``samplings`` (a fused sweep's, or one
-    sampling) for a run in ``dtype`` on ``device``."""
+    sampling) for a run in ``dtype`` on ``device``, a shard of
+    ``mesh``'s."""
     cfc, params, offsets = _rows_model(samplings, dtype, device)
     seeds = tuple(int(s.rng_seed) for s in samplings)
+    noise_keys = seeds if mesh is None else tuple(
+        utils.shard_key(seed, mesh.rank) for seed in seeds)
     spreads = [s.move_spread for s in samplings]
     noise_rows = samplings[0].gaussian and len(samplings) > 1
     return _Consts(
         cfc, params, offsets, _rows_value(spreads, dtype, device, 3), seeds,
-        prng.key_table(seeds, device) if noise_rows else None,
+        noise_keys, prng.key_table(noise_keys, device) if noise_rows else None,
         (torch.tensor(spreads, dtype=dtype, device=device) if noise_rows
-         else None))
+         else None), mesh)
 
 
 def state_from_numpy(state, device="cuda") -> State:
@@ -168,6 +184,9 @@ class Sampling:
     gaussian: bool = False
     #: Estimator cadence: measure every K-th step.
     est_every: int = 1
+    #: The walker mesh whose ranks share the chains (a
+    #: ``phd_qmclib_torch.parallel.WalkerMesh``); ``None``: one device.
+    mesh: t.Any = None
 
     def __post_init__(self):
         if self.est_every < 1:
@@ -179,6 +198,30 @@ class Sampling:
         if self.rng_seed is None:
             object.__setattr__(self, "rng_seed",
                                int(utils.get_random_rng_seed()))
+        if self.num_walkers % self.num_shards:
+            raise ValueError(
+                f"num_walkers must be divisible by the mesh 'walkers' axis "
+                f"size ({self.num_shards})")
+
+    def __getstate__(self):
+        # The fields only: the cached functions (closures) are made again
+        # where the sampling is unpickled (a rank of a mesh).
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
+
+    @property
+    def num_shards(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _shard_of(self, state: State) -> State:
+        """This rank's chains of a global state, on the mesh's device
+        (unsharded, the state itself)."""
+        if self.mesh is None:
+            return state
+        num = self.num_walkers // self.num_shards
+        lo = self.mesh.rank * num
+        return State(*(None if x is None else x[lo:lo + num].to(
+            self.mesh.device) for x in state))
 
     # -- derived --------------------------------------------------------------
 
@@ -225,7 +268,7 @@ class Sampling:
                 or self.pair_corr_est_spec is not None)
 
     def _consts(self, dtype, device) -> _Consts:
-        return _row_consts((self,), dtype, device)
+        return _row_consts((self,), dtype, device, self.mesh)
 
     def _check_block_length(self, num_steps_block: int) -> None:
         if self._chunked and (
@@ -383,10 +426,11 @@ class Sampling:
         launch for all rows); the rows' uniforms into ``bufs`` (a single
         sampling draws fresh tensors): each step consumes them before
         the next draw, in stream order."""
+        shard = None if consts.mesh is None else consts.mesh.rank
         gens = []
         for seed in consts.seeds:
             gen = torch.Generator(device=device)
-            gen.manual_seed(utils.block_seed(seed, block_index))
+            gen.manual_seed(utils.block_seed(seed, block_index, shard))
             gens.append(gen)
         for step in range(num_steps_block):
             global_step = block_index * num_steps_block + step
@@ -394,7 +438,7 @@ class Sampling:
                 gen = gens[0]
                 if self.gaussian:
                     disp = prng.normal(
-                        consts.seeds[0], global_step, shape[1:], dtype,
+                        consts.noise_keys[0], global_step, shape[1:], dtype,
                         device, scale=self.move_spread, out=noise[0])
                 else:
                     disp = self.move_spread * (torch.rand(
@@ -427,7 +471,9 @@ class Sampling:
         step's positions ``(R, nts // thin, W, N)`` (with ``thin``), the
         per-step properties ``(R, nts, W)`` and estimator rows ``(R, n,
         ...)`` on the device, the rows' acceptance rates (floats, the
-        block's one host sync) and the last state."""
+        block's one host sync) and the last state.  On a mesh the
+        estimator rows are the shards' sums, the acceptance rates the
+        mean of theirs, the properties gathered over the chains."""
         if num_steps_block < 1:
             raise ValueError("num_steps_block must be nonzero and positive")
         self._check_block_length(thin or num_steps_block)
@@ -456,8 +502,15 @@ class Sampling:
                                 for column in zip(*props)))
             rows = {name: torch.stack(values, dim=1)
                     for name, values in rows.items()}
+            rates = props.move_stat.double().mean(dim=(1, 2))
+            if consts.mesh is not None:
+                mesh = consts.mesh
+                rows = {name: mesh.psum(value) for name, value in rows.items()}
+                rates = mesh.pmean(rates)
+                props = PropsData(*(torch.cat(mesh.all_gather(column), dim=-1)
+                                    for column in props))
             # The block's one host sync.
-            rates = props.move_stat.double().mean(dim=(1, 2)).tolist()
+            rates = rates.tolist()
             yield ((torch.stack(confs, dim=1) if thin else None), props,
                    rows, rates, state)
             block_index += 1
@@ -465,7 +518,7 @@ class Sampling:
     def _blocks(self, num_steps_block: int, ini_state: State,
                 block_offset: int, thin: int):
         """Yield ``(confs, block)`` per block; see :meth:`blocks`."""
-        state = _as_rows(ini_state)
+        state = _as_rows(self._shard_of(ini_state))
         consts = self._consts(state.pos.dtype, state.pos.device)
         for confs, props, rows, rates, last in self._row_blocks(
                 consts, state, num_steps_block, block_offset, thin):
@@ -482,7 +535,8 @@ class Sampling:
 
         The random streams of block ``b`` derive from ``(rng_seed,
         block_offset + b)``: a continuation passes the consumed block
-        count as ``block_offset``.
+        count as ``block_offset``.  On a mesh every rank passes the
+        global state and steps its chains of it (see the module).
         """
         for _, block in self._blocks(num_steps_block, ini_state,
                                      block_offset, 0):
@@ -497,8 +551,20 @@ class Sampling:
         alike or ``(nts, W, N)``; ``accept_u``: the Metropolis uniforms,
         ``(nts,)`` or ``(nts, W)``.  The arithmetic is the production
         step's own.  Returns ``(pos (nts, W, N), wf_abs_log (nts, W),
-        accepted (nts, W))``, the post-step chain states.
+        accepted (nts, W))``, the post-step chain states.  On a mesh the
+        state and the draws ``(nts, W, ...)`` are the global ones and
+        each rank returns its chains'.
         """
+        ini_state = self._shard_of(ini_state)
+        if self.mesh is not None:
+            num = self.num_walkers // self.num_shards
+            lo = self.mesh.rank * num
+            moves_u, accept_u = (torch.as_tensor(moves_u),
+                                 torch.as_tensor(accept_u))
+            if moves_u.dim() == 3:
+                moves_u = moves_u[:, lo:lo + num]
+            if accept_u.dim() == 2:
+                accept_u = accept_u[:, lo:lo + num]
         dtype, device = ini_state.pos.dtype, ini_state.pos.device
         moves = torch.as_tensor(moves_u, dtype=dtype, device=device)
         accept = torch.as_tensor(accept_u, dtype=dtype, device=device)

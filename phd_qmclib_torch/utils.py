@@ -5,13 +5,14 @@ Counterpart of ``phd_qmclib_tpu.utils`` (``get_random_rng_seed`` and
 """
 import os
 import time
+import typing as t
 from datetime import datetime, timezone
 
 import numpy as np
 import torch
 
 __all__ = ["block_seed", "get_random_rng_seed", "now", "numpy_dtype",
-           "torch_dtype"]
+           "shard_key", "torch_dtype"]
 
 #: Maximum seed value (uint32 range).
 MAX_SEED = 2 ** 32 - 1
@@ -34,11 +35,22 @@ def get_random_rng_seed() -> int:
     return int(ss.generate_state(1)[0])
 
 
-def block_seed(rng_seed: int, block_index: int) -> int:
+def block_seed(rng_seed: int, block_index: int,
+               shard: t.Optional[int] = None) -> int:
     """Seed of a sampler's random stream in one block: a pure function of
     ``(rng_seed, block_index)``, so that a run continued from block ``b``
-    draws what the whole run would have drawn."""
-    ss = np.random.SeedSequence([rng_seed, block_index])
+    draws what the whole run would have drawn.  A walker shard of a mesh
+    draws its own stream, ``(rng_seed, block_index, shard)``."""
+    entropy = [rng_seed, block_index] + ([] if shard is None else [shard])
+    ss = np.random.SeedSequence(entropy)
+    return int(ss.generate_state(1, dtype=np.uint64)[0])
+
+
+def shard_key(rng_seed: int, shard: int) -> int:
+    """The diffusion-noise key of a walker shard of a mesh: a pure
+    function of ``(rng_seed, shard)`` (an unsharded run keys its noise by
+    ``rng_seed`` itself)."""
+    ss = np.random.SeedSequence([rng_seed, shard])
     return int(ss.generate_state(1, dtype=np.uint64)[0])
 
 

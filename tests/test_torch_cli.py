@@ -324,15 +324,16 @@ def test_vmc_example_runs_through_the_application(tmp_path):
 def test_unsupported_stanzas_raise_by_name(workdir):
     base = tconfig.Loader().load(workdir / "dmc-cli-app-spec.yml")
     # fused_sweep runs as in the JAX package; fused_sweep_mesh fails the
-    # JAX package's checks, and a valid one (several GPUs) raises by name.
+    # JAX package's checks, and a valid one (a sweep over R x W ranks)
+    # parses (it runs in tests/test_torch_mesh_proc.py).
     assert cli_app.CLIApp.from_config(dict(base, fused_sweep=True),
                                       "dmc").fused_sweep
     with pytest.raises(ValueError, match="fused_sweep_mesh needs"):
         cli_app.CLIApp.from_config(dict(base, fused_sweep_mesh=[2, 2]),
                                    "dmc")
-    with pytest.raises(ValueError, match="fused_sweep_mesh.*several GPUs"):
-        cli_app.CLIApp.from_config(
-            dict(base, fused_sweep=True, fused_sweep_mesh=[2, 2]), "dmc")
+    meshed = cli_app.CLIApp.from_config(
+        dict(base, fused_sweep=True, fused_sweep_mesh=[2, 2]), "dmc")
+    assert meshed.fused_sweep and meshed.fused_sweep_mesh == (2, 2)
     # Switched off, the key is accepted.
     app = cli_app.CLIApp.from_config(dict(base, fused_sweep=False), "dmc")
     assert app.meta.tags == "#qmc - #dmc - #multi-rods"

@@ -152,8 +152,25 @@ def test_a_run_packs_the_kernel_parameters_once(monkeypatch):
 
 
 def test_state_from_numpy_rejects_sharded_states():
+    """A sharded JAX state is no longer refused: it converts to the
+    global view with one count per shard, and a one-device sampling
+    re-lays it out onto one shard as the JAX package's
+    ``adapt_state_shards`` does."""
     jsampling = jdmc.Sampling(jmrbp.Spec(**SPEC), **SAMPLING)
     jstate = jsampling.build_state(_confs(48))
-    sharded = jstate._replace(num_walkers=np.array([24, 24]))
-    with pytest.raises(ValueError, match="one-shard"):
-        tdmc.state_from_numpy(sharded, device="cpu")
+    # Two shards of 32 slots, 20 and 12 walkers: shard 1 starts at 32.
+    pos = np.asarray(jstate.pos).copy()
+    pos[32:44] = pos[20:32]
+    valid = np.zeros(64, dtype=bool)
+    valid[:20] = valid[32:44] = True
+    sharded = jstate._replace(pos=pos, masks=~valid,
+                              num_walkers=np.array([20, 12]))
+    state = tdmc.state_from_numpy(sharded, device="cpu")
+    assert state.num_walkers.tolist() == [20, 12]
+    one = tdmc.Sampling(tmrbp.Spec(**SPEC), **SAMPLING)
+    adapted = one.adapt_state_shards(state)
+    want = jsampling.adapt_state_shards(sharded)
+    assert int(adapted.num_walkers) == 32
+    np.testing.assert_array_equal(adapted.pos.numpy(), np.asarray(want.pos))
+    np.testing.assert_array_equal(adapted.masks.numpy(),
+                                  np.asarray(want.masks))

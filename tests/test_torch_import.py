@@ -27,6 +27,9 @@ def test_import_pulls_in_no_jax_or_triton():
         "from phd_qmclib_torch.qmc_exec import (cli_app, config, dmc as d,\n"
         "                                       io, report, sweep, vmc)\n"
         "from phd_qmclib_torch.parallel import ParamSweep, VmcSweep\n"
+        "from phd_qmclib_torch.parallel import mesh, launch\n"
+        "from phd_qmclib_torch.qmc_exec import sharded\n"
+        "assert mesh.make_walker_mesh(2, 'cpu').backend == 'gloo'\n"
         "from phd_qmclib_torch.qmc_exec.data import dmc as dd, vmc as dv\n"
         "from phd_qmclib_torch import mrbp_cli, wf_opt\n"
         "from phd_qmclib_torch.models import mrbp\n"

@@ -267,14 +267,39 @@ def test_dump_replace_policy_and_missing_groups(tmp_path, torch_dmc_result):
 
 
 def test_sharded_state_raises_by_name(tmp_path, torch_dmc_result):
+    """A stored ``shard_num_walkers`` of several entries is no longer
+    refused: the global view of a sharded state loads with one count per
+    shard, in both packages, and a one-device sampling re-lays it out."""
     path = str(tmp_path / "s.h5")
     tio.DmcHDF5FileHandler(path, "g").dump(torch_dmc_result)
+    num = int(torch_dmc_result.state.num_walkers)
+    half = torch_dmc_result.state.max_num_walkers // 2
+    counts = [num - num // 2, num // 2]
     with h5py.File(path, "a") as fp:
+        # The same walkers as two shards: the second shard's at `half`.
+        confs = fp["g/dmc/state/confs"][()]
+        confs[half:half + counts[1]] = confs[counts[0]:num]
+        fp["g/dmc/state/confs"][...] = confs
+        mask = np.ones(2 * half, dtype=bool)
+        mask[:counts[0]] = mask[half:half + counts[1]] = False
+        fp["g/dmc/state/props/mask"][...] = mask
         del fp["g/dmc/state/shard_num_walkers"]
         fp["g/dmc/state"].create_dataset(
-            "shard_num_walkers", data=np.array([20, 20], dtype=np.int32))
-    with pytest.raises(ValueError, match="shard_num_walkers"):
-        tio.DmcHDF5FileHandler(path, "g").load(device="cpu")
+            "shard_num_walkers", data=np.array(counts, dtype=np.int32))
+    loaded = tio.DmcHDF5FileHandler(path, "g").load(device="cpu")
+    jloaded = jio.DmcHDF5FileHandler(path, "g").load()
+    assert loaded.state.num_walkers.tolist() == counts \
+        == np.asarray(jloaded.state.num_walkers).tolist()
+    one = loaded.proc.sampling.adapt_state_shards(loaded.state)
+    assert int(one.num_walkers) == num
+    np.testing.assert_array_equal(one.pos[:num].numpy(),
+                                  torch_dmc_result.state.pos[:num].numpy())
+    # Written again, it keeps its shards.
+    again = str(tmp_path / "t.h5")
+    tio.DmcHDF5FileHandler(again, "g").dump(loaded)
+    with h5py.File(again, "r") as fp:
+        assert fp["g/dmc/state/shard_num_walkers"][()].tolist() == counts
+        assert int(fp["g/dmc/state"].attrs["num_walkers"]) == num
 
 
 def test_load_defaults_to_the_card(tmp_path, torch_dmc_result):

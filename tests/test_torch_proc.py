@@ -370,16 +370,31 @@ def test_vmc_exec_equals_blocks_reduced_by_hand(keep):
 @pytest.mark.parametrize("mod,base", ((tdmc, DMC_BASE), (tvmc, VMC_BASE)),
                          ids=("dmc", "vmc"))
 def test_sharded_procedure_raises_by_name(mod, base):
-    proc = mod.Proc.from_config(dict(base, num_mesh_devices=4))
-    # The configuration itself is kept: it round-trips.
-    assert proc.as_config()["num_mesh_devices"] == 4
-    with pytest.raises(ValueError, match="num_mesh_devices=4"):
-        proc.sampling
-    with pytest.raises(ValueError, match="num_mesh_devices"):
-        mod.ProcInput.from_model_sys_conf_spec(mod.ModelSysConfSpec(), proc,
-                                               device="cpu")
-    one = mod.Proc.from_config(dict(base, num_mesh_devices=1))
-    assert one.sampling is not None
+    """``num_mesh_devices`` is no longer refused: on the CPU the
+    procedure runs on that many gloo ranks and returns the global view;
+    asking for more cards than the machine has raises with the JAX
+    package's text."""
+    proc = mod.Proc.from_config(dict(base, num_mesh_devices=2))
+    # The configuration round-trips.
+    assert proc.as_config()["num_mesh_devices"] == 2
+    start = mod.ProcInput.from_model_sys_conf_spec(mod.ModelSysConfSpec(),
+                                                   proc, device="cpu")
+    result = proc.exec(start)
+    if mod is tdmc:
+        # Each shard its valid prefix, one count each.
+        assert start.state.num_walkers.tolist() == [24, 24]
+        assert result.state.num_walkers.shape == (2,)
+        assert result.state.pos.shape == (64, 5)
+        nw = result.data.blocks.num_walkers.totals
+        assert nw.shape == (proc.num_blocks,) and np.all(nw > 0)
+    else:
+        assert result.state.pos.shape == (8, 5)
+        assert result.state.wf_abs_log.shape == (8,)
+    assert np.isfinite(result.data.blocks.energy.mean)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="requested 2 devices, 0 "
+                                             "available"):
+            proc.mesh_spec("cuda")
 
 
 def test_exec_refuses_a_foreign_input():

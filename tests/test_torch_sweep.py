@@ -383,9 +383,29 @@ def test_vmc_sweep_validation_matches_jax(bad):
 
 
 def test_sweep_refusals_by_name():
+    """A mesh is no longer refused: one of other rows than samplings, or
+    of walker shards that do not divide the buffers, fails the JAX
+    package's checks with its texts."""
+    import jax
+
+    from phd_qmclib_torch.parallel import make_walker_mesh
+
+    rows = _dmc_rows()[:2]
+    jrows = tuple(jdmc.Sampling(jmrbp.Spec(**_spec_kw(gn, sc)), dt, MAX_W,
+                                TARGET, rng_seed=11 + r)
+                  for r, (gn, sc, dt) in enumerate(ROWS[:2]))
+    for shape in ((len(rows) + 1, 1), (len(rows), 3)):
+        jmesh = jax.make_mesh(shape, ("sweep", "walkers"),
+                              devices=jax.devices()[:shape[0] * shape[1]])
+        with pytest.raises(ValueError) as theirs:
+            jsweep.ParamSweep(jrows, mesh=jmesh)
+        with pytest.raises(ValueError) as ours:
+            ParamSweep(rows, mesh=make_walker_mesh(
+                shape[0] * shape[1], "cpu", rows=shape[0]))
+        assert str(ours.value) == str(theirs.value)
+    spec = make_walker_mesh(2 * len(rows), "cpu", rows=len(rows))
+    assert ParamSweep(rows, mesh=spec).mesh is spec
     rows = _dmc_rows()
-    with pytest.raises(ValueError, match="several GPUs"):
-        ParamSweep(rows, mesh=object())
     with pytest.raises(ValueError, match="ref_compat"):
         ParamSweep(rows + (tdmc.Sampling(tmrbp.Spec(**_spec_kw(1.0, 8.0)),
                                          1e-2, MAX_W, TARGET,

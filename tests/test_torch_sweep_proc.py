@@ -296,8 +296,10 @@ def test_start_command_runs_a_fused_sweep(tmp_path):
 
 def test_fused_sweep_keys_follow_jax(tmp_path):
     """``fused_sweep`` parses as in the JAX package; ``fused_sweep_mesh``
-    fails the JAX package's checks with its texts, and a valid one is
-    refused by name; a wf_opt stanza cannot ride a fused sweep."""
+    fails the JAX package's checks with its texts, a valid one parses
+    (its run: ``tests/test_torch_mesh_proc.py``) and a mesh of other
+    rows than procedures fails at the run with the JAX package's text;
+    a wf_opt stanza cannot ride a fused sweep."""
     from phd_qmclib_tpu.qmc_exec import cli_app as jcli_app
 
     base = _app_config(tmp_path, True, "dmc")
@@ -308,9 +310,13 @@ def test_fused_sweep_keys_follow_jax(tmp_path):
         _same_error(
             lambda: cli_app.CLIApp.from_config(dict(base, **extra), "dmc"),
             lambda: jcli_app.CLIApp.from_config(dict(base, **extra), "dmc"))
-    with pytest.raises(ValueError, match="fused_sweep_mesh.*several GPUs"):
-        cli_app.CLIApp.from_config(dict(base, fused_sweep_mesh=[2, 1]),
-                                   "dmc")
+    meshed = dict(base, fused_sweep_mesh=[len(GNS), 1])
+    assert cli_app.CLIApp.from_config(meshed, "dmc").fused_sweep_mesh \
+        == (len(GNS), 1)
+    wrong = dict(base, fused_sweep_mesh=[len(GNS) + 1, 1])
+    _same_error(
+        lambda: cli_app.CLIApp.from_config(wrong, "dmc").exec(device="cpu"),
+        lambda: jcli_app.CLIApp.from_config(wrong, "dmc").exec())
     wf_opt = dict(base, app_spec=[{"proc_type": "wf_opt"}])
     _same_error(lambda: cli_app.CLIApp.from_config(wf_opt, "dmc"),
                 lambda: jcli_app.CLIApp.from_config(wf_opt, "dmc"))
