@@ -167,7 +167,12 @@ S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
    S2, the variational example's model and estimators as four rows of
    4,096 chains at rm 0.3-0.6 (``VmcSweep``), one burn-in and one
    measured block, each row bit-equal to its standalone ``vmc.Sampling``
-   run; chain-steps/s fused and sequential.
+   run; chain-steps/s fused and sequential;
+   S3, rows that differ in the time step: the bench model at dt 4e-3,
+   2e-3, 1e-3 and 5e-4 (a dt -> 0 series), 4,096 target walkers in 4,352
+   slots a row, energy only, f32, one burn-in and two measured blocks of
+   128 steps through ``ParamSweep``, each row bit-equal to its standalone
+   ``Sampling.blocks`` run with the same seed.
 M. several ranks, a walker mesh (one process per rank,
    ``parallel.launch``): M0, the bench configuration through
    ``Proc.exec`` with ``num_mesh_devices: 1``, one rank over NCCL (its
@@ -182,9 +187,25 @@ M. several ranks, a walker mesh (one process per rank,
    EOS rows on 4 ranks, each bit-equal to its run alone on 2 ranks; M5,
    the variational example on 2 ranks.  Step times over gloo on one card
    measure correctness only.
+U. the port against the upstream library's own draws: the serial VMC
+   and DMC loops of the library the JAX package was modelled on, replayed
+   draw for draw on the host by ``phd_qmclib_torch.reference_replay``
+   (``tests/test_reference_replay.py``'s model, N=16: a 1,500-step chain
+   of uniform moves, an 800-step chain of Gaussian moves, 400 DMC steps
+   at dt 5e-4 with ``ref_compat``), drive ``vmc.Sampling.replay_chain``
+   and ``dmc.Sampling.replay_states`` on the card in f64 (K1 log and K1):
+   acceptance decisions equal, chain positions bit-exact, log|psi| within
+   rtol 1e-12; walker counts and branching tables equal, positions within
+   5e-11, walker energies within 1e-9, weights within 1e-10, the ensemble
+   energy, E_ref and the accumulated energy within rtol 1e-10; the
+   largest deviation of each printed;
+N. the native reblocking cascade (``stats.native``: ``g++`` on the
+   card's host builds ``phd_qmclib_torch/csrc/reblock.cpp``): available,
+   and its tables of a 2^20 x 4 series within rtol 1e-12 of the NumPy
+   path's; both paths' host ms, in turns, beside the host's CPU model.
 
 Every kernel's launches are counted from 0 over the runs of D, G1, G2,
-G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b, S2, M0,
+G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b, S2, S3, M0,
 and M1 and M5 (their rank 0, in this process), in
 all and per step of each run; K1 must run on every DMC step and K1 log
 on every VMC step, a fused DMC step must launch K1's table and K2's rows
@@ -200,6 +221,9 @@ repository's ``phd_qmclib_torch`` package next to it.
 import dataclasses
 import json
 import math
+import os
+import platform
+import shutil
 import subprocess
 import time
 import warnings
@@ -208,13 +232,14 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from phd_qmclib_torch import lieb_liniger, parallel, wf_opt
+from phd_qmclib_torch import (lieb_liniger, parallel, reference_replay,
+                              wf_opt)
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
 from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec, report,
                                        sweep as sweep_exec, vmc as vmc_exec)
 from phd_qmclib_torch.samplers import dmc, vmc
-from phd_qmclib_torch.stats import reblock
+from phd_qmclib_torch.stats import native, reblock
 
 NOP = 128
 TARGET_WALKERS = 16384
@@ -384,6 +409,38 @@ S0_K1_F64_RTOL = 1e-12
 #: of 4,096 chains, the trial cutoffs of a variational scan.
 S2_RMS = (0.3, 0.4, 0.5, 0.6)
 S2_CHAINS = 4096
+#: Phase S3: the bench model as four rows that differ in the time step (a
+#: dt -> 0 series), 4,096 target walkers in 4,352 slots a row, energy
+#: only, one burn-in and two measured blocks of 128 steps.
+S3_TIME_STEPS = (4e-3, 2e-3, 1e-3, 5e-4)
+S3_WALKERS = dict(max_num_walkers=4352, target_num_walkers=4096)
+S3_NTS, S3_BLOCKS = 128, 3
+#: Phase U: ``tests/test_reference_replay.py``'s model, its two VMC chains
+#: (move spread, seed, steps, Gaussian proposals; the start's seed) and
+#: its DMC run (``ref_compat``), replayed by ``reference_replay`` on the
+#: host and driven through the port's samplers on the card in f64.
+UPSTREAM_MODEL = dict(lattice_depth=12.0, lattice_ratio=1.0,
+                      interaction_strength=4.0, boson_number=16,
+                      supercell_size=16.0, tbf_contact_cutoff=0.35)
+UPSTREAM_CHAINS = (
+    ("uniform", dict(move_spread=0.25, rng_seed=991, num_steps=1500,
+                     gaussian=False), 3),
+    ("gaussian", dict(move_spread=float(np.sqrt(1e-3)), rng_seed=313,
+                      num_steps=800, gaussian=True), 6))
+UPSTREAM_DMC = dict(time_step=5e-4, max_num_walkers=48,
+                    target_num_walkers=32, sampling_seed=7, conf_seed=12,
+                    rng_seed=1234, num_steps=400)
+#: Its tolerances (``tests/test_reference_replay.py``): log|psi| rtol and
+#: atol; DMC positions atol; walker energies rtol and atol; weights rtol
+#: and atol; the ensemble energy, E_ref and the accumulated energy rtol.
+UPSTREAM_TOL = dict(wf_abs_log=(1e-12, 1e-12), pos=(0.0, 5e-11),
+                    energies=(1e-9, 1e-9), weights=(1e-10, 1e-12),
+                    energy=(1e-10, 0.0), ref_energy=(1e-10, 0.0),
+                    accum_energy=(1e-10, 0.0))
+#: Phase N: the native reblocking cascade against the NumPy path on a
+#: series of this many samples and columns, tables within rtol 1e-12.
+NATIVE_SERIES = (2 ** 20, 4)
+NATIVE_RTOL = 1e-12
 #: The keys of an example's ``proc`` stanza that phase R sets to its own
 #: depth or leaves out.
 PROC_DEPTH_KEYS = ("num_blocks", "burn_in_blocks", "block_offset",
@@ -2961,6 +3018,256 @@ def run_mesh_vmc(device, card: str, r2_energy: float):
     return launches, steps_run
 
 
+# -- phases U, N and S3: the upstream library's draws, the native
+# reblocking cascade, rows that differ in dt ---------------------------------
+
+def over_tolerance(got, want, rtol: float, atol: float) -> tuple:
+    """The largest deviation of ``got`` from ``want`` and whether every
+    element lies within ``atol + rtol |want|`` (numpy's ``allclose``)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    dev = np.abs(got - want)
+    return float(dev.max()), bool(np.all(dev <= atol + rtol * np.abs(want)))
+
+
+def check_upstream_replay(device, card: str) -> None:
+    """Phase U: the port's samplers on the card, f64 (K1 log and K1),
+    driven with the upstream library's draws as ``reference_replay``
+    replays them on the host, held to ``tests/test_reference_replay.py``'s
+    tolerances: equal acceptance decisions, bit-exact chain positions and
+    log|psi| within 1e-12; equal walker counts and branching tables and
+    the DMC trajectory at f64 round-off."""
+    spec = mrbp.Spec(**UPSTREAM_MODEL)
+    nop, sc = spec.boson_number, float(spec.supercell_size)
+    for name, kw, start_seed in UPSTREAM_CHAINS:
+        ini = np.sort(np.random.default_rng(start_seed).uniform(0, sc,
+                                                                 size=nop))
+        t0 = time.perf_counter()
+        ref = reference_replay.vmc_replay(spec, ini_pos=ini, **kw)
+        host_s = time.perf_counter() - t0
+        sampling = vmc.Sampling(spec, move_spread=kw["move_spread"],
+                                rng_seed=kw["rng_seed"], num_walkers=1,
+                                gaussian=kw["gaussian"])
+        state = sampling.build_state(ini, dtype=torch.float64, device=device)
+        reset_counts()
+        pos, wf, accepted = sampling.replay_chain(state, ref.moves_u,
+                                                  ref.accept_u)
+        counts = read_counts()
+        pos, wf, accepted = (x[:, 0].cpu().numpy() for x in
+                             (pos, wf, accepted))
+        mismatches = int((accepted != ref.accepted).sum())
+        pos_err = float(np.abs(pos - ref.pos[1:]).max())
+        wf_err, wf_ok = over_tolerance(wf, ref.wf_abs_log[1:],
+                                       *UPSTREAM_TOL["wf_abs_log"])
+        require(counts["K1 log"] >= kw["num_steps"],
+                f"U {name}: K1 log on every step of the card's chain: "
+                f"{counts}")
+        require(mismatches == 0, f"U {name}: acceptance decisions equal to "
+                f"the upstream chain's ({mismatches} differ)")
+        require(np.array_equal(pos, ref.pos[1:]),
+                f"U {name}: positions bit-exact (largest deviation "
+                f"{pos_err})")
+        require(wf_ok, f"U {name}: log|psi| within rtol 1e-12 "
+                f"(largest deviation {wf_err})")
+        phase("U", check="VMC chain on the card vs the upstream draws",
+              card=card, proposals=name, steps=kw["num_steps"],
+              accept_rate=float(ref.accepted.mean()),
+              acceptance_mismatches=mismatches, max_abs_err={
+                  "pos": pos_err, "wf_abs_log": wf_err},
+              upstream_replay_host_s=host_s, launches=counts, ok=True)
+
+    d = UPSTREAM_DMC
+    sampling = dmc.Sampling(
+        spec, time_step=d["time_step"], max_num_walkers=d["max_num_walkers"],
+        target_num_walkers=d["target_num_walkers"],
+        rng_seed=d["sampling_seed"], ref_compat=True)
+    rng = np.random.default_rng(d["conf_seed"])
+    confs = np.stack([spec.init_get_sys_conf(rng=rng)
+                      for _ in range(d["target_num_walkers"])])
+    state = sampling.build_state(confs, device=device)
+    t0 = time.perf_counter()
+    ref = reference_replay.dmc_replay(
+        spec, time_step=d["time_step"], rng_seed=d["rng_seed"],
+        ini_pos=f64(state.pos), ini_drift=f64(state.drift),
+        ini_energies=f64(state.energies), ini_weights=f64(state.weights),
+        ini_num_walkers=int(state.num_walkers.sum()),
+        ini_ref_energy=float(state.ref_energy),
+        max_num_walkers=d["max_num_walkers"],
+        target_num_walkers=d["target_num_walkers"],
+        nwc_factor=float(sampling.num_walkers_control_factor),
+        num_steps=d["num_steps"])
+    host_s = time.perf_counter() - t0
+    reset_counts()
+    out = sampling.replay_states(state, ref.comb_u, ref.diffusion_noise)
+    counts = read_counts()
+    out = {key: value.cpu().numpy() for key, value in out.items()}
+    require(counts["K1"] >= d["num_steps"],
+            f"U DMC: K1 on every step on the card: {counts}")
+    require(np.array_equal(out["num_walkers"], ref.num_walkers),
+            "U DMC: walker counts equal to the upstream run's")
+    live = (np.arange(d["max_num_walkers"])[None, :]
+            < ref.num_walkers[:, None])
+    require(np.array_equal(np.where(live, out["parent"], 0),
+                           np.where(live, ref.cloning_refs, 0)),
+            "U DMC: branching tables equal to the upstream run's")
+    require(ref.num_walkers.min() != ref.num_walkers.max(),
+            "U DMC: the population fluctuates")
+    errs, misses = {}, []
+    for key, want in (("pos", ref.next_pos), ("energies", ref.next_energies),
+                      ("weights", ref.next_weights), ("energy", ref.energy),
+                      ("ref_energy", ref.ref_energy),
+                      ("accum_energy", ref.accum_energy)):
+        got = out[key]
+        if want.ndim > 1:  # the live slots only
+            mask = live if want.ndim == 2 else live[:, :, None]
+            got, want = np.where(mask, got, 0.0), np.where(mask, want, 0.0)
+        errs[key], ok = over_tolerance(got, want, *UPSTREAM_TOL[key])
+        if not ok:
+            misses.append(key)
+    require(not misses, f"U DMC: {misses} outside the tolerances "
+            f"{UPSTREAM_TOL} (largest deviations {errs})")
+    phase("U", check="DMC on the card vs the upstream draws, ref_compat",
+          card=card, steps=d["num_steps"],
+          walkers=[int(ref.num_walkers.min()), int(ref.num_walkers.max())],
+          max_abs_err=errs, tolerances=UPSTREAM_TOL,
+          upstream_replay_host_s=host_s, launches=counts, ok=True)
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name as ``lscpu`` (else ``/proc/cpuinfo``)
+    reports it, its architecture and its core count."""
+    name = None
+    if shutil.which("lscpu"):
+        for line in subprocess.run(["lscpu"], capture_output=True,
+                                   text=True).stdout.splitlines():
+            if line.startswith("Model name:"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name is None:
+        with open("/proc/cpuinfo") as fp:
+            name = next((line.split(":", 1)[1].strip() for line in fp
+                         if line.startswith("model name")), "not reported")
+    return f"{name} ({platform.machine()}, {os.cpu_count()} cores)"
+
+
+def reblock_table(data: np.ndarray, native_on: bool) -> tuple:
+    """``reblock.on_the_fly_obj_create(data)`` with the native cascade
+    switched on or off, and its host ms."""
+    saved = os.environ.get("PHD_QMCLIB_TORCH_NATIVE")
+    os.environ["PHD_QMCLIB_TORCH_NATIVE"] = "1" if native_on else "0"
+    try:
+        t0 = time.perf_counter()
+        table = reblock.on_the_fly_obj_create(data)
+        return table, (time.perf_counter() - t0) * 1e3
+    finally:
+        if saved is None:
+            del os.environ["PHD_QMCLIB_TORCH_NATIVE"]
+        else:
+            os.environ["PHD_QMCLIB_TORCH_NATIVE"] = saved
+
+
+def check_native_reblock(card: str) -> None:
+    """Phase N: the native reblocking cascade builds on the card's host
+    (``g++``), and its tables of a 2^20 x 4 series lie within rtol 1e-12
+    of the NumPy path's; both paths timed in turns (NumPy, native,
+    native, NumPy)."""
+    cxx = shutil.which("g++")
+    require(cxx is not None, "N: no g++ on the card's host, so the native "
+            "reblocking cascade cannot build")
+    t0 = time.perf_counter()
+    available = native.native_available()
+    build_s = time.perf_counter() - t0
+    require(available, "N: the native reblocking cascade is available")
+    data = np.random.default_rng(20).normal(size=NATIVE_SERIES) + 1.5
+    times = {True: [], False: []}
+    tables = {}
+    for native_on in (False, True, True, False):
+        tables[native_on], ms = reblock_table(data, native_on)
+        times[native_on].append(ms)
+    got, want = tables[True], tables[False]
+    for field in (reblock.BLOCK_SIZE_FIELD, reblock.NUM_BLOCKS_FIELD):
+        require_equal(got[field], want[field], f"N {field}")
+    devs = {}
+    for field in (reblock.MEANS_FIELD, reblock.MEANS_SQR_FIELD):
+        rel = np.abs(got[field] - want[field]) / np.abs(want[field])
+        devs[field] = float(rel.max())
+        require(devs[field] < NATIVE_RTOL,
+                f"N {field}: native within rtol {NATIVE_RTOL} of NumPy "
+                f"({devs[field]})")
+    phase("N", check="native reblocking cascade vs the NumPy path",
+          card=card, host_cpu=host_cpu_model(), compiler=cxx,
+          series=list(NATIVE_SERIES), build_and_load_s=build_s,
+          native_ms=times[True], numpy_ms=times[False],
+          max_rel_dev=devs, ok=True)
+
+
+def check_energy_finite(blocks, label: str) -> float:
+    """E/N of the blocks' weighted per-step energies (a short run from a
+    random start: no band), which must be finite."""
+    e_per_boson = float(np.mean([
+        float(b.iter_props.energy.double().sum()
+              / b.iter_props.weight.double().sum()) for b in blocks])) / NOP
+    require(math.isfinite(e_per_boson), f"{label}: E/N finite")
+    return e_per_boson
+
+
+def run_dt_sweep(device, card: str):
+    """Phase S3: the bench model as four fused rows that differ in the
+    time step, each bit-equal to its standalone ``Sampling.blocks`` run
+    with the same seed.  Returns the fused run's launch counts and
+    steps."""
+    spec = mrbp.Spec(**BENCH_SPEC)
+    samplings = tuple(dmc.Sampling(spec, time_step=dt, rng_seed=41 + r,
+                                   **S3_WALKERS)
+                      for r, dt in enumerate(S3_TIME_STEPS))
+    rng = np.random.default_rng(3)
+    confs = [rng.uniform(0, float(spec.supercell_size),
+                         (S3_WALKERS["target_num_walkers"], NOP))
+             for _ in samplings]
+    sweep = parallel.ParamSweep(samplings)
+    state = sweep.build_states(confs, dtype=np.float32, device=device)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks = sweep.blocks(state, S3_NTS, burn_in_blocks=1)
+    fused = [next(blocks) for _ in range(S3_BLOCKS)]
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = S3_BLOCKS * S3_NTS
+    require(counts["K1 table"] == steps and counts["K2 rows"] == steps
+            and counts["K1"] == 0 and counts["K2"] == 0,
+            f"S3: one K1 table and one K2 rows launch per fused step: "
+            f"{counts}")
+    alone_s, rows_report = 0.0, []
+    for r, s in enumerate(samplings):
+        row_state = s.build_state(confs[r], dtype=np.float32, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = s.blocks(row_state, S3_NTS, burn_in_blocks=1)
+        alone = [next(it) for _ in range(S3_BLOCKS)]
+        torch.cuda.synchronize()
+        alone_s += time.perf_counter() - t0
+        for b, (f, a) in enumerate(zip(fused, alone)):
+            for name in ("energy", "weight", "num_walkers", "ref_energy",
+                         "accum_energy"):
+                require_equal(getattr(f.iter_props, name)[:, r].cpu(),
+                              getattr(a.iter_props, name).cpu(),
+                              f"S3 row {r} block {b} {name}")
+        require(torch.equal(fused[-1].last_state.pos[r],
+                            alone[-1].last_state.pos),
+                f"S3 row {r}: final positions bit-equal")
+        e_per_n = check_energy_finite(alone[1:], f"S3 row {r}")
+        rows_report.append(dict(time_step=S3_TIME_STEPS[r],
+                                energy_per_boson=e_per_n))
+    phase("S3", check="rows that differ in dt, fused and row by row",
+          card=card, rows=len(samplings), steps_run=steps,
+          walkers_per_row=S3_WALKERS, fused_wall_s=fused_s,
+          sequential_wall_s=alone_s, fused_over_sequential=alone_s / fused_s,
+          rows_bit_equal=True, rows_detail=rows_report, launches=counts,
+          ok=True)
+    return counts, steps
+
+
 def bound(flops: float, num_bytes: float) -> dict:
     """The least time the card could take: the larger of the flops over
     the FP32 peak and the bytes (each input read once, each output
@@ -3191,6 +3498,9 @@ def main() -> None:
     check_mesh_collapse(device, smi)  # M3
     check_mesh_sweep(device, smi)  # M4
     runs["M5"] = run_mesh_vmc(device, smi, r2_energy)
+    check_upstream_replay(device, smi)  # U
+    check_native_reblock(smi)  # N
+    runs["S3"] = run_dt_sweep(device, smi)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
 

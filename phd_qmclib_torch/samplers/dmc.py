@@ -264,10 +264,11 @@ class _Branch(t.NamedTuple):
 
 class _Divisor(t.NamedTuple):
     """A per-row divisor of the population controller.  ``x / d`` by a
-    Python float on a CUDA tensor is the multiply by ``1 / d`` rounded
-    to the tensor's type (torch's scalar division there), while the
-    CPU divides: rows with their own ``d`` take the same form, so that
-    each row's controller is its single sampling's, bit for bit."""
+    Python float on a CUDA tensor is the multiply by ``1 / d``, taken in
+    double and rounded to the tensor's type (torch's scalar division
+    there), while the CPU divides: rows with their own ``d`` take the
+    same form, so that each row's controller is its single sampling's,
+    bit for bit."""
     value: t.Union[float, torch.Tensor]
     reciprocal: bool = False
 
@@ -323,8 +324,9 @@ def _rows_divisor(values, dtype, device) -> _Divisor:
     value = _rows_value(values, dtype, device, 1)
     if isinstance(value, float) or value.device.type == "cpu":
         return _Divisor(value)
-    one = np.ones((), dtype=utils.numpy_dtype(dtype))
-    recips = [one / one.dtype.type(v) for v in values]
+    # The reciprocal of the double, then rounded: 1 / float32(1e-3) is
+    # one ulp off float32(1 / 1e-3).
+    recips = [1.0 / float(v) for v in values]
     return _Divisor(torch.tensor(recips, dtype=dtype, device=device), True)
 
 

@@ -12,8 +12,10 @@ forms:
   the reference so result files interoperate.
 
 The port's own copy of the JAX package's ``stats/reblock.py`` (NumPy
-and ``scipy.optimize`` only), without that module's optional ctypes
-accelerator for the table build.
+and ``scipy.optimize`` only).  Like the original, it builds the tables
+of series of at least 2^14 values with the optional C++ cascade of
+:mod:`.native` (the same source, built by the port itself) when that is
+available, so the tables are bit-equal to the original's either way.
 
 Behavioral parity notes (reference: the upstream library's
 ``stats/reblock.py``):
@@ -110,6 +112,16 @@ def on_the_fly_obj_create(source_data: np.ndarray) -> np.ndarray:
     n, num_cols = source_data.shape
     max_order = int(floor(log2(n)))
     table = on_the_fly_obj_data_init(max_order, num_cols)
+
+    from . import native
+    if n * num_cols >= 1 << 14 and native.native_available():
+        # Native C++ streaming cascade (csrc/reblock.cpp) - a single
+        # cache-friendly pass; used for large series.
+        ms, msq, nb = native.otf_reblock_native(source_data, max_order)
+        table[MEANS_FIELD][:] = ms
+        table[MEANS_SQR_FIELD][:] = msq
+        table[NUM_BLOCKS_FIELD][:] = nb
+        return table[0] if is_1d else table
 
     data_t = source_data.T  # (num_cols, n)
     for order in range(max_order + 1):

@@ -1003,3 +1003,39 @@ def test_fused_step_on_the_card_matches_the_cpu_replay(cuda):
     for name in ("pos", "energies", "weights", "ref_energy"):
         torch.testing.assert_close(on_card[name].cpu(), on_cpu[name],
                                    rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_that_differ_in_dt_equal_their_standalone_runs(cuda, dtype):
+    """A fused sweep whose rows differ in the time step: each row's
+    controller divides by its dt as torch's scalar division does on the
+    card (the multiply by the double's reciprocal rounded to the
+    tensor's type), so each row equals its standalone run bit for bit."""
+    from phd_qmclib_torch.parallel import ParamSweep
+    from phd_qmclib_torch.samplers.dmc import _rows_divisor
+
+    dts = (4e-3, 2e-3, 1e-3, 5e-4)
+    x = torch.as_tensor(np.random.default_rng(1).uniform(-0.2, 0.2, 10 ** 5),
+                        dtype=dtype, device=cuda).view(4, -1)
+    divisor = _rows_divisor(dts, dtype, cuda)
+    got = divisor.divide(x.T).T
+    for r, dt in enumerate(dts):
+        assert torch.equal(got[r], x[r] / dt)
+
+    spec = mrbp.Spec(**dict(BENCH, boson_number=16, supercell_size=16.0))
+    rows = tuple(dmc.Sampling(spec, dt, 64, 48, rng_seed=5 + r)
+                 for r, dt in enumerate(dts))
+    sweep = ParamSweep(rows)
+    rng = np.random.default_rng(2)
+    confs = [rng.uniform(0, 16.0, (48, 16)) for _ in rows]
+    fused = list(zip(range(3), sweep.blocks(
+        sweep.build_states(confs, dtype=dtype, device=cuda), 64)))
+    for r, s in enumerate(rows):
+        alone = s.blocks(s.build_state(confs[r], dtype=dtype, device=cuda),
+                         64)
+        for _, block in fused:
+            one = next(alone)
+            for name in ("energy", "weight", "num_walkers", "ref_energy",
+                         "accum_energy"):
+                assert torch.equal(getattr(block.iter_props, name)[:, r],
+                                   getattr(one.iter_props, name)), name

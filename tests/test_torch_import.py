@@ -48,6 +48,14 @@ def test_import_pulls_in_no_jax_or_triton():
         "    time_step=1e-3)).sampling\n"
         "reblock.OTFObject.from_non_obj_data(list(range(64))).mean\n"
         "lieb_liniger.ground_state_energy(2.0, num_points=32)\n"
+        "from phd_qmclib_torch import reference_replay\n"
+        "from phd_qmclib_torch.utils import record, now, shard_key\n"
+        "from phd_qmclib_torch.stats import native\n"
+        "record.namedtuple_as_record(mrbp.StaticSpec(5, 1, False, False))\n"
+        "reference_replay.MRBPKernels(d.Proc.from_config(dict(\n"
+        "    model_spec=dict(lattice_depth=10.0, lattice_ratio=1.0,\n"
+        "    interaction_strength=1.0, boson_number=5, supercell_size=5.0,\n"
+        "    tbf_contact_cutoff=0.3), time_step=1e-3)).model_spec)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

@@ -1,11 +1,13 @@
 """The port's copy of the reblocking engine against the JAX package's
 original: every public name on seeded series and on a stored series of
-the JAX package's tests, equal bit for bit.  The original builds large
-tables with its optional compiled accelerator when that is built; the
-copy has none, so the tests switch the original's off and compare NumPy
-with NumPy, and one test holds the copy's tables against the
-accelerator's sums at 1e-12."""
+the JAX package's tests, equal bit for bit.  Both build the tables of
+series of at least 2^14 values with their optional compiled cascade (the
+same C++ source, each package building its own library); the tests
+switch both off and compare NumPy with NumPy, and hold the two libraries
+to each other, and the copy's with its library off to the NumPy path,
+bit for bit."""
 import pathlib
+import shutil
 import warnings
 
 import numpy as np
@@ -65,6 +67,7 @@ def _same(got, want):
 def numpy_tables(monkeypatch):
     from phd_qmclib_tpu.stats import native
     monkeypatch.setattr(native, "native_available", lambda: False)
+    monkeypatch.setenv("PHD_QMCLIB_TORCH_NATIVE", "0")
 
 
 def test_public_names_match():
@@ -75,7 +78,8 @@ def test_public_names_match():
                  "on_the_fly_obj_data_update", "otf_data_dtype", "reblock"):
         assert hasattr(tstats, name) and hasattr(jstats, name), name
     assert treblock.otf_data_dtype == jreblock.otf_data_dtype
-    assert not hasattr(tstats, "native")
+    assert hasattr(tstats, "native")
+    assert set(tstats.native.__all__) >= set(jstats.native.__all__)
 
 
 @pytest.mark.parametrize("series", sorted(SERIES))
@@ -98,14 +102,94 @@ def test_tables_match(series):
 def test_tables_match_the_accelerated_original(monkeypatch):
     from phd_qmclib_tpu.stats import native
     monkeypatch.undo()
+    assert native.native_available() and tstats.native.native_available()
     data = np.random.default_rng(8).normal(size=(2 ** 15, 3)) + 1.5
     got = treblock.on_the_fly_obj_create(data)
     want = jreblock.on_the_fly_obj_create(data)
     assert got.shape == want.shape
     for field in got.dtype.names:
-        np.testing.assert_allclose(got[field], want[field], rtol=1e-12,
-                                   atol=0, err_msg=field)
-    assert isinstance(native.native_available(), bool)
+        np.testing.assert_array_equal(got[field], want[field],
+                                      err_msg=field)
+
+
+def test_native_is_available_here(monkeypatch):
+    """This host has ``g++``: the port's library builds and loads (a
+    silently skipped native path is an unverified one)."""
+    monkeypatch.undo()
+    assert shutil.which("g++") is not None
+    assert tstats.native.native_available()
+    assert tstats.native.LIBRARY.exists()
+
+
+#: (samples, columns): the original's accelerated size, and an odd length.
+NATIVE_SHAPES = [(2 ** 15, 3), (40001, 2), (2 ** 15, 1)]
+
+
+@pytest.mark.parametrize("shape", NATIVE_SHAPES, ids=str)
+def test_native_tables_bit_equal_to_the_originals(monkeypatch, shape):
+    from phd_qmclib_tpu.stats import native
+    monkeypatch.undo()
+    data = np.random.default_rng(shape[0]).normal(size=shape) + 1.5
+    order = treblock.on_the_fly_obj_data_order(data)
+    got = tstats.native.otf_reblock_native(data, order)
+    want = native.otf_reblock_native(data, order)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    table = treblock.on_the_fly_obj_create(data)
+    want_table = jreblock.on_the_fly_obj_create(data)
+    assert table.tobytes() == want_table.tobytes()
+
+
+@pytest.mark.parametrize("shape", NATIVE_SHAPES, ids=str)
+def test_switched_off_tables_are_the_numpy_paths(monkeypatch, shape):
+    """``PHD_QMCLIB_TORCH_NATIVE=0`` (the autouse fixture) takes the
+    vectorized NumPy path: bit-equal to the original's NumPy tables."""
+    assert not tstats.native.native_available()
+    data = np.random.default_rng(shape[0]).normal(size=shape) + 1.5
+
+    def refuse(*args):
+        raise AssertionError("the native cascade was called")
+
+    monkeypatch.setattr(tstats.native, "otf_reblock_native", refuse)
+    got = treblock.on_the_fly_obj_create(data)
+    want = jreblock.on_the_fly_obj_create(data)
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("cols", [1, 4])
+def test_native_threshold(monkeypatch, cols):
+    """The library takes a series of at least 2^14 values and no
+    smaller one, as in the original."""
+    monkeypatch.undo()
+    calls = []
+    cascade = tstats.native.otf_reblock_native
+
+    def spy(data, max_order):
+        calls.append(data.shape)
+        return cascade(data, max_order)
+
+    monkeypatch.setattr(tstats.native, "otf_reblock_native", spy)
+    rng = np.random.default_rng(cols)
+    for n, native_path in (((1 << 14) // cols - 1, False),
+                           ((1 << 14) // cols, True)):
+        data = rng.normal(size=(n, cols))
+        calls.clear()
+        treblock.on_the_fly_obj_create(data)
+        assert calls == ([(n, cols)] if native_path else []), n
+
+
+def test_failed_build_raises_with_the_compilers_message(monkeypatch,
+                                                        tmp_path):
+    broken = tmp_path / "reblock.cpp"
+    broken.write_text("extern \"C\" { void otf_reblock_f64( }\n")
+    monkeypatch.setattr(tstats.native, "SOURCE", broken)
+    monkeypatch.setattr(tstats.native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tstats.native, "LIBRARY",
+                        tmp_path / "build" / "libreblock.so")
+    with pytest.raises(RuntimeError, match="error"):
+        tstats.native.build(shutil.which("g++"))
+    assert not (tmp_path / "build" / "libreblock.so").exists()
 
 
 @pytest.mark.parametrize("cls", ["Object", "OTFObject"])
