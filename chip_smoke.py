@@ -223,6 +223,7 @@ import json
 import math
 import os
 import platform
+import re
 import shutil
 import subprocess
 import time
@@ -318,13 +319,20 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 #: each thread recomputes (40), per unordered pair K1's.
 K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
 #: K1 log's parameter VJP per unordered pair as written
-#: (``csrc/pair_terms_grad.cuh::pair_grad_terms``, counted the same way):
-#: 32 common to both branches (the difference, the image, the argument,
-#: the sin and cos polynomials 22, the ratio, 1 + v^2, the drift factor),
-#: then 25 inside the cutoff and 28 outside; the O(N) one-body terms and
-#: the reductions left out.  The bound counts each pair by its branch in
-#: the run's own positions.
-K1_VJP_FLOPS_IN_CUT, K1_VJP_FLOPS_OUTSIDE = 57, 60
+#: (``csrc/pair_terms_grad.cuh::pair_vjp_terms``, counted the same way):
+#: 28 common to both branches (the difference, the image, the rational
+#: tan 14, the ratio, 1 + v^2, the drift factor, fs v, the argument's
+#: weight G 6), then 11 inside the cutoff (the argument's fma, the k2,
+#: r_off and am sums) and 7 outside (the argument's multiply, the sums of
+#: t, fs v, log t and r G; the sum of G where a pair wraps is not
+#: counted, so the bound stays a least time); the O(N) one-body terms,
+#: the weights applied after the loop and the reductions left out.  The
+#: bound counts each pair by its branch in the run's own positions.  The
+#: first design (a ``pair_grad_terms`` with one branch per side of the
+#: cutoff) took 57 and 60: 32 common (the sin and cos polynomials 22),
+#: then 25 and 28.
+K1_VJP_FLOPS_IN_CUT, K1_VJP_FLOPS_OUTSIDE = 39, 35
+K1_VJP_FIRST_DESIGN_FLOPS = (57, 60)
 K2_FLOPS_PER_NORMAL = 20
 K4_FLOPS_PER_ELEMENT = 5
 K3_FLOPS_PER_ELEMENT = 44
@@ -1788,10 +1796,12 @@ def vjp_plain_f64(args, kw, chunk: int = 1024) -> torch.Tensor:
         g_e[k:k + chunk], **kw) for k in range(0, pos.shape[0], chunk))
 
 
-def vjp_bound(pos, params) -> dict:
-    """The VJP kernel's bound at ``pos``: its pairs' flops, each pair
-    counted by its branch in these positions; positions, drift, the two
-    upstream vectors and the parameters in, the 16 sums out."""
+def vjp_bound(pos, params, flops_per_pair=(K1_VJP_FLOPS_IN_CUT,
+                                            K1_VJP_FLOPS_OUTSIDE)) -> dict:
+    """The VJP kernel's bound at ``pos``: its pairs' flops
+    (``flops_per_pair``: inside the cutoff, outside), each pair counted
+    by its branch in these positions; positions, drift, the two upstream
+    vectors and the parameters in, the 16 sums out."""
     walkers, nop = pos.shape
     length = float(params[pairwise.P_L])
     rm = float(params[pairwise.P_RM])
@@ -1802,8 +1812,8 @@ def vjp_bound(pos, params) -> dict:
         in_cut += (int((torch.minimum(d, length - d) < rm).sum())
                    - chunk.numel()) // 2
     pairs = walkers * nop * (nop - 1) // 2
-    flops = (in_cut * K1_VJP_FLOPS_IN_CUT
-             + (pairs - in_cut) * K1_VJP_FLOPS_OUTSIDE)
+    flops = (in_cut * flops_per_pair[0]
+             + (pairs - in_cut) * flops_per_pair[1])
     values = 2 * walkers * nop + 2 * walkers + 2 * pairwise.PARAMS_SIZE
     return dict(bound(flops, F32_BYTES * values), pairs_in_cutoff=in_cut,
                 pairs=pairs)
@@ -1873,12 +1883,23 @@ def check_k1_vjp(device, card: str):
                                                                      50)
         f2, k2, p2 = cuda_ms(forward, 50), cuda_ms(kernel, 50), cuda_ms(plain,
                                                                        3)
+        # The f64 kernel at the same shape (the f64 plain version is W0's
+        # oracle above, not timed).
+        args64 = tuple(a.double() for a in args)
+        d1, d2 = (cuda_ms(lambda: pairwise.energy_and_drift_params_vjp(
+            *args64, **kw), 10) for _ in range(2))
+        del args64
+        first = vjp_bound(args[0], args[1],
+                          K1_VJP_FIRST_DESIGN_FLOPS)["bound_ms"]
         times[label] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                        "forward_ms": (f1 + f2) / 2, **least}
+                        "forward_ms": (f1 + f2) / 2, "f64_ms": (d1 + d2) / 2,
+                        "bound_ms_first_design_count": first, **least}
         phase("W0", kernel="K1 vjp", card=card, shape=list(args[0].shape),
-              plain_ms=[p1, p2], kernel_ms=[k1, k2],
+              plain_ms=[p1, p2], kernel_ms=[k1, k2], f64_kernel_ms=[d1, d2],
               k1_log_forward_ms=[f1, f2],
               bound_share=least["bound_ms"] / times[label]["ms"],
+              bound_ms_first_design_count=first,
+              bound_share_first_design_count=first / times[label]["ms"],
               k1_log_forward_bound_ms=k1_bound(
                   *args[0].shape, True)["bound_ms"], **least, ok=True)
     return float(err.max()), times
@@ -2336,6 +2357,9 @@ def check_sweep_kernels(device, card: str) -> dict:
     out["K2 rows"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                       "single_row_ms": (s1 + s2) / 2,
                       "library_ms": (l1 + l2) / 2,
+                      "library_device_ms": device_ms(
+                          lambda: torch.randn(flat.shape, generator=gen,
+                                              out=flat), 200),
                       "device_ms": device_ms(
                           lambda: prng.normal_rows(keys_t, 5, sc, buf), 200),
                       "single_row_device_ms": device_ms(
@@ -3426,6 +3450,38 @@ def time_kernels(device, card: str) -> dict:
     return times
 
 
+def ptxas_report(log: str, kernels) -> list:
+    """Registers, stack frame and spills of each instantiation of the
+    kernels named in ``kernels``, from the build's ``-Xptxas -v`` report
+    (empty when the library was up to date): its name, dtype and, for a
+    kernel templated on its block size, the block size."""
+    entries, mangled, own = [], None, False
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        props = re.search(r"Function properties for (\S+)", line)
+        if entry:
+            mangled = entry[1]
+            name = next((k for k in kernels if k in mangled), None)
+            kind = re.search(r"kernelI([fd])(?:Li(\d+)E)?", mangled)
+            entries.append(None if name is None or kind is None else {
+                "instantiation": name, "dtype": "f32" if kind[1] == "f"
+                else "f64", "block_size": None if kind[2] is None
+                else int(kind[2])})
+        elif props:
+            own = props[1] == mangled  # not a device function's
+        elif entries and entries[-1] is not None:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+            if frame and own:
+                entries[-1].update(stack_bytes=int(frame[1]),
+                                   spill_store_bytes=int(frame[2]),
+                                   spill_load_bytes=int(frame[3]))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                entries[-1]["registers"] = int(used[1])
+    return [e for e in entries if e is not None]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU "
@@ -3447,6 +3503,9 @@ def main() -> None:
     phase("A", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
           build_s=time.perf_counter() - t0, built=bool(log), ok=True)
     print(log if log else "kernel library up to date", flush=True)
+    for entry in ptxas_report(log, ("pair_logpsi_params_vjp_kernel",
+                                    "philox_normals_rows_kernel")):
+        phase("A", **entry, ok=True)
 
     err_k1 = check_k1(device)  # B
     err_k2 = check_k2(device)  # C
@@ -3598,6 +3657,7 @@ def main() -> None:
              vmc_shape_plain_ms=vjp_times["vmc shape"]["plain_ms"],
              vmc_shape_bound_ms=vjp_times["vmc shape"]["bound_ms"],
              vmc_shape_forward_ms=vjp_times["vmc shape"]["forward_ms"],
+             vmc_shape_f64_ms=vjp_times["vmc shape"]["f64_ms"],
              launches_per_optimization=w2_counts),
     ]
     print(smi, flush=True)  # again, next to the result lines

@@ -1,8 +1,9 @@
 // The body of K1's parameter VJP: the derivatives of one walker's log|psi|
 // and local energy with respect to the packed parameters
 // (ops/pairwise.py::pack_params), as the log variant of K1 computes them
-// (pair_terms.cuh: the same minimum image, the same branch selection, in
-// float the same sin/cos polynomials, reciprocal and log2).
+// (pair_terms.cuh: the same minimum image and branch selection; in float
+// the forward variant's rational tan, the approximate reciprocal and
+// log2, in double sincos, the IEEE divide and log).
 //
 // E_L = sum_i (kin_i - F_i^2 + pot_i), with the drift F_i and kin_i the
 // sums of the one-body term and of the pair terms of particle i.  For a
@@ -34,71 +35,163 @@ namespace qmc {
 // The packed vector's length: the rows of the VJP hold one value per slot.
 constexpr int kParamsSize = 16;
 
-// The sums of one particle's pairs, per unordered pair as in pair_terms:
-// the energy's derivatives (e_*) and log|psi|'s (lp_*), and the count of
-// pairs inside the cutoff (d log|f2| / d am = 1 / am for each).
+// One unordered pair's derivatives in one form for both branches.  The
+// pair terms are ldz = A v, kin = B t (t = 1 + v^2) and log|f2| =
+// P log(base), with v = tan arg, base = cos arg inside the cutoff
+// (arg = k2 (r - r_off), A = -k2, B = k2^2, P = 1, plus log|am|) and
+// v = cot arg, base = sin arg outside (arg = pi r / L, A = pi/L beta,
+// B = (pi/L)^2 beta, P = beta).  With sigma = +1 inside and -1 outside,
+// dv/darg = sigma t and dlog(base)/darg = -sigma v, so the pair's share of
+// ge dE/dp + glp dlog|psi|/dp for any parameter p is
+//   darg/dp G + ge (2 t dB/dp + fs v dA/dp) + glp log(base) dP/dp,
+//   G = t (c1 v + c2 fs) - c3 v,  c1 = sigma ge 4B, c2 = sigma ge A,
+//                                 c3 = sigma glp P,
+// with fs = -2 (s_i F_i + s_j F_j) the factor of dldz in dE.  Per slot:
+//   k2 (inside):    (r - r_off) G + ge (4 k2 t - fs v);
+//   r_off (inside): -k2 G: sum G;
+//   am (inside):    glp / am per pair: the count;
+//   beta (outside): ge (2 (pi/L)^2 t + pi/L fs v) + glp log sin arg,
+//                   log sin arg = -log(t) / 2 (t = 1 / sin^2): the sums
+//                   of t, fs v and log t, weighted once after the loop;
+//   L:              darg/dL G, with darg/dL = k2 [wrap] inside and
+//                   pi/L ([wrap] - r/L) outside (sums of G where the
+//                   pair wraps, and outside of r G), plus outside
+//                   -ge beta / L (4 (pi/L)^2 t + pi/L fs v), from the
+//                   same sums of t and fs v.
+// So a pair outside the cutoff, nearly every pair, adds t, fs v, log t,
+// G (where it wraps) and r G to five plain sums with no weight; the
+// weights are the thread's constants.  kMixed false: the caller knows that
+// no lane of the warp holds a pair inside the cutoff, and every select
+// folds to the outside operand at compile time (there d != 0, so
+// s_j = -s_i); true: the operands are selected per lane, and each branch's
+// sums are predicated.
 template <typename T>
-struct PairGradSums {
-  T e_l = 0, e_k2 = 0, e_roff = 0, e_beta = 0;
-  T lp_l = 0, lp_k2 = 0, lp_roff = 0, lp_beta = 0, num_in = 0;
+struct PairVjpConsts {
+  T L, half_l, rm, pref;          // the geometry; rm < 0: every pair outside
+  T c1_out, c2_out, c3_out;       // G outside
+  T k2, in_b, r_off;              // the argument inside
+  T c1_in, c2_in, c3_in;          // G inside
+  T k2_t, k2_w;                   // the k2 slot inside: ge 4 k2, -ge
+
+  __device__ PairVjpConsts(const T* __restrict__ p, T ge, T glp, T rm_)
+      : L(p[P_L]), half_l(T(0.5) * p[P_L]), rm(rm_),
+        pref(T(kPi) / p[P_L]), k2(p[P_K2]), in_b(-p[P_K2] * p[P_ROFF]),
+        r_off(p[P_ROFF]) {
+    const T beta = p[P_BETA];
+    c1_out = T(-4) * ge * pref * pref * beta;
+    c2_out = -ge * pref * beta;
+    c3_out = -glp * beta;
+    c1_in = T(4) * ge * k2 * k2;
+    c2_in = -ge * k2;
+    c3_in = glp;
+    k2_t = T(4) * ge * k2;
+    k2_w = -ge;
+  }
 };
 
-// The derivatives of one unordered pair at d = z_i - z_j in [-L, L] (both
-// positions in [0, L)), with the forward's drifts f_i and f_j.
-//
-// Inside the cutoff (arg = k2 (r - r_off), v = tan arg, t = 1 + v^2):
-//   ldz = -k2 v, kin = k2^2 t, log|f2| = log|am| + log cos arg,
-//   d/dk2: ldz -v - k2 t (r - r_off), kin 2 k2 t (1 + k2 v (r - r_off)),
-//          log -v (r - r_off);
-//   d/dr_off: ldz k2^2 t, kin -2 k2^3 v t, log k2 v;
-//   d/dL: -dr/dL times the d/dr_off terms.
-// Outside (arg = pi r / L, v = cot arg, t = 1 + v^2, a = d arg / dL =
-// pi/L (dr/dL - r/L)):
-//   ldz = pi/L beta v, kin = (pi/L)^2 beta t, log|f2| = beta log sin arg,
-//   d/dbeta: ldz pi/L v, kin (pi/L)^2 t, log log sin arg;
-//   d/dL: ldz -pi/L beta (v/L + t a), kin -2 (pi/L)^2 beta t (1/L + v a),
-//         log beta v a.
+// The pair sums of one particle (see above): outside the cutoff the sums
+// of t, fs v, log t (pair_log's unit), G where the pair wraps, and r G;
+// inside the k2 slot's share, G, G where the pair wraps, and the count.
 template <typename T>
-__device__ __forceinline__ void pair_grad_terms(T d, T f_i, T f_j,
-                                                const PairParams<T>& c,
-                                                T r_off, T inv_l,
-                                                PairGradSums<T>* g) {
-  const T ad = d_fabs(d);
-  const bool wrap = ad > c.half_l;
-  const T r = wrap ? c.L - ad : ad;
-  const bool in_cut = r < c.rm;
-  const T arg = d_fma(in_cut ? c.k2 : c.pref, r, in_cut ? c.in_b : T(0));
-  T s, co;
-  trig_pair<true>(arg, &s, &co);
-  const T v = pair_ratio(in_cut ? s : co, in_cut ? co : s);
+struct PairVjpSums {
+  T t = 0, w = 0, lg = 0, wrap_out = 0, rg = 0;
+  T k2 = 0, g_in = 0, wrap_in = 0, num_in = 0;
+};
+
+// One unordered pair at d = z_i - z_j (both in [0, L)), r its minimum-image
+// distance (wrap: the image across the boundary), in: r < rm; g_i, g_j are
+// -2 F_i, -2 F_j.
+template <typename T, bool kMixed>
+__device__ __forceinline__ void pair_vjp_terms(T d, T r, bool wrap, bool in,
+                                               T g_i, T g_j,
+                                               const PairVjpConsts<T>& c,
+                                               PairVjpSums<T>* s) {
+  if (!kMixed) in = false;
+  const T m = in ? c.k2 : c.pref;
+  const T arg = kMixed ? d_fma(m, r, in ? c.in_b : T(0)) : m * r;
+  T sn, cs;
+  trig_pair<false>(arg, &sn, &cs);  // only the ratio is needed
+  const T v = pair_ratio(in ? sn : cs, in ? cs : sn);
   const T t = d_fma(v, v, T(1));
-  // -2 (s_i F_i + s_j F_j): the factor of dldz in dE.
-  const T fs = T(-2) * (((d >= T(0)) != wrap ? f_i : -f_i) +
-                        ((d <= T(0)) != wrap ? f_j : -f_j));
-  if (in_cut) {
-    const T k2 = c.k2;
-    const T a = r - r_off;
-    const T k2t = k2 * t;
-    const T e_k2 = T(4) * k2t * d_fma(k2 * v, a, T(1)) - fs * d_fma(k2t, a, v);
-    const T lp_k2 = -v * a;
-    const T e_roff = T(-4) * k2 * k2 * k2t * v + fs * k2 * k2t;
-    const T lp_roff = k2 * v;
-    g->e_k2 += e_k2;
-    g->lp_k2 += lp_k2;
-    g->e_roff += e_roff;
-    g->lp_roff += lp_roff;
-    if (wrap) {
-      g->e_l -= e_roff;
-      g->lp_l -= lp_roff;
-    }
-    g->num_in += T(1);
+  const bool s_i = (d >= T(0)) != wrap;
+  const T fs = kMixed ? (s_i ? g_i : -g_i) + ((d <= T(0)) != wrap ? g_j
+                                                                  : -g_j)
+                      : (s_i ? g_i - g_j : g_j - g_i);
+  const T w = fs * v;
+  const T g = d_fma(t, d_fma(in ? c.c1_in : c.c1_out, v,
+                             (in ? c.c2_in : c.c2_out) * fs),
+                    -(in ? c.c3_in : c.c3_out) * v);
+  if (in) {
+    s->k2 += d_fma(r - c.r_off, g, d_fma(c.k2_t, t, c.k2_w * w));
+    s->g_in += g;
+    if (wrap) s->wrap_in += g;
+    s->num_in += T(1);
   } else {
-    const T a = c.pref * ((wrap ? T(1) : T(0)) - r * inv_l);
-    g->e_beta += d_fma(T(2) * c.pref * c.pref, t, fs * c.pref * v);
-    g->lp_beta += pair_log_unit(T(0)) * pair_log(s);
-    g->e_l += T(-4) * c.out_kin * t * d_fma(v, a, inv_l) -
-              fs * c.out_ldz * d_fma(t, a, v * inv_l);
-    g->lp_l += c.beta * v * a;
+    s->t += t;
+    s->w += w;
+    s->lg += pair_log(t);
+    if (wrap) s->wrap_out += g;
+    s->rg = d_fma(r, g, s->rg);
+  }
+}
+
+// The pair sums' shares of the slots, weighted: the thread's part of the
+// L, k2, r_off, beta and am slots (see above; p the packed parameters).
+template <typename T>
+__device__ __forceinline__ void add_pair_slots(const PairVjpSums<T>& s,
+                                               const T* __restrict__ p,
+                                               T ge, T glp,
+                                               T (&acc)[kParamsSize]) {
+  const T length = p[P_L], k2 = p[P_K2], beta = p[P_BETA];
+  const T pref = T(kPi) / length;
+  const T coef = d_fma(T(2) * pref * pref, s.t, pref * s.w);  // + 2 pref^2 t
+  acc[P_K2] += s.k2;
+  acc[P_ROFF] -= k2 * s.g_in;
+  acc[P_AM] += glp * s.num_in / p[P_AM];
+  acc[P_BETA] += d_fma(ge, coef, T(-0.5) * pair_log_unit(T(0)) * glp * s.lg);
+  acc[P_L] += k2 * s.wrap_in + pref * s.wrap_out -
+              pref / length * s.rg -
+              ge * beta / length * d_fma(T(2) * pref * pref, s.t, coef);
+}
+
+// One level of block_row_sums' exchange: kCount values in, kCount / 2 out,
+// the lanes with bit kCount keeping the upper half.
+template <int kCount, typename T>
+__device__ __forceinline__ void reduce_scatter(T* v, int lane) {
+  if constexpr (kCount > 1) {
+    const bool upper = (lane & kCount) != 0;
+#pragma unroll
+    for (int k = 0; k < kCount / 2; ++k) {
+      const T send = upper ? v[k] : v[k + kCount / 2];
+      const T keep = upper ? v[k + kCount / 2] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, kCount);
+    }
+    reduce_scatter<kCount / 2>(v, lane);
+  }
+}
+
+// The 16 slot sums of a block, written to out[0 .. 16) by threads 0..15.
+// Each warp reduces and scatters at once (four halving exchanges at lane
+// offsets 16, 8, 4, 2 leave lane l with slot l >> 1, summed over the lanes
+// of its parity; one more exchange adds the other parity): 16 shuffles
+// where one reduction per slot takes 80.  warp_sums holds 16 * 32
+// entries; one barrier.
+template <typename T>
+__device__ __forceinline__ void block_row_sums(T (&v)[kParamsSize],
+                                               T* warp_sums, T* out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  reduce_scatter<kParamsSize>(v, lane);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  if ((lane & 1) == 0) warp_sums[32 * (lane >> 1) + warp] = v[0];
+  __syncthreads();
+  if (threadIdx.x < kParamsSize) {
+    const int num_warps = blockDim.x >> 5;
+    T sum = 0;
+    for (int w = 0; w < num_warps; ++w) {
+      sum += warp_sums[32 * threadIdx.x + w];
+    }
+    out[threadIdx.x] = sum;
   }
 }
 

@@ -61,14 +61,40 @@
 // for XLA's autodiff of the JAX package's log_psi_and_energy, which the
 // gradient optimizer of the trial function differentiates.  Its body is in
 // pair_terms_grad.cuh.  The same layout: one CTA per walker, one thread
-// per particle, the positions (wrapped into [0, L)) and the forward's drift
-// in shared memory; each unordered pair once on the half ring.  Its pair
-// terms need no j side (only walker sums are wanted), so the loop holds no
-// barrier and no shared-memory write.  Bounded, like the forward, by
-// arithmetic: ~2.5 times the log variant's flops per pair for the same
-// bytes.  A first, simple design: the 16 slot sums and the pair sums stay
-// in registers (float64 spills past the launch bounds' 64 registers at
-// 1024 threads).
+// per particle, each unordered pair once on the half ring; its pair terms
+// need no j side (only walker sums are wanted), so the loop holds no
+// barrier and no shared-memory write.  Bounded, like the forward, by FP32
+// instruction issue: 39 flops a pair inside the cutoff and 35 outside
+// (chip_smoke.py's count) for the forward's bytes.
+//
+// What held the first design back, from its SASS: 45 instructions a pair
+// common to both branches, then 20 outside the cutoff and 19 inside; the
+// 16 slot sums live through the loop (the one-body terms came first) and
+// 9 pair sums beside them, 53 registers in float and spills in double
+// under the one launch bound of 1024 threads; each slot reduced on its own
+// (80 shuffles a thread).  What this design does about it:
+//   * one form of the pair's derivatives for both branches
+//     (pair_terms_grad.cuh): the branch selects its operands, and the
+//     weights (g_E, g_lp and the parameters) are the thread's constants: a
+//     pair outside the cutoff adds t, fs v, log t, G and r G to plain sums,
+//     weighted once after the loop; log sin = -log(1 + cot^2) / 2 needs
+//     only the ratio, so float takes the forward variant's rational tan
+//     (8 instructions) where the sin/cos polynomials took 12;
+//   * pairs inside the cutoff are rare (0.6% of them at the bench's
+//     density): a warp vote per step runs the body with every select
+//     folded to the outside operand unless a lane of the warp holds one,
+//     so the lanes never diverge; there the drift factor is one
+//     difference and a select;
+//   * the positions and -2 F twice over in shared memory (nop + steps
+//     slots), so that the ring's partner is an immediate offset, one
+//     8-byte load a pair, no wrap test;
+//   * the one-body terms after the loop; instantiations by block size
+//     (128, 256, 1024 threads) whose launch bounds give 64 registers in
+//     float and 80 in double up to 256 threads (no spills);
+//   * the 16 slots reduced and scattered across a warp at once
+//     (block_row_sums: 16 shuffles), written by 16 threads.
+// No atomics: the rows and their torch sum are deterministic.  Double keeps
+// the IEEE divide, sincos and log.
 #include <cuda_runtime.h>
 
 #include "pair_terms.cuh"
@@ -140,8 +166,25 @@ int launch(const void* pos, const void* params, void* log_psi, void* energy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One particle's entry in the VJP's shared memory: its position in [0, L)
+// and -2 times its drift (the factor of dldz in dE).
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+struct alignas(2 * sizeof(T)) VjpSlot {
+  T z, g;
+};
+
+// CTAs of kThreads that the VJP's launch bounds keep resident on an SM:
+// 64 registers a thread in float (1024 threads a SM), 80 in double (768)
+// up to 256 threads; 64 at 1024 threads either way.
+template <typename T>
+constexpr int vjp_min_ctas(int threads) {
+  return threads >= 1024 ? 1 : (sizeof(T) == 4 ? 1024 : 768) / threads;
+}
+
+// One CTA per walker, thread i < nop is particle i; kThreads is the block
+// size's bound (128, 256 or 1024), blockDim.x = nop rounded up to a warp.
+template <typename T, int kThreads>
+__global__ void __launch_bounds__(kThreads, vjp_min_ctas<T>(kThreads))
 pair_logpsi_params_vjp_kernel(const T* __restrict__ pos,
                               const T* __restrict__ params,
                               const T* __restrict__ drift,
@@ -152,53 +195,81 @@ pair_logpsi_params_vjp_kernel(const T* __restrict__ pos,
   using qmc::kParamsSize;
   extern __shared__ __align__(32) unsigned char smem_raw[];
   T* warp_sums = reinterpret_cast<T*>(smem_raw);  // 32 per slot
-  T* zs = warp_sums + 32 * kParamsSize;            // one per thread
-  T* fs = zs + blockDim.x;                         // one per thread
+  VjpSlot<T>* slots = reinterpret_cast<VjpSlot<T>*>(warp_sums +
+                                                    32 * kParamsSize);
 
   const size_t walker = blockIdx.x;
   const int i = threadIdx.x;
   const bool active = i < nop;
-  const T zi = active ? pos[walker * nop + i] : T(0);
-  const T f_i = active ? drift[walker * nop + i] : T(0);
-  zs[i] = qmc::into_supercell(zi, params[qmc::P_L]);
-  fs[i] = f_i;
+  const T* walker_pos = pos + walker * nop;
+  const T* walker_drift = drift + walker * nop;
+  const T length = params[qmc::P_L];
+  // Slot s < nop + steps holds particle s mod nop, so that thread i's
+  // partners i + 1 .. i + steps need no wrap test.
+  const int steps = (nop - 1) >> 1;
+  for (int s = i; s < nop + steps; s += blockDim.x) {
+    const int p = s < nop ? s : s - nop;
+    slots[s] = {qmc::into_supercell(walker_pos[p], length),
+                T(-2) * walker_drift[p]};
+  }
   __syncthreads();
 
   const T ge = g_e[walker], glp = g_lp[walker];
-  T acc[kParamsSize];
-  for (int p = 0; p < kParamsSize; ++p) acc[p] = T(0);
-  if (active && !is_free) {
-    qmc::one_body_grad_terms(zi, f_i, params, defects_sep, ge, glp, acc);
-  }
-  if (active && !is_ideal) {
-    const qmc::PairParams<T> c(params);
-    const T r_off = params[qmc::P_ROFF];
-    const T inv_l = T(1) / c.L;
-    const T z_own = zs[i];
-    qmc::PairGradSums<T> g;
-    int j = i;
-    for (int k = (nop - 1) >> 1; k > 0; --k) {
-      if (++j == nop) j = 0;
-      qmc::pair_grad_terms(z_own - zs[j], f_i, fs[j], c, r_off, inv_l, &g);
-    }
+  qmc::PairVjpSums<T> sums;
+  if (!is_ideal) {
+    // The threads past nop walk thread 0's ring with every pair outside
+    // (rm < 0), so that every lane of a warp votes at every step; their
+    // sums are dropped.
+    const qmc::PairVjpConsts<T> c(params, ge, glp,
+                                  active ? params[qmc::P_RM] : T(-1));
+    const VjpSlot<T>* ring = slots + (active ? i : 0);
+    const T z_own = ring[0].z, g_own = ring[0].g;
+    auto pair = [&](const VjpSlot<T>& other, bool vote) {
+      const T d = z_own - other.z;
+      const T ad = qmc::d_fabs(d);
+      const bool wrap = ad > c.half_l;
+      const T r = wrap ? c.L - ad : ad;
+      const bool in = r < c.rm;
+      if (!vote || __builtin_expect(__any_sync(0xffffffffu, in), 0)) {
+        qmc::pair_vjp_terms<T, true>(d, r, wrap, in, g_own, other.g, c,
+                                     &sums);
+      } else {
+        qmc::pair_vjp_terms<T, false>(d, r, wrap, in, g_own, other.g, c,
+                                      &sums);
+      }
+    };
+#pragma unroll 4
+    for (int k = 1; k <= steps; ++k) pair(ring[k], true);
     const int half = nop >> 1;
-    if (nop == 2 * half && i < half) {
-      qmc::pair_grad_terms(z_own - zs[i + half], f_i, fs[i + half], c,
-                           r_off, inv_l, &g);
-    }
-    acc[qmc::P_L] += ge * g.e_l + glp * g.lp_l;
-    acc[qmc::P_K2] += ge * g.e_k2 + glp * g.lp_k2;
-    acc[qmc::P_ROFF] += ge * g.e_roff + glp * g.lp_roff;
-    acc[qmc::P_BETA] += ge * g.e_beta + glp * g.lp_beta;
-    acc[qmc::P_AM] += glp * g.num_in / params[qmc::P_AM];
+    if (nop == 2 * half && i < half) pair(ring[half], false);
   }
 
-  qmc::block_sums(acc, warp_sums);
-  if (i == 0) {
-    for (int p = 0; p < kParamsSize; ++p) {
-      rows[walker * kParamsSize + p] = acc[p];
+  // The one-body terms after the pair loop, so that only the pair sums
+  // live through it.
+  T acc[kParamsSize];
+  for (int p = 0; p < kParamsSize; ++p) acc[p] = T(0);
+  if (active) {
+    if (!is_free) {
+      qmc::one_body_grad_terms(walker_pos[i], walker_drift[i], params,
+                               defects_sep, ge, glp, acc);
     }
+    if (!is_ideal) qmc::add_pair_slots(sums, params, ge, glp, acc);
   }
+  qmc::block_row_sums(acc, warp_sums, rows + walker * kParamsSize);
+}
+
+template <typename T, int kThreads>
+void launch_vjp(const void* pos, const void* params, const void* drift,
+                const void* g_lp, const void* g_e, void* rows,
+                int num_walkers, int nop, int is_free, int is_ideal,
+                int defects_sep, int threads, size_t smem,
+                cudaStream_t stream) {
+  pair_logpsi_params_vjp_kernel<T, kThreads>
+      <<<num_walkers, threads, smem, stream>>>(
+          static_cast<const T*>(pos), static_cast<const T*>(params),
+          static_cast<const T*>(drift), static_cast<const T*>(g_lp),
+          static_cast<const T*>(g_e), static_cast<T*>(rows), nop, is_free,
+          is_ideal, defects_sep);
 }
 
 template <typename T>
@@ -211,13 +282,15 @@ int launch_params_vjp(const void* pos, const void* params, const void* drift,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = ((nop + 31) / 32) * 32;
-  const size_t smem = (32 * qmc::kParamsSize + 2 * threads) * sizeof(T);
-  pair_logpsi_params_vjp_kernel<T>
-      <<<num_walkers, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(pos), static_cast<const T*>(params),
-          static_cast<const T*>(drift), static_cast<const T*>(g_lp),
-          static_cast<const T*>(g_e), static_cast<T*>(rows), nop, is_free,
-          is_ideal, defects_sep);
+  const size_t smem = 32 * qmc::kParamsSize * sizeof(T) +
+                      (nop + ((nop - 1) >> 1)) * sizeof(VjpSlot<T>);
+  const auto s = static_cast<cudaStream_t>(stream);
+  // The instantiation by block size: the registers a small block can have.
+  auto* launch = threads <= 128   ? launch_vjp<T, 128>
+                 : threads <= 256 ? launch_vjp<T, 256>
+                                  : launch_vjp<T, kMaxThreads>;
+  launch(pos, params, drift, g_lp, g_e, rows, num_walkers, nop, is_free,
+         is_ideal, defects_sep, threads, smem, s);
   return static_cast<int>(cudaGetLastError());
 }
 

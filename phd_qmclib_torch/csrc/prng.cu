@@ -107,8 +107,16 @@ philox_normals_kernel(T* __restrict__ out, int numel, const PhiloxKeys keys,
 // The rows of a fused parameter sweep in one launch: row r of out (row_numel
 // elements) holds scales[r] times the normals of (keys[r], step), its quads
 // counted from 0 inside the row, so that it is word for word the single-row
-// kernel's output for that key and scale.  The key schedule is built per
-// quad from the device table (the rows' keys are not launch constants).
+// kernel's output for that key and scale.  CTA c takes row c mod R and is
+// the (c div R)-th of that row's gridDim.x / R CTAs: neighbouring CTAs,
+// which the hardware spreads over the SMs, take different rows, so that
+// the CTAs that take one more quad a thread (a row's first) land on
+// different SMs.  Each thread builds its row's key schedule, loads its
+// scale and tests its row's alignment once, then strides over the row's
+// quads with a 32-bit index, as the single-row kernel does.  The schedule
+// is held in registers (an empty asm hides how it was built, or the
+// compiler rebuilds each round key for every quad): each round's xor
+// reads it there, where the single-row kernel reads the constant bank.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 philox_normals_rows_kernel(T* __restrict__ out, int row_numel, int num_rows,
@@ -118,22 +126,26 @@ philox_normals_rows_kernel(T* __restrict__ out, int row_numel, int num_rows,
   const uint32_t s1 = static_cast<uint32_t>(step >> 32);
   const int full_quads = row_numel / 4;
   const int row_quads = full_quads + (row_numel % 4 != 0);
-  const int64_t num_quads = static_cast<int64_t>(row_quads) * num_rows;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       g < num_quads; g += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int row = static_cast<int>(g / row_quads);
-    const int q = static_cast<int>(g - static_cast<int64_t>(row) * row_quads);
-    const unsigned long long key = __ldg(keys + row);
-    const uint4 w = philox4x32_10(
-        static_cast<uint32_t>(q), 0u, s0, s1,
-        PhiloxKeys(static_cast<uint32_t>(key),
-                   static_cast<uint32_t>(key >> 32)));
+  const int row = blockIdx.x % num_rows;
+  const int row_ctas = gridDim.x / num_rows;
+  const unsigned long long key = __ldg(keys + row);
+  PhiloxKeys row_keys(static_cast<uint32_t>(key),
+                      static_cast<uint32_t>(key >> 32));
+#pragma unroll
+  for (int round = 0; round < qmc::kPhiloxRounds; ++round) {
+    asm("" : "+r"(row_keys.k0[round]), "+r"(row_keys.k1[round]));
+  }
+  const T s = __ldg(scales + row);
+  T* row_out = out + static_cast<int64_t>(row) * row_numel;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row_out) & 15) == 0;
+  for (int q = blockIdx.x / num_rows * kThreads + threadIdx.x; q < row_quads;
+       q += row_ctas * kThreads) {
+    const uint4 w = philox4x32_10(static_cast<uint32_t>(q), 0u, s0, s1,
+                                  row_keys);
     float z[4];
     box_muller(w.x, w.y, &z[0], &z[1]);
     box_muller(w.z, w.w, &z[2], &z[3]);
-    T* row_out = out + static_cast<int64_t>(row) * row_numel;
-    const T s = __ldg(scales + row);
-    if ((reinterpret_cast<uintptr_t>(row_out) & 15) == 0 && q < full_quads) {
+    if (aligned && q < full_quads) {
       store_quad(row_out, q, z, s);
     } else {
       for (int k = 0; k < 4 && 4 * q + k < row_numel; ++k) {
@@ -172,11 +184,13 @@ template <typename T>
 int launch_normals_rows(void* out, int row_numel, int num_rows,
                         const void* keys, const void* scales,
                         unsigned long long step, int grid, void* stream) {
-  if (row_numel <= 0 || num_rows <= 0 || grid <= 0) {
+  // grid: the CTAs of each row (ops/prng.py::rows_grid).
+  if (row_numel <= 0 || num_rows <= 0 || grid <= 0 ||
+      grid > (1 << 30) / num_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   philox_normals_rows_kernel<T>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      <<<grid * num_rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<T*>(out), row_numel, num_rows,
           static_cast<const unsigned long long*>(keys),
           static_cast<const T*>(scales), step);

@@ -85,7 +85,7 @@ SIGNATURES = {
     "qmc_philox_normals_f32": _NORMALS,
     "qmc_philox_normals_f64": _NORMALS,
     # out (R rows), row_numel, R, keys (R uint64 on the device), scales
-    # (R on the device), step, grid, stream
+    # (R on the device), step, CTAs per row, stream
     "qmc_philox_normals_rows_f32": (_P, _I, _I, _P, _P, _U64, _I, _P),
     "qmc_philox_normals_rows_f64": (_P, _I, _I, _P, _P, _U64, _I, _P),
     # out (uint32 words), num_quads, key, step, grid, stream

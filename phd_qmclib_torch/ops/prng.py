@@ -32,7 +32,7 @@ from . import _build, trig
 
 __all__ = ["box_muller", "box_muller_mismatches", "check_key", "key_table",
            "normal", "normal_plain", "normal_rows", "normal_rows_plain",
-           "philox_words", "philox_words_plain"]
+           "philox_words", "philox_words_plain", "rows_grid"]
 
 _MASK32 = 0xFFFFFFFF
 #: Philox4x32 round multipliers and Weyl key increments (Salmon et al.,
@@ -325,7 +325,20 @@ def _launch_rows(dtype, num_rows: int, row_numel: int, index: int):
         raise ValueError(f"{row_numel} elements a row exceed the kernel's "
                          f"int range")
     return (_build.functions()[name],
-            _grid(num_rows * -(-row_numel // 4), index))
+            rows_grid(num_rows, row_numel, _build.sm_count(index),
+                      _ctas_per_sm()))
+
+
+def rows_grid(num_rows: int, row_numel: int, sms: int,
+              ctas_per_sm: int) -> int:
+    """CTAs per row of the rows kernel, which launches ``num_rows``
+    times as many: the persistent grid of all the rows' quads
+    (:func:`~phd_qmclib_torch.ops._build.persistent_grid`) shared among
+    the rows, at least one CTA a row and no more than a row's quads
+    fill."""
+    row_tiles = -(-(-(-row_numel // 4)) // THREADS)
+    total = _build.persistent_grid(num_rows * row_tiles, sms, ctas_per_sm)
+    return max(1, min(row_tiles, total // num_rows))
 
 
 #: Kernel launches since the last reset (set it to 0 to reset).

@@ -780,6 +780,75 @@ def test_params_vjp_kernel_f32_against_the_f64_plain(cuda, nop, num_walkers):
     assert bool((err <= limit).all()), (err / limit).max()
 
 
+#: Particle counts that take every instantiation of the VJP kernel (128,
+#: 256 and 1024 threads) and both parities of the half ring.
+VJP_NOPS = [1, 2, 3, 31, 32, 33, 64, 96, 128, 129, 256, 512, 1024]
+
+
+def _vjp_check(got, pos, params, g_lp, g_e, kw, dtype):
+    """f64: every slot within VJP_F64_RTOL of autograd of the plain
+    version; f32: within the f32 limits of the f64 plain version at the
+    same inputs.  The rm slot is exactly 0 either way."""
+    want = pairwise.energy_and_drift_params_vjp_plain(
+        pos.double(), params.double(), None, g_lp.double(), g_e.double(),
+        **kw)
+    assert float(got[pairwise.P_RM]) == 0.0
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=VJP_F64_RTOL, atol=0.0)
+    else:
+        err = (got.double() - want).abs()
+        limit = (VJP_F32_RTOL * want.abs()
+                 + VJP_F32_RTOL_OF_MAX * want.abs().max())
+        assert bool((err <= limit).all()), (err / limit).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", VJP_NOPS)
+def test_params_vjp_kernel_at_every_block_size(cuda, nop, dtype):
+    walkers = 16 if nop >= 512 else 64
+    pos, params, drift, g_lp, g_e, kw = _vjp_inputs(
+        _vjp_spec(nop, "defected" if nop % 8 == 0 else "bench"), walkers,
+        dtype, cuda, seed=nop)
+    count = pairwise.energy_and_drift.params_vjp_launch_count
+    got = pairwise.energy_and_drift_params_vjp(pos, params, drift, g_lp,
+                                               g_e, **kw)
+    torch.cuda.synchronize()
+    assert pairwise.energy_and_drift.params_vjp_launch_count == count + 1
+    _vjp_check(got, pos, params, g_lp, g_e, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", [8, 33])
+def test_params_vjp_kernel_at_the_edges(cuda, nop, dtype):
+    """A pair exactly at r = rm (outside the cutoff, as in the plain
+    version), coincident particles, and positions at 0 and just below L
+    (a pair across the boundary) in every walker, the rest random."""
+    spec = _vjp_spec(nop, "bench")
+    rm = spec.tbf_contact_cutoff
+    length = spec.supercell_size
+    walkers = 64
+    rng = np.random.default_rng(nop)
+    pos = rng.uniform(0, length, (walkers, nop))
+    below_l = np.nextafter(np.array(length, dtype=np.float32 if dtype ==
+                                    torch.float32 else np.float64), 0.0)
+    pos[:, :5] = [0.0, float(torch.tensor(rm, dtype=dtype)), 3.0, 3.0,
+                  float(below_l)]
+    pos_t = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    assert float(pos_t[0, 1] - pos_t[0, 0]) == float(
+        torch.tensor(rm, dtype=dtype))
+    params = pairwise.pack_params(spec.cfc_params, dtype, cuda)
+    static = spec.static_spec
+    kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal,
+              defects_sep=static.defects_sep)
+    g_lp, g_e = (torch.as_tensor(rng.standard_normal(walkers), dtype=dtype,
+                                 device=cuda) for _ in range(2))
+    _, _, drift = pairwise.energy_and_drift(pos_t, params,
+                                            with_log_psi=True, **kw)
+    got = pairwise.energy_and_drift_params_vjp(pos_t, params, drift, g_lp,
+                                               g_e, **kw)
+    _vjp_check(got, pos_t, params, g_lp, g_e, kw, dtype)
+
+
 def test_params_vjp_rejects_bad_inputs(cuda):
     pos, params, drift, g_lp, g_e, kw = _vjp_inputs(
         _vjp_spec(16, "bench"), 8, torch.float32, cuda)
@@ -920,16 +989,28 @@ def test_pair_kernel_rejects_a_table_that_does_not_divide(cuda):
         pairwise.energy_and_drift(pos[:-1].contiguous(), table, **kw)
 
 
-@pytest.mark.parametrize("shape", [(4352, 64), (7, 13), (5, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("rows,shape", [
+    (4, (4352, 64)), (4, (7, 13)), (4, (5, 3)), (1, (33, 7)), (3, (33, 7)),
+    (64, (33, 7)), (64, (64, 16))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_normals_rows_equal_row_launches_and_plain(cuda, shape, dtype):
-    """Four keys and scales in one launch: each row word for word the
-    single-row launch and the plain version, also where a row's length
-    is not a multiple of 4 (rows then start unaligned)."""
-    keys = [11, 12, (1 << 64) - 3, 1 << 40]
-    scales = torch.tensor([0.04, 0.05, 1.0, 0.3], dtype=dtype, device=cuda)
+def test_normals_rows_equal_row_launches_and_plain(cuda, rows, shape, offset,
+                                                  dtype):
+    """1 to 64 keys and scales in one launch, at a step past 2^32: each
+    row word for word its single-row launch and the plain version, also
+    where a row's length is not a multiple of 4 (rows then start
+    unaligned) and in an output that starts one element past a 16-byte
+    boundary."""
+    keys = [11, 12, (1 << 64) - 3, 1 << 40][:rows] if rows <= 4 else [
+        (7919 * r + 3) << (r % 3 * 20) for r in range(rows)]
+    scales = torch.tensor([0.04, 0.05, 1.0, 0.3], dtype=dtype,
+                          device=cuda)[:rows] if rows <= 4 else \
+        torch.linspace(0.01, 2.0, rows, dtype=dtype, device=cuda)
     step = (1 << 33) + 9
-    out = torch.empty((4,) + shape, dtype=dtype, device=cuda)
+    numel = rows * shape[0] * shape[1]
+    out = torch.empty(offset + numel, dtype=dtype, device=cuda)[offset:] \
+        .view((rows,) + shape)
+    assert (out.data_ptr() % 16 == 0) == (offset == 0)
     count = prng.normal_rows.launch_count
     prng.normal_rows(prng.key_table(keys, cuda), step, scales, out)
     torch.cuda.synchronize()
@@ -939,7 +1020,7 @@ def test_normals_rows_equal_row_launches_and_plain(cuda, shape, dtype):
     for r, key in enumerate(keys):
         want = prng.normal(key, step, shape, dtype, cuda,
                            scale=float(scales[r]))
-        assert torch.equal(out[r], want)
+        assert torch.equal(out[r], want), r
         torch.testing.assert_close(out[r].cpu(), plain[r], rtol=1e-6,
                                    atol=2e-6)
 

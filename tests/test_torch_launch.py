@@ -117,6 +117,30 @@ def test_persistent_grid_takes_every_tile_once(num_tiles, sms, ctas_per_sm):
         assert all(_tiles_by_cta(num_tiles, grid))
 
 
+@pytest.mark.parametrize("num_rows,row_numel", [
+    (1, 1), (1, 278_528), (3, 231), (4, 278_528), (4, 557_056), (64, 1024),
+    (64, 231), (600, 4), (7, 1_114_113)])
+@pytest.mark.parametrize("sms,ctas_per_sm", [(132, 4), (1, 1), (114, 3)])
+def test_rows_grid_takes_every_quad_of_every_row_once(num_rows, row_numel,
+                                                      sms, ctas_per_sm):
+    """K2's rows kernel: ``rows_grid`` CTAs a row, CTA c taking row
+    ``c mod R`` and the quads ``(c div R) 256 + t`` strided by the row's
+    CTAs times 256 (``csrc/prng.cu``): each quad of each row once, no
+    CTA idle, and no more CTAs than the persistent grid of all the rows'
+    quads unless each row needs one."""
+    per_row = prng.rows_grid(num_rows, row_numel, sms, ctas_per_sm)
+    row_quads = -(-row_numel // 4)
+    row_tiles = -(-row_quads // prng.THREADS)
+    assert 1 <= per_row <= row_tiles
+    assert per_row * num_rows <= max(num_rows, sms * ctas_per_sm)
+    if num_rows == 4 and row_numel == 278_528 and sms == 132:
+        assert per_row == 132  # S1's fused step: the card's 528 CTAs
+    # Tiles of 256 quads: CTA k of a row takes the tiles k, k + per_row...
+    taken = sorted(t for k in range(per_row)
+                   for t in range(k, row_tiles, per_row))
+    assert taken == list(range(row_tiles))
+
+
 @pytest.mark.parametrize("num_rows", [1, 5, 37, 1055, 2053, 17408])
 @pytest.mark.parametrize("num_bins", [1, 7, 128, 129, 1536, 1537, 12288])
 def test_histogram_launch_shape_takes_every_row_once(num_rows, num_bins):

@@ -214,6 +214,76 @@ def test_log_psi_and_energy_function_on_the_cpu(setup):
                                         params, kw)
 
 
+#: The models of the VJP's reference check (chip_smoke.py W0's four).
+VJP_MODELS = dict(lattice_depth=20.0, lattice_ratio=1.0,
+                  interaction_strength=1.0, tbf_contact_cutoff=0.4)
+VJP_RTOL = 1e-10
+
+
+def _vjp_model(kind, nop):
+    kwargs = dict(VJP_MODELS, boson_number=nop, supercell_size=float(nop))
+    if kind == "free":
+        kwargs.update(lattice_depth=0.0)
+    elif kind == "ideal":
+        kwargs.update(interaction_strength=0.0)
+    elif kind == "defected":
+        kwargs.update(num_defects=1 if nop == 5 else 8, defect_magnitude=10.0)
+    return kwargs
+
+
+@pytest.mark.parametrize("kind", ["bench", "free", "ideal", "defected"])
+@pytest.mark.parametrize("nop", [5, 16])
+def test_params_vjp_reference_matches_jax_autodiff(kind, nop):
+    """The plain parameter VJP (the reference of the CUDA kernel), chained
+    through ``pack_params``' autograd to the ``cfc_params`` leaves, against
+    ``jax.vjp`` of the JAX package's ``log_psi_and_energy`` at the same
+    leaves and upstream vectors, in float64.  The supercell size is one
+    leaf of ``ModelParams`` and one of ``TBFParams``: the JAX package reads
+    the pair terms' from the latter, the packing the former's, so the two
+    are compared as their sum; every other leaf on its own."""
+    kwargs = _vjp_model(kind, nop)
+    jspec, tspec = jmrbp.Spec(**kwargs), tmrbp.Spec(**kwargs)
+    rng = np.random.default_rng(nop)
+    pos = rng.uniform(0, nop, (64, nop))
+    g_lp, g_e = rng.standard_normal(64), rng.standard_normal(64)
+
+    cfc = jax.tree.map(jnp.float64, jspec.cfc_params)
+    _, pullback = jax.vjp(lambda c: jmrbp.core_funcs(jspec).log_psi_and_energy(
+        jnp.asarray(pos), c), cfc)
+    want = [float(v) for v in jax.tree.leaves(pullback(
+        (jnp.asarray(g_lp), jnp.asarray(g_e)))[0])]
+
+    groups = [[torch.tensor(float(v), dtype=torch.float64,
+                            requires_grad=True) for v in group]
+              for group in tspec.cfc_params]
+    leaves = [leaf for group in groups for leaf in group]
+    tcfc = type(tspec.cfc_params)(*[type(g)(*leaf) for g, leaf in zip(
+        tspec.cfc_params, groups)])
+    packed = tpairwise.pack_params(tcfc, torch.float64, "cpu")
+    static = tspec.static_spec
+    product = tpairwise.energy_and_drift_params_vjp_plain(
+        torch.as_tensor(pos), packed.detach(), None, torch.as_tensor(g_lp),
+        torch.as_tensor(g_e), nop=nop, is_free=static.is_free,
+        is_ideal=static.is_ideal, defects_sep=static.defects_sep)
+    assert float(product[tpairwise.P_RM]) == 0.0
+    got = [0.0 if g is None else float(g) for g in torch.autograd.grad(
+        packed, leaves, grad_outputs=product, allow_unused=True)]
+
+    names = [f"{type(g).__name__}.{f}" for g in tspec.cfc_params
+             for f in g._fields]
+    assert len(names) == len(want) == len(got)
+    tied = [names.index("ModelParams.supercell_size"),
+            names.index("TBFParams.supercell_size")]
+    np.testing.assert_allclose(sum(got[k] for k in tied),
+                               sum(want[k] for k in tied), rtol=VJP_RTOL)
+    assert sum(want[k] != 0.0 for k in range(len(want))
+               if k not in tied) >= (1 if kind == "ideal" else 4)
+    for k, name in enumerate(names):
+        if k not in tied:
+            np.testing.assert_allclose(got[k], want[k], rtol=VJP_RTOL,
+                                       atol=0.0, err_msg=name)
+
+
 # -- the variance functional ------------------------------------------------------
 
 @pytest.mark.parametrize("x", [0.1, 0.3, 0.9, [0.31, 8.0]],

@@ -1,0 +1,223 @@
+"""An older checkout's kernels against this tree's, in one process on one
+card: K1 log's parameter VJP and K2's rows kernel.
+
+    PYTHONPATH=. python tools/kernel_compare.py --parent build/parent \
+        [--out-dir build/compare]
+
+The older checkout (``git archive <commit>`` unpacked into a git-ignored
+directory) builds its kernel library with its own ``ops/_build.py``, in
+a subprocess, into its own ``build/``; this tree's builds as a launch
+would.  Both libraries are loaded with ctypes and export the same launch
+functions, so each kernel runs on the same inputs from both, in turns
+(parent, new, new, parent):
+
+* ``vjp``: ``qmc_pair_logpsi_params_vjp_{f32,f64}`` at 4096 x 128 (the
+  bench model) and 16384 x 64 (the bench VMC model), positions uniform
+  in [0, L): the rows of both summed and compared (f32 within
+  ``chip_smoke.K1_VJP_F32_TOL`` of the f64 sums, f64 within
+  ``K1_VJP_F64_RTOL``), the time of a launch (CUDA events), and the
+  bound under this tree's flop count and under the first design's;
+* ``k2_rows``: ``qmc_philox_normals_rows_f32`` at 4 x 4352 x 64 (S1's
+  fused step): both outputs word for word equal, the kernels' device
+  time (profiler), beside the single-row kernel and ``torch.randn`` at
+  17408 x 64.
+
+Prints the card's name and power limit, then one JSON line per
+measurement.  With ``--out-dir`` it writes both builds' ``-Xptxas -v``
+reports and both libraries' SASS (``cuobjdump -sass``) there.  Needs a
+CUDA device.
+"""
+import argparse
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from phd_qmclib_torch.ops import _build, pairwise, prng
+
+VJP_SHAPES = (("dmc shape", cs.BENCH_SPEC, 4096),
+              ("vmc shape", cs.VMC_SPEC, cs.VMC_CHAINS))
+VJP_REPS = {torch.float32: 50, torch.float64: 10}
+ROWS, ROW_WALKERS, ROW_NOP = 4, cs.EOS_SLOTS, cs.EOS_NOP
+
+
+def build_parent(parent: Path) -> tuple:
+    """Build the older checkout's library in a subprocess; returns its
+    path and the build's report."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "from phd_qmclib_torch.ops import _build; "
+         "print(_build.build())"], cwd=parent, capture_output=True,
+        text=True, env=dict(os.environ, PYTHONPATH=str(parent)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's build failed:\n{proc.stderr}")
+    return parent / "build" / _build.LIBRARY.name, proc.stdout
+
+
+def load(path: Path, names) -> dict:
+    lib = ctypes.CDLL(str(path))
+    fns = {}
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_build.SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def launcher(fn, *args):
+    """A call of launch function ``fn`` on the current stream that
+    raises on a launch error."""
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+    return run
+
+
+def in_turns(parent, new, timer) -> dict:
+    p1, n1 = timer(parent), timer(new)
+    n2, p2 = timer(new), timer(parent)
+    return {"parent": [p1, p2], "new": [n1, n2]}
+
+
+def compare_vjp(parent_fns, new_fns, device, card) -> None:
+    for dtype in (torch.float32, torch.float64):
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        name = f"qmc_pair_logpsi_params_vjp_{suffix}"
+        for label, spec_kwargs, walkers in VJP_SHAPES:
+            args, kw = cs.vjp_inputs(spec_kwargs, walkers, dtype, device)
+            pos, params, drift, g_lp, g_e = args
+            rows = {k: pos.new_empty((walkers, pairwise.PARAMS_SIZE))
+                    for k in ("parent", "new")}
+            call = {k: launcher(fns[name], pos.data_ptr(), params.data_ptr(),
+                                drift.data_ptr(), g_lp.data_ptr(),
+                                g_e.data_ptr(), rows[k].data_ptr(), walkers,
+                                kw["nop"], int(kw["is_free"]),
+                                int(kw["is_ideal"]), kw["defects_sep"])
+                    for k, fns in (("parent", parent_fns), ("new", new_fns))}
+            for run in call.values():
+                run()
+            torch.cuda.synchronize()
+            got = {k: r.double().sum(dim=0) for k, r in rows.items()}
+            check = {}
+            if dtype == torch.float64:
+                rel = float(((got["new"] - got["parent"]).abs()
+                             / got["parent"].abs().clamp_min(1e-300)).max())
+                check = {"new_vs_parent_max_rel": rel,
+                         "ok": rel <= cs.K1_VJP_F64_RTOL}
+            else:
+                oracle = cs.vjp_plain_f64(args, kw)
+                tol = cs.K1_VJP_F32_TOL
+                limit = tol["rtol"] * oracle.abs() \
+                    + tol["rtol_of_max"] * oracle.abs().max()
+                shares = {k: float(((g - oracle).abs() / limit).max())
+                          for k, g in got.items()}
+                check = {"share_of_f32_limit": shares,
+                         "ok": shares["new"] <= 1.0}
+            check["rm_slot"] = float(got["new"][pairwise.P_RM])
+            times = in_turns(call["parent"], call["new"],
+                             lambda fn: cs.cuda_ms(fn, VJP_REPS[dtype]))
+            out = {"kernel": "K1 vjp", "dtype": suffix, "shape":
+                   [walkers, kw["nop"]], "label": label, "card": card,
+                   "ms": times, **check}
+            if dtype == torch.float32:
+                least = cs.vjp_bound(pos, params)
+                first = cs.vjp_bound(pos, params,
+                                     cs.K1_VJP_FIRST_DESIGN_FLOPS)
+                mean = {k: sum(v) / 2 for k, v in times.items()}
+                out.update(
+                    bound_ms=least["bound_ms"],
+                    bound_ms_first_design_count=first["bound_ms"],
+                    pairs=least["pairs"],
+                    pairs_in_cutoff=least["pairs_in_cutoff"],
+                    share_of_bound={k: least["bound_ms"] / v
+                                    for k, v in mean.items()},
+                    share_of_first_design_bound={
+                        k: first["bound_ms"] / v for k, v in mean.items()})
+            print(json.dumps(out), flush=True)
+            if not check["ok"] or check["rm_slot"] != 0.0:
+                raise SystemExit(f"K1 vjp {suffix} {label}: {check}")
+
+
+def compare_rows(parent_fn, device, card) -> None:
+    keys = prng.key_table([int(p["rng_seed"]) for p in cs.EOS_PROCS], device)
+    scales = torch.tensor([math.sqrt(2 * dt) for dt in
+                           (1e-3, 2e-3, 1e-3, 5e-4)], device=device)
+    shape = (ROWS, ROW_WALKERS, ROW_NOP)
+    row_numel = ROW_WALKERS * ROW_NOP
+    bufs = {k: torch.empty(shape, device=device) for k in ("parent", "new")}
+    sms = _build.sm_count(device.index or 0)
+    # The parent's kernel took the persistent grid of all the rows' quads.
+    parent_grid = _build.persistent_grid(
+        -(-ROWS * row_numel // 4 // prng.THREADS), sms,
+        _build.functions()["qmc_philox_ctas_per_sm"]())
+    call = {"parent": launcher(parent_fn, bufs["parent"].data_ptr(),
+                               row_numel, ROWS, keys.data_ptr(),
+                               scales.data_ptr(), 5, parent_grid),
+            "new": lambda: prng.normal_rows(keys, 5, scales, bufs["new"])}
+    for run in call.values():
+        run()
+    torch.cuda.synchronize()
+    equal = torch.equal(bufs["parent"], bufs["new"])
+    flat = torch.empty((ROWS * ROW_WALKERS, ROW_NOP), device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    times = in_turns(call["parent"], call["new"],
+                     lambda fn: cs.device_ms(fn, 200))
+    single = [cs.device_ms(lambda: prng.normal(1, 5, flat.shape, scale=0.04,
+                                               out=flat, device=device), 200)
+              for _ in range(2)]
+    randn = [cs.device_ms(lambda: torch.randn(flat.shape, generator=gen,
+                                              out=flat), 200)
+             for _ in range(2)]
+    numel = flat.numel()
+    print(json.dumps({
+        "kernel": "K2 rows", "shape": list(shape), "card": card,
+        "words_equal_parent": equal, "device_ms": times,
+        "single_row_device_ms": single, "torch_randn_device_ms": randn,
+        **cs.bound(numel * cs.K2_FLOPS_PER_NORMAL,
+                   cs.F32_BYTES * numel + 12 * ROWS)}), flush=True)
+    if not equal:
+        raise SystemExit("K2 rows: the words differ from the parent's")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, required=True)
+    parser.add_argument("--out-dir", type=Path)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    device = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    parent_lib, parent_log = build_parent(args.parent.resolve())
+    new_log = _build.build()
+    names = ["qmc_pair_logpsi_params_vjp_f32",
+             "qmc_pair_logpsi_params_vjp_f64", "qmc_philox_normals_rows_f32"]
+    parent_fns = load(parent_lib, names)
+    new_fns = {name: _build.functions()[name] for name in names}
+    if args.out_dir:
+        args.out_dir.mkdir(parents=True, exist_ok=True)
+        (args.out_dir / "ptxas_parent.txt").write_text(parent_log)
+        (args.out_dir / "ptxas_new.txt").write_text(new_log)
+        cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+        for label, lib in (("parent", parent_lib), ("new", _build.LIBRARY)):
+            with open(args.out_dir / f"sass_{label}.txt", "w") as out:
+                subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                               stdout=out, stderr=subprocess.STDOUT)
+    compare_rows(parent_fns["qmc_philox_normals_rows_f32"], device, card)
+    compare_vjp(parent_fns, new_fns, device, card)
+
+
+if __name__ == "__main__":
+    main()
