@@ -10,7 +10,9 @@ path at the bench VMC configuration (the same model at N=64, L=64,
 16,384 chains) and the variational example, and checks the kernels and
 the physics:
 
-A. the card's name and power limit; the kernels' build (``-Xptxas -v``);
+A. the card's name and power limit; the kernels' build (``-Xptxas -v``:
+   registers, stack and spills of each instantiation of the VJP, K2's
+   rows kernel and K3);
 B. the pair energy/drift kernel (K1) against its plain torch version,
    f32 at the main path's shape and f64;
 C. the Philox normals kernel (K2) against its plain torch version: equal
@@ -79,8 +81,9 @@ E. each kernel's time against its plain version at the main path's
    shapes, alternating plain, kernel, kernel, plain (K3 also against the
    step's own diffusion), beside its bound: the larger of its flops over
    the FP32 peak and its bytes over the HBM rate, counted from the
-   shapes.  K2 and K4 also give their device time (the profiler's kernel
-   time), and K2 stands beside ``torch.randn`` (another stream), like for
+   shapes (K3 also under the first design's count of its noise).  K2
+   and K4 also give their device time (the profiler's kernel time), and
+   K2 stands beside ``torch.randn`` (another stream), like for
    like, per call and on the device: the allocating form against
    ``torch.randn(shape, generator=gen)``, the ``out=`` form (scaled by
    sigma, as the DMC step draws it) against ``torch.randn(shape,
@@ -314,9 +317,7 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 #: (``csrc/philox.cuh::box_muller``: ~40 flops, 20 per normal; the
 #: Philox rounds are integer ops); K4 per element (the exact floor of
 #: ``csrc/histogram.cu::FastBin``: the multiply by the reciprocal, the
-#: floor, the fma of the remainder and the one correction); K3 per
-#: element its move (4) and the Box-Muller of its element's pair, which
-#: each thread recomputes (40), per unordered pair K1's.
+#: floor, the fma of the remainder and the one correction).
 K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
 #: K1 log's parameter VJP per unordered pair as written
 #: (``csrc/pair_terms_grad.cuh::pair_vjp_terms``, counted the same way):
@@ -335,7 +336,19 @@ K1_VJP_FLOPS_IN_CUT, K1_VJP_FLOPS_OUTSIDE = 39, 35
 K1_VJP_FIRST_DESIGN_FLOPS = (57, 60)
 K2_FLOPS_PER_NORMAL = 20
 K4_FLOPS_PER_ELEMENT = 5
-K3_FLOPS_PER_ELEMENT = 44
+#: K3 (``csrc/diffuse.cu``), counted the same way: per element its move
+#: (4) and its share of a Box-Muller (20); per unordered pair outside the
+#: cutoff the fast body of ``ring_pair`` (the difference 1, the image
+#: L - |d| 1, r^2 1, the two polynomials 12, r P, the reciprocal and the
+#: ratio 3, the three sums 6: 24), per pair inside it K1's ``pair_terms``
+#: (28).  The bound counts each pair by its side of the cutoff in the
+#: run's moved positions (a step that the vote sends through K1's body
+#: does more work than it needs, so it is not counted).  The first design counted every pair as K1's (28) and 44
+#: per element: the move and the whole Box-Muller of the element's pair,
+#: which each of its threads recomputed.
+K3_FLOPS_IN_CUT, K3_FLOPS_OUTSIDE = K1_FLOPS_PER_PAIR, 24
+K3_FLOPS_PER_ELEMENT = 24
+K3_FIRST_DESIGN_FLOPS = ((K1_FLOPS_PER_PAIR, K1_FLOPS_PER_PAIR), 44)
 F32_BYTES = 4
 
 #: Phase G's estimator loads.
@@ -707,8 +720,8 @@ def check_replay(device) -> None:
           ok=True)
 
 
-def bench_sampling(**estimators) -> dmc.Sampling:
-    return dmc.Sampling(mrbp.Spec(**BENCH_SPEC), time_step=TIME_STEP,
+def bench_sampling(spec_kwargs=BENCH_SPEC, **estimators) -> dmc.Sampling:
+    return dmc.Sampling(mrbp.Spec(**spec_kwargs), time_step=TIME_STEP,
                         max_num_walkers=MAX_WALKERS,
                         target_num_walkers=TARGET_WALKERS, rng_seed=1,
                         **estimators)
@@ -1796,27 +1809,33 @@ def vjp_plain_f64(args, kw, chunk: int = 1024) -> torch.Tensor:
         g_e[k:k + chunk], **kw) for k in range(0, pos.shape[0], chunk))
 
 
-def vjp_bound(pos, params, flops_per_pair=(K1_VJP_FLOPS_IN_CUT,
-                                            K1_VJP_FLOPS_OUTSIDE)) -> dict:
-    """The VJP kernel's bound at ``pos``: its pairs' flops
-    (``flops_per_pair``: inside the cutoff, outside), each pair counted
-    by its branch in these positions; positions, drift, the two upstream
-    vectors and the parameters in, the 16 sums out."""
+def pair_flops(pos, params, flops_per_pair) -> dict:
+    """The flops of every unordered pair of each walker of ``pos`` in
+    [0, L), ``flops_per_pair`` (inside the cutoff, outside) by its side
+    of the cutoff in these positions."""
     walkers, nop = pos.shape
     length = float(params[pairwise.P_L])
     rm = float(params[pairwise.P_RM])
     in_cut = 0
     for chunk in pos.split(1024):
         d = (chunk[:, :, None] - chunk[:, None, :]).abs()
-        # Every (i, j) and (j, i), and the diagonal (r = 0), once more.
-        in_cut += (int((torch.minimum(d, length - d) < rm).sum())
-                   - chunk.numel()) // 2
+        # The pairs i < j only.
+        in_cut += int((torch.minimum(d, length - d) < rm).triu(1).sum())
     pairs = walkers * nop * (nop - 1) // 2
-    flops = (in_cut * flops_per_pair[0]
-             + (pairs - in_cut) * flops_per_pair[1])
+    return dict(flops=(in_cut * flops_per_pair[0]
+                       + (pairs - in_cut) * flops_per_pair[1]),
+                pairs_in_cutoff=in_cut, pairs=pairs)
+
+
+def vjp_bound(pos, params, flops_per_pair=(K1_VJP_FLOPS_IN_CUT,
+                                            K1_VJP_FLOPS_OUTSIDE)) -> dict:
+    """The VJP kernel's bound at ``pos``: its pairs' flops
+    (``pair_flops``); positions, drift, the two upstream vectors and the
+    parameters in, the 16 sums out."""
+    walkers, nop = pos.shape
+    counted = pair_flops(pos, params, flops_per_pair)
     values = 2 * walkers * nop + 2 * walkers + 2 * pairwise.PARAMS_SIZE
-    return dict(bound(flops, F32_BYTES * values), pairs_in_cutoff=in_cut,
-                pairs=pairs)
+    return dict(bound(counted.pop("flops"), F32_BYTES * values), **counted)
 
 
 def check_k1_vjp(device, card: str):
@@ -1893,7 +1912,7 @@ def check_k1_vjp(device, card: str):
                           K1_VJP_FIRST_DESIGN_FLOPS)["bound_ms"]
         times[label] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                         "forward_ms": (f1 + f2) / 2, "f64_ms": (d1 + d2) / 2,
-                        "bound_ms_first_design_count": first, **least}
+                        **least}
         phase("W0", kernel="K1 vjp", card=card, shape=list(args[0].shape),
               plain_ms=[p1, p2], kernel_ms=[k1, k2], f64_kernel_ms=[d1, d2],
               k1_log_forward_ms=[f1, f2],
@@ -2152,22 +2171,24 @@ def run_wf_opt_ab(device, card: str):
     return (launches, vmc_steps), counts
 
 
-def diffuse_inputs(device):
-    """K3's inputs at the DMC shape: cloned parents with their K1 energy
-    and drift, E_ref on the device; and the DMC step's own diffusion of
-    the same inputs, ``step(xi=None)``: K2's noise for the same key (or
-    the unit normals ``xi``) scaled by sigma, then
-    ``dmc.Sampling.diffuse`` (torch move and recast, K1, weight)."""
-    pos, params, kw = pair_inputs(BENCH_SPEC, MAX_WALKERS, torch.float32,
-                                  device, seed=7)
+def diffuse_inputs(device, spec_kwargs=BENCH_SPEC, dtype=torch.float32):
+    """K3's inputs at MAX_WALKERS walkers of the model ``spec_kwargs``
+    (the DMC shape by default): cloned parents with their K1 energy and
+    drift, E_ref on the device; and the DMC step's own diffusion of the
+    same inputs, ``step(xi=None)``: K2's noise for the same key (or the
+    unit normals ``xi``) scaled by sigma, then ``dmc.Sampling.diffuse``
+    (torch move and recast, K1, weight)."""
+    pos, params, kw = pair_inputs(spec_kwargs, MAX_WALKERS, dtype, device,
+                                  seed=7)
     energy, drift = pairwise.energy_and_drift(pos, params, **kw)
-    sampling = bench_sampling()
+    sampling = bench_sampling(spec_kwargs)
     # What the sampler makes once per run: the cast and packed parameters.
-    cfc = mrbp.cast_params(sampling.cfc_params, torch.float32, device)
-    step_params = pairwise.pack_params(cfc, torch.float32, device)
+    cfc = mrbp.cast_params(sampling.cfc_params, dtype, device)
+    step_params = pairwise.pack_params(cfc, dtype, device)
     args = dict(cpos=pos, cdrift=drift, cenergy=energy, params=params,
                 dt=sampling.time_step, sigma=sampling.sigma_spread,
-                e_ref=torch.tensor(ENERGY_REF * NOP, device=device),
+                e_ref=torch.tensor(ENERGY_REF * kw["nop"], dtype=dtype,
+                                   device=device),
                 rng_seed=1, step=12345)
 
     def step(xi=None):
@@ -3315,6 +3336,21 @@ def k1_bound(walkers: int, nop: int, log_psi: bool) -> dict:
     return bound(flops, F32_BYTES * values)
 
 
+def k3_bound(npos, params, flops_per_pair=(K3_FLOPS_IN_CUT,
+                                           K3_FLOPS_OUTSIDE),
+             per_element: int = K3_FLOPS_PER_ELEMENT) -> dict:
+    """K3's bound at the moved positions ``npos``: its pairs' flops
+    (``pair_flops``) and ``per_element`` flops per element; positions,
+    drift and the normals' key in, parameters, energies and E_ref, moved
+    positions, drift, energy and weight out."""
+    walkers, nop = npos.shape
+    numel = walkers * nop
+    counted = pair_flops(npos, params, flops_per_pair)
+    return dict(bound(counted.pop("flops") + numel * per_element,
+                      F32_BYTES * (4 * numel + 3 * walkers
+                                   + pairwise.PARAMS_SIZE + 1)), **counted)
+
+
 def k4_bound(rows: int, row_len: int, num_bins: int) -> dict:
     """K4's bound: the rows in, the counts out."""
     return bound(rows * row_len * K4_FLOPS_PER_ELEMENT,
@@ -3337,11 +3373,8 @@ def time_kernels(device, card: str) -> dict:
     vpos, vparams, vkw = pair_inputs(VMC_SPEC, VMC_CHAINS, torch.float32,
                                      device)
     dargs, dkw, dstep = diffuse_inputs(device)
+    dpos = pairwise.diffuse_energy_drift_plain(**dargs, **dkw)[0]
     walkers, numel = MAX_WALKERS, MAX_WALKERS * NOP
-    pairs = walkers * NOP * (NOP - 1) // 2
-    k3_bound = bound(pairs * K1_FLOPS_PER_PAIR + numel * K3_FLOPS_PER_ELEMENT,
-                     F32_BYTES * (4 * numel + 3 * walkers
-                                  + pairwise.PARAMS_SIZE + 1))
     cases = {
         "K1": (lambda: pairwise.energy_and_drift_plain(pos, params, **kw),
                lambda: pairwise.energy_and_drift(pos, params, **kw),
@@ -3375,7 +3408,7 @@ def time_kernels(device, card: str) -> dict:
                              5, 50, k1_bound(walkers, NOP, True)),
         "K3": (lambda: pairwise.diffuse_energy_drift_plain(**dargs, **dkw),
                lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
-               5, 50, k3_bound),
+               5, 50, k3_bound(dpos, dargs["params"])),
         "K3 vs step": (
             dstep, lambda: pairwise.diffuse_energy_drift(**dargs, **dkw),
             50, 50, {}),
@@ -3397,6 +3430,13 @@ def time_kernels(device, card: str) -> dict:
               **{"step_ms" if name == "K3 vs step" else "plain_ms":
                  [p1, p2]}, kernel_ms=[k1, k2],
               speedup=(p1 + p2) / (k1 + k2), **least, **share, ok=True)
+    # K3's bound under the first design's count, beside the recount's.
+    first = k3_bound(dpos, dargs["params"], *K3_FIRST_DESIGN_FLOPS)
+    phase("E", kernel="K3", card=card, bound_ms=times["K3"]["bound_ms"],
+          bound_share=times["K3"]["bound_ms"] / times["K3"]["ms"],
+          bound_ms_first_design_count=first["bound_ms"],
+          bound_share_first_design_count=first["bound_ms"]
+          / times["K3"]["ms"], ok=True)
     # K2's yardstick: torch.randn draws standard normals of the same shape
     # on a CUDA generator, but from another stream (the generator's own
     # Philox offsets, not (seed, step)): timed, never used by the port.
@@ -3504,7 +3544,8 @@ def main() -> None:
           build_s=time.perf_counter() - t0, built=bool(log), ok=True)
     print(log if log else "kernel library up to date", flush=True)
     for entry in ptxas_report(log, ("pair_logpsi_params_vjp_kernel",
-                                    "philox_normals_rows_kernel")):
+                                    "philox_normals_rows_kernel",
+                                    "diffuse_kernel")):
         phase("A", **entry, ok=True)
 
     err_k1 = check_k1(device)  # B

@@ -98,11 +98,21 @@ __device__ __forceinline__ float pair_log_unit(float) {
 }
 __device__ __forceinline__ double pair_log_unit(double) { return 1.0; }
 
+// The order-13 continued-fraction rational tan x = x P(x^2) / Q(x^2)
+// (ops/trig.py's TAN_P_COEFFS, TAN_Q_COEFFS): P's and Q's coefficients
+// of x^2, x^4 and x^6 (both start at 1).
+constexpr float kTanP1 = -0.12820512820512820f;
+constexpr float kTanP2 = 2.7972027972027972e-03f;
+constexpr float kTanP3 = -7.4000074000074000e-06f;
+constexpr float kTanQ1 = -0.46153846153846154f;
+constexpr float kTanQ2 = 2.3310023310023310e-02f;
+constexpr float kTanQ3 = -2.0720020720020720e-04f;
+
 // (s, c) with tan(x) = s / c on (-pi/2, pi/2].  kFactors: s and c are
 // sin x and cos x themselves (the log variant needs them); otherwise only
-// their ratio is exact.  float: the order-13 continued-fraction rational
-// x P(x^2) / Q(x^2) (TAN_P_COEFFS, TAN_Q_COEFFS), or the quarter-wave
-// polynomials of trig.cuh; double: the library sin and cos either way.
+// their ratio is exact.  float: the rational tan above, or the
+// quarter-wave polynomials of trig.cuh; double: the library sin and cos
+// either way.
 template <bool kFactors>
 __device__ __forceinline__ void trig_pair(float x, float* s, float* c) {
   if (kFactors) {
@@ -110,13 +120,13 @@ __device__ __forceinline__ void trig_pair(float x, float* s, float* c) {
     *c = cos_poly(x);
   } else {
     const float z2 = x * x;
-    float p = -7.4000074000074000e-06f;
-    p = p * z2 + 2.7972027972027972e-03f;
-    p = p * z2 + -0.12820512820512820f;
+    float p = kTanP3;
+    p = p * z2 + kTanP2;
+    p = p * z2 + kTanP1;
     p = p * z2 + 1.0f;
-    float q = -2.0720020720020720e-04f;
-    q = q * z2 + 2.3310023310023310e-02f;
-    q = q * z2 + -0.46153846153846154f;
+    float q = kTanQ3;
+    q = q * z2 + kTanQ2;
+    q = q * z2 + kTanQ1;
     q = q * z2 + 1.0f;
     *s = x * p;
     *c = q;

@@ -536,16 +536,22 @@ def test_pair_kernel_wraps_positions_outside_the_supercell(cuda):
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
 
 
-def _diffuse_inputs(nop, num_walkers, dtype, device, seed=0):
-    spec = mrbp.Spec(**dict(BENCH, boson_number=nop,
-                            supercell_size=float(nop)))
+def _diffuse_spec(nop, spec_kwargs=None):
+    """The bench model at N = L = nop, or ``spec_kwargs`` over it."""
+    return mrbp.Spec(**{**BENCH, "boson_number": nop,
+                        "supercell_size": float(nop), **(spec_kwargs or {})})
+
+
+def _diffuse_inputs(nop, num_walkers, dtype, device, seed=0,
+                    spec_kwargs=None):
+    spec = _diffuse_spec(nop, spec_kwargs)
     static = spec.static_spec
     rng = np.random.default_rng(seed)
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
-    cpos = t(rng.uniform(0, nop, (num_walkers, nop)))
+    cpos = t(rng.uniform(0, spec.supercell_size, (num_walkers, nop)))
     params = pairwise.pack_params(spec.cfc_params, dtype, device)
     energy, drift = pairwise.energy_and_drift(cpos, params, nop=nop,
                                               is_free=False, is_ideal=False)
@@ -563,13 +569,12 @@ def _min_image_err(a, b, sc):
     return (d - sc * torch.round(d / sc)).abs().max().item()
 
 
-def _step_diffuse(args, nop, xi=None):
+def _step_diffuse(args, nop, xi=None, spec_kwargs=None):
     """The DMC step's own diffusion (``dmc.Sampling.diffuse``) on the
     fused kernel's inputs: K2's noise (or ``xi``) pre-scaled by sigma,
     then the torch move and recast, K1 and the weight."""
     cpos = args["cpos"]
-    spec = mrbp.Spec(**dict(BENCH, boson_number=nop,
-                            supercell_size=float(nop)))
+    spec = _diffuse_spec(nop, spec_kwargs)
     sampling = dmc.Sampling(spec, time_step=args["dt"],
                             max_num_walkers=cpos.shape[0],
                             target_num_walkers=cpos.shape[0],
@@ -622,6 +627,101 @@ def test_diffuse_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="xi"):
         pairwise.diffuse_energy_drift(**args, xi=xi[:, :8].contiguous(),
                                       **kw)
+
+
+def _check_diffuse(args, xi, kw, spec_kwargs=None):
+    """K3 against the DMC step's own diffusion (K2's noise, torch move
+    and recast, K1, weight) and against its plain version, with K2's
+    noise and with the injected ``xi`` (the plain version only with
+    ``xi``: its normals are K2's to f32 rounding): moved positions bit
+    for bit equal; the energy and the weight as phase J holds them, the
+    drift as ``K1_F32_TOL`` (f32: sums in another order than K1's), f64
+    within 1e-10.  The f32 weight may differ by what the energy's
+    tolerance allows: dt / 2 times it."""
+    nop = kw["nop"]
+    f32 = args["cpos"].dtype == torch.float32
+    for noise in (None, xi):
+        count = pairwise.diffuse_energy_drift.launch_count
+        got = pairwise.diffuse_energy_drift(**args, xi=noise, **kw)
+        torch.cuda.synchronize()
+        assert pairwise.diffuse_energy_drift.launch_count == count + 1
+        wants = [_step_diffuse(args, nop, noise, spec_kwargs)]
+        if noise is not None:
+            wants.append(pairwise.diffuse_energy_drift_plain(
+                **args, xi=noise, **kw))
+        for want in wants:
+            assert torch.equal(got[0], want[0])
+            if f32:
+                e_rtol = 2e-5
+                w_rtol = max(1e-6, 0.5 * args["dt"] * e_rtol
+                             * float(want[1].abs().max()))
+                torch.testing.assert_close(got[1], want[1], rtol=e_rtol,
+                                           atol=e_rtol)
+                torch.testing.assert_close(got[2], want[2], rtol=1e-3,
+                                           atol=1e-4)
+                torch.testing.assert_close(got[3], want[3], rtol=w_rtol,
+                                           atol=0.0)
+            else:
+                for g, w in zip(got[1:], want[1:]):
+                    torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
+
+
+#: Every block size K3's instantiations split on (128, 256, 1024
+#: threads), tiles of 32 with and without padding lanes, N < 4 and N not
+#: a multiple of 4; odd walker counts, so that Philox quads straddle two
+#: walkers.
+DIFFUSE_NOPS = (1, 2, 3, 4, 5, 31, 32, 33, 64, 96, 128, 129, 256, 512, 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", DIFFUSE_NOPS)
+def test_diffuse_kernel_at_every_block_size(cuda, nop, dtype):
+    num_walkers = 33 if nop <= 128 else 17 if nop <= 256 else 5
+    args, xi, kw = _diffuse_inputs(nop, num_walkers, dtype, cuda, seed=nop)
+    _check_diffuse(args, xi, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diffuse_kernel_edges(cuda, dtype):
+    """Moved positions (cdrift and xi 0) at 0 and r = rm from it,
+    coincident, at 0 and just below L, and a move that recasts to just
+    below or to L; parents moved across either boundary."""
+    nop, walkers = 33, 8
+    args, xi, kw = _diffuse_inputs(nop, walkers, dtype, cuda, seed=11)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    length = np_dtype(nop)
+    rm = np_dtype(BENCH["tbf_contact_cutoff"])
+    cpos = args["cpos"].cpu().numpy().copy()
+    cdrift = args["cdrift"].cpu().numpy().copy()
+    noise = xi.cpu().numpy().copy()
+    edges = [0.0, rm, np.nextafter(length, np_dtype(0)), 0.0, 7.25, 7.25,
+             7.25 + rm, 12.5]
+    cpos[:, :len(edges)] = np.asarray(edges, dtype=np_dtype)
+    cdrift[:, :len(edges)] = 0.0
+    noise[:, :len(edges)] = 0.0
+    # Across L and across 0, and a move of -1e-9 that recasts to L - 1e-9
+    # (in f32 to L itself, which the pair terms take as 0).
+    cpos[:, 8], cdrift[:, 8], noise[:, 8] = length - np_dtype(1e-3), 10.0, 1.0
+    cpos[:, 9], cdrift[:, 9], noise[:, 9] = 1e-3, -10.0, -1.0
+    cpos[:, 10], cdrift[:, 10] = 0.0, 0.0
+    noise[:, 10] = -1e-9 / args["sigma"]
+    args = dict(args, cpos=torch.as_tensor(cpos, device=cuda),
+                cdrift=torch.as_tensor(cdrift, device=cuda))
+    _check_diffuse(args, torch.as_tensor(noise, device=cuda), kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diffuse_kernel_dense(cuda, dtype):
+    """N = 128 in L = 16: ~6 particles within rm of each, so most warp
+    steps hold a pair inside the cutoff and take K1's pair body."""
+    dense = dict(supercell_size=16.0)
+    args, xi, kw = _diffuse_inputs(128, 64, dtype, cuda, seed=5,
+                                   spec_kwargs=dense)
+    z = args["cpos"]
+    r = (z[:, :, None] - z[:, None, :]).abs()
+    r = torch.minimum(r, 16.0 - r)
+    assert float((r < BENCH["tbf_contact_cutoff"]).double().mean()) > 0.04
+    _check_diffuse(args, xi, kw, dense)
 
 
 @pytest.mark.parametrize("gaussian", [False, True],

@@ -301,3 +301,37 @@ def test_log_psi_and_diffuse_wrappers_take_plain_version_only_on_cpu():
         tpairwise.diffuse_energy_drift(meta, meta, meta[:, 0],
                                        params.to("meta"), 1e-3, 0.05,
                                        e_ref.to("meta"), 1, 0, **kw)
+
+
+@pytest.mark.parametrize("nop, length, rm", [(5, 5.0, 0.4), (8, 4.0, 0.9),
+                                             (13, 13.0, 0.0)])
+def test_k3_bound_counts_each_pair_by_its_side_of_the_cutoff(nop, length,
+                                                             rm):
+    """``chip_smoke.k3_bound`` counts each unordered pair of the moved
+    positions inside or outside the minimum-image cutoff, as a loop over
+    the pairs does, and the first design's count is never below it."""
+    import chip_smoke as cs
+
+    pos = torch.as_tensor(np.random.default_rng(nop).uniform(
+        0, length, (3, nop)), dtype=torch.float32)
+    params = torch.zeros(tpairwise.PARAMS_SIZE)
+    params[tpairwise.P_L], params[tpairwise.P_RM] = length, rm
+    in_cut = 0
+    for walker in pos.tolist():
+        for i in range(nop):
+            for j in range(i + 1, nop):
+                d = abs(walker[i] - walker[j])
+                in_cut += min(d, length - d) < rm
+    pairs = 3 * nop * (nop - 1) // 2
+    least = cs.k3_bound(pos, params)
+    assert (least["pairs_in_cutoff"], least["pairs"]) == (in_cut, pairs)
+    flops = (in_cut * cs.K3_FLOPS_IN_CUT
+             + (pairs - in_cut) * cs.K3_FLOPS_OUTSIDE
+             + pos.numel() * cs.K3_FLOPS_PER_ELEMENT)
+    assert least["bound_ms"] == pytest.approx(
+        max(flops / cs.PEAK_FP32_FLOPS,
+            cs.F32_BYTES * (4 * pos.numel() + 3 * 3
+                            + tpairwise.PARAMS_SIZE + 1)
+            / cs.PEAK_HBM_BYTES_PER_S) * 1e3)
+    first = cs.k3_bound(pos, params, *cs.K3_FIRST_DESIGN_FLOPS)
+    assert first["bound_ms"] >= least["bound_ms"]

@@ -1,9 +1,10 @@
 """An older checkout's kernels against this tree's, in one process on one
-card: K1 log's parameter VJP and K2's rows kernel.
+card: K1 log's parameter VJP, K2's rows kernel and K3.
 
-    PYTHONPATH=. python tools/kernel_compare.py --parent build/parent \
-        [--out-dir build/compare]
+    PYTHONPATH=. python tools/kernel_compare.py [vjp] [k2_rows] [k3] \
+        --parent build/parent [--out-dir build/compare]
 
+(no kernel named: all three).
 The older checkout (``git archive <commit>`` unpacked into a git-ignored
 directory) builds its kernel library with its own ``ops/_build.py``, in
 a subprocess, into its own ``build/``; this tree's builds as a launch
@@ -20,7 +21,17 @@ functions, so each kernel runs on the same inputs from both, in turns
 * ``k2_rows``: ``qmc_philox_normals_rows_f32`` at 4 x 4352 x 64 (S1's
   fused step): both outputs word for word equal, the kernels' device
   time (profiler), beside the single-row kernel and ``torch.randn`` at
-  17408 x 64.
+  17408 x 64;
+* ``k3``: ``qmc_diffuse_energy_drift_{f32,f64}`` on
+  ``chip_smoke.diffuse_inputs`` at 17408 x 128 (the bench DMC shape) and
+  17408 x 64 (the EOS and VMC width), K2's noise for one key: the moved
+  positions of both word for word equal to each other and to the DMC
+  step's (``dmc.Sampling.diffuse`` on K2's noise), also with injected
+  normals; energy, drift and weight of both against the step's within
+  phase J's tolerances (f64 within 1e-10); the time of a launch (CUDA
+  events), and in f32 the share of the bound under this tree's count
+  (``chip_smoke.k3_bound``: each pair by its side of the cutoff in the
+  moved positions) and under the first design's.
 
 Prints the card's name and power limit, then one JSON line per
 measurement.  With ``--out-dir`` it writes both builds' ``-Xptxas -v``
@@ -45,6 +56,9 @@ VJP_SHAPES = (("dmc shape", cs.BENCH_SPEC, 4096),
               ("vmc shape", cs.VMC_SPEC, cs.VMC_CHAINS))
 VJP_REPS = {torch.float32: 50, torch.float64: 10}
 ROWS, ROW_WALKERS, ROW_NOP = 4, cs.EOS_SLOTS, cs.EOS_NOP
+K3_SHAPES = (("dmc shape", cs.BENCH_SPEC), ("eos width", cs.VMC_SPEC))
+K3_REPS = {torch.float32: 50, torch.float64: 10}
+COMPARES = ("vjp", "k2_rows", "k3")
 
 
 def build_parent(parent: Path) -> tuple:
@@ -187,8 +201,102 @@ def compare_rows(parent_fn, device, card) -> None:
         raise SystemExit("K2 rows: the words differ from the parent's")
 
 
+def within_phase_j(got, want, dtype) -> bool:
+    """Energy, drift and weight of ``got`` against ``want`` (K3's
+    outputs) within phase J's tolerances in f32, 1e-10 in f64."""
+    if dtype == torch.float64:
+        pairs = [(g, w, 1e-10, 1e-10) for g, w in zip(got[1:], want[1:])]
+    else:
+        tol = cs.K1_F32_TOL
+        pairs = [(got[1], want[1], tol["energy_rtol"], 0.0),
+                 (got[2], want[2], tol["drift_rtol"], tol["drift_atol"]),
+                 (got[3], want[3], 1e-6, 0.0)]
+    return all(bool(torch.isclose(g, w, rtol=rtol, atol=atol).all())
+               for g, w, rtol, atol in pairs)
+
+
+def compare_k3(parent_fns, new_fns, device, card) -> None:
+    for dtype in (torch.float32, torch.float64):
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        name = f"qmc_diffuse_energy_drift_{suffix}"
+        for label, spec_kwargs in K3_SHAPES:
+            args, kw, step = cs.diffuse_inputs(device, spec_kwargs, dtype)
+            cpos = args["cpos"]
+            walkers, nop = cpos.shape
+            xi = prng.normal_plain(5, 6, cpos.shape, dtype, device)
+            outs = {}
+
+            def call(fns, key, noise=None):
+                out = (torch.empty_like(cpos), cpos.new_empty(walkers),
+                       torch.empty_like(cpos), cpos.new_empty(walkers))
+                outs[key] = out
+                return launcher(
+                    fns[name], *(args[k].data_ptr() for k in (
+                        "cpos", "cdrift", "cenergy", "params")),
+                    None if noise is None else noise.data_ptr(),
+                    args["e_ref"].data_ptr(), args["dt"], args["sigma"],
+                    *prng.check_key(args["rng_seed"], args["step"]),
+                    *(t.data_ptr() for t in out), walkers, nop,
+                    int(kw["is_free"]), int(kw["is_ideal"]),
+                    kw["defects_sep"])
+
+            runs = {"parent": call(parent_fns, "parent"),
+                    "new": call(new_fns, "new")}
+            for key, fns in (("parent", parent_fns), ("new", new_fns)):
+                call(fns, f"{key} injected", xi)()
+            for run in runs.values():
+                run()
+            torch.cuda.synchronize()
+            stepped, injected = step(), step(xi)
+            check = {
+                "npos_equal_parent": torch.equal(outs["new"][0],
+                                                 outs["parent"][0]),
+                "npos_equal_step": torch.equal(outs["new"][0], stepped[0]),
+                "injected_npos_equal": all(
+                    torch.equal(outs[f"{k} injected"][0], injected[0])
+                    for k in ("parent", "new")),
+                "within_phase_j": {
+                    k: within_phase_j(outs[k], stepped, dtype)
+                    and within_phase_j(outs[f"{k} injected"], injected,
+                                       dtype)
+                    for k in ("parent", "new")},
+                "energy_max_abs_vs_step": {
+                    k: float((outs[k][1] - stepped[1]).abs().max())
+                    for k in ("parent", "new")},
+                "weight_max_rel_vs_step": {
+                    k: float(((outs[k][3] - stepped[3]).abs()
+                              / stepped[3].abs()).max())
+                    for k in ("parent", "new")}}
+            ok = (check["npos_equal_parent"] and check["npos_equal_step"]
+                  and check["injected_npos_equal"]
+                  and check["within_phase_j"]["new"])
+            times = in_turns(runs["parent"], runs["new"],
+                             lambda fn: cs.cuda_ms(fn, K3_REPS[dtype]))
+            out = {"kernel": "K3", "dtype": suffix, "shape": [walkers, nop],
+                   "label": label, "card": card, "ms": times, **check,
+                   "ok": ok}
+            if dtype == torch.float32:
+                mean = {k: sum(v) / 2 for k, v in times.items()}
+                least = cs.k3_bound(outs["new"][0], args["params"])
+                first = cs.k3_bound(outs["new"][0], args["params"],
+                                    *cs.K3_FIRST_DESIGN_FLOPS)
+                out.update(
+                    bound_ms=least["bound_ms"],
+                    pairs_in_cutoff=least["pairs_in_cutoff"],
+                    bound_ms_first_design_count=first["bound_ms"],
+                    share_of_bound={k: least["bound_ms"] / v
+                                    for k, v in mean.items()},
+                    share_of_first_design_bound={
+                        k: first["bound_ms"] / v for k, v in mean.items()})
+            print(json.dumps(out), flush=True)
+            if not ok:
+                raise SystemExit(f"K3 {suffix} {label}: {check}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("compares", nargs="*", choices=COMPARES,
+                        help="the kernels to compare (default: all)")
     parser.add_argument("--parent", type=Path, required=True)
     parser.add_argument("--out-dir", type=Path)
     args = parser.parse_args()
@@ -202,8 +310,10 @@ def main() -> None:
     print(card, flush=True)
     parent_lib, parent_log = build_parent(args.parent.resolve())
     new_log = _build.build()
+    compares = args.compares or COMPARES
     names = ["qmc_pair_logpsi_params_vjp_f32",
-             "qmc_pair_logpsi_params_vjp_f64", "qmc_philox_normals_rows_f32"]
+             "qmc_pair_logpsi_params_vjp_f64", "qmc_philox_normals_rows_f32",
+             "qmc_diffuse_energy_drift_f32", "qmc_diffuse_energy_drift_f64"]
     parent_fns = load(parent_lib, names)
     new_fns = {name: _build.functions()[name] for name in names}
     if args.out_dir:
@@ -215,8 +325,12 @@ def main() -> None:
             with open(args.out_dir / f"sass_{label}.txt", "w") as out:
                 subprocess.run([str(cuobjdump), "-sass", str(lib)],
                                stdout=out, stderr=subprocess.STDOUT)
-    compare_rows(parent_fns["qmc_philox_normals_rows_f32"], device, card)
-    compare_vjp(parent_fns, new_fns, device, card)
+    if "k2_rows" in compares:
+        compare_rows(parent_fns["qmc_philox_normals_rows_f32"], device, card)
+    if "vjp" in compares:
+        compare_vjp(parent_fns, new_fns, device, card)
+    if "k3" in compares:
+        compare_k3(parent_fns, new_fns, device, card)
 
 
 if __name__ == "__main__":
