@@ -22,6 +22,7 @@ import torch
 
 from ..ops import histogram
 from ..ops.pbc import min_image, min_image_bounded, sign
+from ..utils import tracing
 
 __all__ = ["CFCParams", "build_core_funcs", "SysConfSlot"]
 
@@ -276,6 +277,7 @@ def build_core_funcs(*,
 
     # -- estimators -----------------------------------------------------------
 
+    @tracing.traced(tracing.OBD)
     def one_body_density_grid(szs, pos, cfc: CFCParams):
         """OBDM ``n1`` at a grid of displacements: ``szs (M,)``, ``pos
         (..., N)`` -> ``(..., M)``; the average over particles of the
@@ -369,6 +371,7 @@ def build_core_funcs(*,
             torch.sub(two_c1 * buf[j - 1], buf[j - 2], out=buf[j])
         return buf.sum(dim=-1).unbind(1)
 
+    @tracing.traced(tracing.SSF)
     def fourier_density_parts_harmonics(num_modes: int, pos,
                                         cfc: CFCParams):
         """S(k) parts ``(|rho_k|^2, Re rho_k, Im rho_k)`` for the
@@ -390,6 +393,7 @@ def build_core_funcs(*,
         re, im = _harmonics_reim(num_modes, pos, cfc)
         return torch.movedim(torch.stack([re, im], dim=-1), 0, -2)
 
+    @tracing.traced(tracing.G2)
     def pair_dist_histogram(num_bins: int, pos, cfc: CFCParams):
         """Per-walker histogram of the unordered-pair minimum-image
         distances over ``num_bins`` uniform bins spanning ``[0, L/2]``:

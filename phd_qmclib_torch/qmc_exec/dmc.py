@@ -32,6 +32,7 @@ import torch
 
 from ..models import mrbp
 from ..samplers import dmc as dmc_sampler
+from ..utils import tracing
 from . import proc as proc_base, sharded
 from .data import dmc as dmc_data
 from .logging import exec_logger
@@ -817,78 +818,79 @@ class Proc(proc_base.Proc):
         writer = mesh is None or mesh.rank == 0
         num_rebalances = 0
         for block_idx in range(start_block, num_blocks):
-            if block_idx == 0 and self.profile_dir is not None:
-                block_data = self._profiled_block(blocks_iter)
-            else:
-                block_data = next(blocks_iter)
-            it_next += 1
-            shard_nw = None if mesh is None or mesh.size == 1 \
-                else _shard_counts(mesh, block_data.last_state)
-            if shard_nw is not None and shard_nw.min() <= 0:
-                # Per-shard combs cannot repopulate an empty shard; a
-                # collapsed shard silently biases the global ensemble
-                # while the controller only sees the global weight.
-                # Remediate immediately: redistribute the surviving
-                # walkers evenly across the shards and continue the run
-                # from the rebalanced state (same RNG stream position).
-                # Every rank decides from the same gathered counts.
-                balanced = sampling.rebalance(
-                    mesh.gather_state(block_data.last_state))
-                it_offset = it_offset + it_next
-                it_burn = 0
-                it_next = 0
-                blocks_iter = sampling.blocks(
-                    balanced, nts_block, burn_in_blocks=0,
-                    block_offset=it_offset)
-                block_data = block_data._replace(
-                    last_state=sampling._shard_of(balanced)[0])
-                # The restarted iterator opens a fresh forward-walking
-                # window at the next block; realign the accumulator's
-                # window phase so partial windows are DROPPED instead
-                # of being stored as under-projected samples.
-                accumulator.restart_window(block_idx + 1)
-                num_rebalances += 1
-                if num_rebalances <= 3:
-                    exec_logger.warning(
-                        f"walker population collapsed on a shard "
-                        f"(per-shard counts {shard_nw.tolist()}); "
-                        f"rebalanced the surviving walkers evenly "
-                        f"across shards and resumed"
-                        + (" (forward-walking window restarted; the "
-                           "interrupted window contributes no sample)"
-                           if accumulator.window > 1 else "")
-                        + ". Consider rebalance_every or a larger "
-                        f"target_num_walkers.")
-            bp = block_data.iter_props
-            energy = np.asarray(bp.energy, dtype=np.float64)
-            weight = np.asarray(bp.weight, dtype=np.float64)
-            num_walkers = np.asarray(bp.num_walkers, dtype=np.float64)
-            ref_energy = np.asarray(bp.ref_energy, dtype=np.float64)
-            accum_energy = np.asarray(bp.accum_energy, dtype=np.float64)
-            accumulator.add(
-                block_idx, energy, weight, num_walkers, ref_energy,
-                accum_energy,
-                iter_density=(np.asarray(block_data.iter_density,
+            with tracing.span(tracing.BLOCK):
+                if block_idx == 0 and self.profile_dir is not None:
+                    block_data = self._profiled_block(blocks_iter)
+                else:
+                    block_data = next(blocks_iter)
+                it_next += 1
+                shard_nw = None if mesh is None or mesh.size == 1 \
+                    else _shard_counts(mesh, block_data.last_state)
+                if shard_nw is not None and shard_nw.min() <= 0:
+                    # Per-shard combs cannot repopulate an empty shard; a
+                    # collapsed shard silently biases the global ensemble
+                    # while the controller only sees the global weight.
+                    # Remediate immediately: redistribute the surviving
+                    # walkers evenly across the shards and continue the run
+                    # from the rebalanced state (same RNG stream position).
+                    # Every rank decides from the same gathered counts.
+                    balanced = sampling.rebalance(
+                        mesh.gather_state(block_data.last_state))
+                    it_offset = it_offset + it_next
+                    it_burn = 0
+                    it_next = 0
+                    blocks_iter = sampling.blocks(
+                        balanced, nts_block, burn_in_blocks=0,
+                        block_offset=it_offset)
+                    block_data = block_data._replace(
+                        last_state=sampling._shard_of(balanced)[0])
+                    # The restarted iterator opens a fresh forward-walking
+                    # window at the next block; realign the accumulator's
+                    # window phase so partial windows are DROPPED instead
+                    # of being stored as under-projected samples.
+                    accumulator.restart_window(block_idx + 1)
+                    num_rebalances += 1
+                    if num_rebalances <= 3:
+                        exec_logger.warning(
+                            f"walker population collapsed on a shard "
+                            f"(per-shard counts {shard_nw.tolist()}); "
+                            f"rebalanced the surviving walkers evenly "
+                            f"across shards and resumed"
+                            + (" (forward-walking window restarted; the "
+                               "interrupted window contributes no sample)"
+                               if accumulator.window > 1 else "")
+                            + ". Consider rebalance_every or a larger "
+                            f"target_num_walkers.")
+                bp = block_data.iter_props
+                energy = np.asarray(bp.energy, dtype=np.float64)
+                weight = np.asarray(bp.weight, dtype=np.float64)
+                num_walkers = np.asarray(bp.num_walkers, dtype=np.float64)
+                ref_energy = np.asarray(bp.ref_energy, dtype=np.float64)
+                accum_energy = np.asarray(bp.accum_energy, dtype=np.float64)
+                accumulator.add(
+                    block_idx, energy, weight, num_walkers, ref_energy,
+                    accum_energy,
+                    iter_density=(np.asarray(block_data.iter_density,
+                                             dtype=np.float64)
+                                  if should_eval_density else None),
+                    iter_ssf=(np.asarray(block_data.iter_ssf,
                                          dtype=np.float64)
-                              if should_eval_density else None),
-                iter_ssf=(np.asarray(block_data.iter_ssf,
-                                     dtype=np.float64)
-                          if should_eval_ssf else None),
-                iter_obd=(np.asarray(block_data.iter_obd,
-                                     dtype=np.float64)
-                          if should_eval_obd else None),
-                iter_cmd=(np.asarray(block_data.iter_cmd,
-                                     dtype=np.float64)
-                          if should_eval_cmd else None),
-                iter_g2=(np.asarray(block_data.iter_g2,
-                                    dtype=np.float64)
-                         if should_eval_g2 else None),
-                iter_itc=(np.asarray(block_data.iter_itc,
-                                     dtype=np.float64)
-                          if should_eval_itc else None),
-                iter_itc_nw=(np.asarray(block_data.iter_itc_nw,
+                              if should_eval_ssf else None),
+                    iter_obd=(np.asarray(block_data.iter_obd,
+                                         dtype=np.float64)
+                              if should_eval_obd else None),
+                    iter_cmd=(np.asarray(block_data.iter_cmd,
+                                         dtype=np.float64)
+                              if should_eval_cmd else None),
+                    iter_g2=(np.asarray(block_data.iter_g2,
                                         dtype=np.float64)
-                             if should_eval_itc else None))
+                             if should_eval_g2 else None),
+                    iter_itc=(np.asarray(block_data.iter_itc,
+                                         dtype=np.float64)
+                              if should_eval_itc else None),
+                    iter_itc_nw=(np.asarray(block_data.iter_itc_nw,
+                                            dtype=np.float64)
+                                 if should_eval_itc else None))
 
             if checkpointing and \
                     (block_idx + 1) % self.checkpoint_every == 0:
@@ -938,18 +940,26 @@ class Proc(proc_base.Proc):
         """The next block under a ``torch.profiler`` trace exported to
         ``profile_dir`` — traced in place (not as a discarded probe) so
         it still contributes statistics and the forward-walking window
-        phase stays aligned."""
+        phase stays aligned.  The program's spans are on for the block
+        (:mod:`phd_qmclib_torch.utils.tracing`), so the trace names the
+        layer that launched each kernel."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
-            block_data = next(blocks_iter)
-            device = block_data.last_state.pos.device
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+        was_on = tracing.enabled()
+        tracing.enable()
+        try:
+            with profile(activities=activities) as prof:
+                block_data = next(blocks_iter)
+                device = block_data.last_state.pos.device
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+        finally:
+            if not was_on:
+                tracing.disable()
         os.makedirs(self.profile_dir, exist_ok=True)
         prof.export_chrome_trace(
             os.path.join(self.profile_dir, "dmc_block0.trace.json"))

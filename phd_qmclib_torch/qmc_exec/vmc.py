@@ -20,6 +20,7 @@ import numpy as np
 
 from ..models import mrbp
 from ..samplers import vmc as vmc_sampler
+from ..utils import tracing
 from . import proc as proc_base, sharded
 from .data import vmc as vmc_data
 from .logging import exec_logger
@@ -513,26 +514,27 @@ class Proc(proc_base.Proc):
         checkpointing = self.checkpoint_file is not None \
             or checkpoint_hook is not None
         for block_idx in range(start_block, num_blocks):
-            block_data = next(blocks_iter)
-            it_next += 1
-            bp = block_data.iter_props
-            wfl_m, en_m, mv_m = _walker_means(bp.wf_abs_log, bp.energy,
-                                              bp.move_stat)
-            accumulator.add(
-                block_idx,
-                np.asarray(wfl_m.cpu(), dtype=np.float64),
-                np.asarray(en_m.cpu(), dtype=np.float64),
-                np.asarray(mv_m.cpu(), dtype=np.float64),
-                block_data.accept_rate,
-                iter_ssf=(np.asarray(block_data.iter_ssf.cpu(),
-                                     dtype=np.float64)
-                          if should_eval_ssf else None),
-                iter_obd=(np.asarray(block_data.iter_obd.cpu(),
-                                     dtype=np.float64)
-                          if should_eval_obd else None),
-                iter_g2=(np.asarray(block_data.iter_g2.cpu(),
-                                    dtype=np.float64)
-                         if should_eval_g2 else None))
+            with tracing.span(tracing.BLOCK):
+                block_data = next(blocks_iter)
+                it_next += 1
+                bp = block_data.iter_props
+                wfl_m, en_m, mv_m = _walker_means(bp.wf_abs_log, bp.energy,
+                                                  bp.move_stat)
+                accumulator.add(
+                    block_idx,
+                    np.asarray(wfl_m.cpu(), dtype=np.float64),
+                    np.asarray(en_m.cpu(), dtype=np.float64),
+                    np.asarray(mv_m.cpu(), dtype=np.float64),
+                    block_data.accept_rate,
+                    iter_ssf=(np.asarray(block_data.iter_ssf.cpu(),
+                                         dtype=np.float64)
+                              if should_eval_ssf else None),
+                    iter_obd=(np.asarray(block_data.iter_obd.cpu(),
+                                         dtype=np.float64)
+                              if should_eval_obd else None),
+                    iter_g2=(np.asarray(block_data.iter_g2.cpu(),
+                                        dtype=np.float64)
+                             if should_eval_g2 else None))
             if checkpointing and \
                     (block_idx + 1) % self.checkpoint_every == 0:
                 # AFTER the accumulator folds this block, so the

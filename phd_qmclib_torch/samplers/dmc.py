@@ -73,6 +73,7 @@ import torch
 from .. import utils
 from ..models import mrbp
 from ..ops import histogram, pairwise, prng
+from ..utils import tracing
 
 __all__ = [
     "DensityEstSpec",
@@ -1150,10 +1151,11 @@ class Sampling:
 
         spec = self.density_est_spec
         if spec is not None:
-            hist = histogram.walker_histogram(cpos, consts.density_bin_size,
-                                              spec.num_bins)
-            hist = torch.where(valid[..., None], hist, 0.0)
-            est["density"] = measure("aux_density", spec, hist)
+            with tracing.span(tracing.DENSITY):
+                hist = histogram.walker_histogram(
+                    cpos, consts.density_bin_size, spec.num_bins)
+                hist = torch.where(valid[..., None], hist, 0.0)
+                est["density"] = measure("aux_density", spec, hist)
         spec = self.ssf_est_spec
         ssf_parts = None
         if spec is not None:
@@ -1176,56 +1178,64 @@ class Sampling:
 
         spec = self.itc_est_spec
         if spec is not None and due(spec):
-            num_lags, num_modes = spec.num_lags, spec.num_modes
-            # One gather through the composed permutation: the same
-            # rows as a gather through the parents on every step.
-            buf = _take(state.itc_buf, itc_perm)
-            # The amplitudes of the post-branching ensemble: the S(k)
-            # estimator's own (re, im) slots when it has the modes.
-            from_ssf = ssf_parts is not None \
-                and self.ssf_est_spec.num_modes >= num_modes
-            if from_ssf:
-                reim = ssf_parts[..., :num_modes, 1:3]
-            else:
-                reim = funcs.fourier_density_reim_harmonics(
-                    num_modes, cpos, cfc)
-            re, im = reim[..., 0], reim[..., 1]
-            maskf = valid.to(cpos.dtype)
-            lag_ok = (torch.arange(1, num_lags + 1, device=cpos.device)
-                      <= state.itc_filled[:, None]).to(cpos.dtype)
-            # Re[rho_k(t) conj(rho_k(t - l))] per walker, lag and mode,
-            # as a multiply and add in the tensors' own precision (no
-            # matrix-product path whose precision a global flag sets).
-            prod_w = (buf[..., 0] * re[:, :, None]
-                      + buf[..., 1] * im[:, :, None]) \
-                * maskf[:, :, None, None]
-            if spec.as_pure_est:
-                sq_w = torch.where(valid[..., None], re ** 2 + im ** 2, 0.0)
-                contrib = torch.cat([sq_w[:, :, None], prod_w], dim=2)
-                cnt_row = torch.cat([lag_ok.new_ones((lag_ok.shape[0], 1)),
-                                     lag_ok], dim=1)
-                acc = _take(aux["aux_itc"], itc_perm)
-                cnt = _take(aux["aux_itc_cnt"], itc_perm)
-                if step_idx < self._pfw_steps(spec):
-                    acc = acc + contrib
-                    cnt = cnt + maskf[:, :, None] * cnt_row[:, None]
-                aux["aux_itc"], aux["aux_itc_cnt"] = acc, cnt
-                divisor = pure_divisor(spec, acc)
-                est["itc"] = masked_sum(acc) / divisor
-                est["itc_nw"] = masked_sum(cnt) / divisor
-            else:
-                # Lag 0 equals the S(k) estimator's mixed slot-0 sums bit
-                # for bit: a sum's order follows its tensor's shape, so
-                # take the walker sum over the S(k) parts themselves.
-                lag0 = masked_sum(ssf_parts)[:, :num_modes, 0] if from_ssf \
-                    else masked_sum(re ** 2 + im ** 2)
-                est["itc"] = torch.cat([lag0[:, None], _row_sums(prod_w)],
-                                       dim=1)
-                nwf = state.num_walkers.to(cpos.dtype)[:, None]
-                est["itc_nw"] = torch.cat([nwf, nwf * lag_ok], dim=1)
-            state = state._replace(
-                itc_buf=torch.cat([reim[:, :, None], buf[:, :, :-1]], dim=2),
-                itc_filled=torch.clamp(state.itc_filled + 1, max=num_lags))
+            with tracing.span(tracing.ITC):
+                num_lags, num_modes = spec.num_lags, spec.num_modes
+                # One gather through the composed permutation: the same
+                # rows as a gather through the parents on every step.
+                buf = _take(state.itc_buf, itc_perm)
+                # The amplitudes of the post-branching ensemble: the
+                # S(k) estimator's own (re, im) slots when it has the
+                # modes.
+                from_ssf = ssf_parts is not None \
+                    and self.ssf_est_spec.num_modes >= num_modes
+                if from_ssf:
+                    reim = ssf_parts[..., :num_modes, 1:3]
+                else:
+                    reim = funcs.fourier_density_reim_harmonics(
+                        num_modes, cpos, cfc)
+                re, im = reim[..., 0], reim[..., 1]
+                maskf = valid.to(cpos.dtype)
+                lag_ok = (torch.arange(1, num_lags + 1, device=cpos.device)
+                          <= state.itc_filled[:, None]).to(cpos.dtype)
+                # Re[rho_k(t) conj(rho_k(t - l))] per walker, lag and
+                # mode, as a multiply and add in the tensors' own
+                # precision (no matrix-product path whose precision a
+                # global flag sets).
+                prod_w = (buf[..., 0] * re[:, :, None]
+                          + buf[..., 1] * im[:, :, None]) \
+                    * maskf[:, :, None, None]
+                if spec.as_pure_est:
+                    sq_w = torch.where(valid[..., None],
+                                       re ** 2 + im ** 2, 0.0)
+                    contrib = torch.cat([sq_w[:, :, None], prod_w], dim=2)
+                    cnt_row = torch.cat(
+                        [lag_ok.new_ones((lag_ok.shape[0], 1)), lag_ok],
+                        dim=1)
+                    acc = _take(aux["aux_itc"], itc_perm)
+                    cnt = _take(aux["aux_itc_cnt"], itc_perm)
+                    if step_idx < self._pfw_steps(spec):
+                        acc = acc + contrib
+                        cnt = cnt + maskf[:, :, None] * cnt_row[:, None]
+                    aux["aux_itc"], aux["aux_itc_cnt"] = acc, cnt
+                    divisor = pure_divisor(spec, acc)
+                    est["itc"] = masked_sum(acc) / divisor
+                    est["itc_nw"] = masked_sum(cnt) / divisor
+                else:
+                    # Lag 0 equals the S(k) estimator's mixed slot-0 sums
+                    # bit for bit: a sum's order follows its tensor's
+                    # shape, so take the walker sum over the S(k) parts
+                    # themselves.
+                    lag0 = masked_sum(ssf_parts)[:, :num_modes, 0] \
+                        if from_ssf else masked_sum(re ** 2 + im ** 2)
+                    est["itc"] = torch.cat(
+                        [lag0[:, None], _row_sums(prod_w)], dim=1)
+                    nwf = state.num_walkers.to(cpos.dtype)[:, None]
+                    est["itc_nw"] = torch.cat([nwf, nwf * lag_ok], dim=1)
+                state = state._replace(
+                    itc_buf=torch.cat([reim[:, :, None], buf[:, :, :-1]],
+                                      dim=2),
+                    itc_filled=torch.clamp(state.itc_filled + 1,
+                                           max=num_lags))
         return aux, est, state
 
     def _run(self, state: State, draws, consts: _Consts,
@@ -1251,8 +1261,9 @@ class Sampling:
         perm = itc_perm = None
         props, est, ensembles = [], {}, []
         for step, (comb_u, xi) in enumerate(draws):
-            state, e_prev_slots, branch = self._step(
-                state, e_prev_slots, comb_u, xi, consts)
+            with tracing.span(tracing.STEP_DMC):
+                state, e_prev_slots, branch = self._step(
+                    state, e_prev_slots, comb_u, xi, consts)
             props.append((state.energy, state.weight, branch.num_walkers,
                           state.ref_energy, state.accum_energy))
             if thin and (step + 1) % thin == 0:
@@ -1392,8 +1403,9 @@ class Sampling:
                 step_offset = win_pos * nts
             draws = self._draws(consts, block_offset + block, nts, noise,
                                 comb)
-            state, aux, steps, est, _ = self._run(
-                state, draws, consts, measuring, aux, step_offset)
+            with tracing.span(tracing.RUN_DMC):
+                state, aux, steps, est, _ = self._run(
+                    state, draws, consts, measuring, aux, step_offset)
             props = PropsData(*(torch.stack(column).cpu()
                                 for column in zip(*steps)))
             # The shards' estimator sums, once per block.

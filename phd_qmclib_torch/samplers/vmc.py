@@ -49,6 +49,7 @@ import torch
 from .. import utils
 from ..models import mrbp
 from ..ops import prng
+from ..utils import tracing
 from .dmc import _as_rows, _row, _row_sums, _rows_model, _rows_value
 
 __all__ = [
@@ -396,7 +397,8 @@ class Sampling:
             state = state._replace(ssf_parts=None, obd_parts=None)
         props, rows, confs = [], {}, []
         for step, (disp, u) in enumerate(draws):
-            state = self._step(state, disp, u, consts, not chunked)
+            with tracing.span(tracing.STEP_VMC):
+                state = self._step(state, disp, u, consts, not chunked)
             props.append((state.wf_abs_log, state.energy, state.move_stat))
             if thin and (step + 1) % thin == 0:
                 confs.append(state.pos)
@@ -497,7 +499,9 @@ class Sampling:
         while True:
             draws = self._draws(consts, block_index, num_steps_block, shape,
                                 dtype, device, noise, bufs)
-            state, props, rows, confs = self._run(state, draws, consts, thin)
+            with tracing.span(tracing.RUN_VMC):
+                state, props, rows, confs = self._run(state, draws, consts,
+                                                      thin)
             props = PropsData(*(torch.stack(column, dim=1)
                                 for column in zip(*props)))
             rows = {name: torch.stack(values, dim=1)

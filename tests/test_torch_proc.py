@@ -10,7 +10,9 @@ the JAX package's.
   ``Sampling.blocks`` reduced by hand in this file.
 * What the port cannot honour yet raises by name.
 """
+import json
 import warnings
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 
 from phd_qmclib_torch.qmc_exec import dmc as tdmc, vmc as tvmc
 from phd_qmclib_torch.qmc_exec.proc import ProcInputError
+from phd_qmclib_torch.utils import tracing
 from phd_qmclib_tpu.qmc_exec import dmc as jdmc, vmc as jvmc
 
 from .test_torch_exec_utils import MODEL_CONFIG, to_numpy
@@ -416,6 +419,12 @@ def test_profile_dir_writes_a_trace(tmp_path):
         tdmc.ModelSysConfSpec(), proc, device="cpu")
     traced = proc.exec(start)
     plain = proc.evolve({"profile_dir": None}).exec(start)
-    assert (tmp_path / "trace" / "dmc_block0.trace.json").stat().st_size > 0
+    path = tmp_path / "trace" / "dmc_block0.trace.json"
+    assert path.stat().st_size > 0
     np.testing.assert_array_equal(traced.data.blocks.energy.totals,
                                   plain.data.blocks.energy.totals)
+    # The trace names the layers: the block's run and each of its steps.
+    spans = Counter(e["name"] for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "user_annotation")
+    assert spans[tracing.RUN_DMC] == 1 and spans[tracing.STEP_DMC] == 4
+    assert not tracing.enabled()

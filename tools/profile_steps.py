@@ -6,10 +6,8 @@
 Prints the card's name and power limit, then for each window one JSON
 line with the profiled block's device time and kernel launches per
 step, the kernels that take the most of it, and the host time per step
-of two more blocks
-without the profiler; the device's busy share is the profiled device
-time over that unprofiled time.  Last come the device times of the VMC
-step's items at the V1 shape (CUDA events).  Needs a CUDA device; it
+of two more blocks without the profiler.  Last come the device times of
+the VMC step's items at the V1 shape (CUDA events).  Needs a CUDA device; it
 reads the configurations from ``chip_smoke`` next to the package it
 profiles, so the same script also profiles an older checkout
 (``PYTHONPATH=<checkout>``; a checkout without the ITC estimator has no
@@ -78,7 +76,6 @@ def profile_window(label: str, blocks) -> None:
         "device_ms_per_step": device_ms_step,
         "kernel_launches_per_step": sum(r[2] for r in rows) / STEPS,
         "unprofiled_ms_per_step": host_ms_step,
-        "device_busy_share": [device_ms_step / h for h in host_ms_step],
         "top_kernels_ms_per_step": [
             [key[:90], dev_us / 1e3 / STEPS, count]
             for dev_us, key, count in rows[:12]]}), flush=True)
