@@ -88,6 +88,13 @@ E. each kernel's time against its plain version at the main path's
    ``torch.randn(shape, generator=gen)``, the ``out=`` form (scaled by
    sigma, as the DMC step draws it) against ``torch.randn(shape,
    generator=gen, out=buf)``, in turns.
+O. the OBDM grid's kernel (``funcs.one_body_density_grid`` on a CUDA
+   tensor) against its plain version at the production and variational
+   shapes (17408 x 128 and 16384 x 64, 32 offsets over [0, L/2]): in f32
+   both against the f64 plain version at the same inputs, the kernel's
+   largest gap at most 4 times the plain f32 version's; in f64 within
+   1e-12 of the plain version; n1(0) exactly 1; each shape timed against
+   the plain version in turns, beside its bound.
 
 R. the same paths through the execution layer (``qmc_exec``), from
    config dicts to an in-memory ``ProcResult`` (a GPU machine need not
@@ -152,8 +159,12 @@ S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
    four single-row launches and to the plain version, also at a row
    length that is not a multiple of 4; K4 with four bin widths at the
    density and g2 shapes, bit-equal to the plain version and to one
-   launch per row; each timed beside its single-row form at the same
-   total width (and K2 beside ``torch.randn``);
+   launch per row; the OBDM grid with a 4-row parameter and offset table
+   (each row its supercell's grid), each row bit-equal to its launch
+   alone, f64 within 1e-12 of the plain version and f32 within 4 times
+   the plain f32 version's gap from the f64 one; each timed beside its
+   single-row form at the same total width (and K2 beside
+   ``torch.randn``);
    S1, ``examples/eos_fused_sweep.yml`` at full width (4 rows x 4,352
    slots, N=64, f32) from config dicts (held equal to the file by
    ``tests/test_torch_cli.py``), cut to 1 burn-in and 2 measured blocks
@@ -211,8 +222,10 @@ Every kernel's launches are counted from 0 over the runs of D, G1, G2,
 G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b, S2, S3, M0,
 and M1 and M5 (their rank 0, in this process), in
 all and per step of each run; K1 must run on every DMC step and K1 log
-on every VMC step, a fused DMC step must launch K1's table and K2's rows
-once, a fused VMC step K1 log's table.  K3 lies on none of them (the DMC
+on every VMC step, the OBDM kernel on the OBDM steps of G3, R1, V2 and
+R2, a fused DMC step must launch K1's table and K2's rows once, a fused
+VMC step K1 log's table, and S2's fused OBDM steps the OBDM kernel's
+table.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
 there must stay 0.
 
@@ -349,6 +362,21 @@ K4_FLOPS_PER_ELEMENT = 5
 K3_FLOPS_IN_CUT, K3_FLOPS_OUTSIDE = K1_FLOPS_PER_PAIR, 24
 K3_FLOPS_PER_ELEMENT = 24
 K3_FIRST_DESIGN_FLOPS = ((K1_FLOPS_PER_PAIR, K1_FLOPS_PER_PAIR), 44)
+#: The OBDM grid (``csrc/obd.cu``) per ordered pair, at an offset or at
+#: none, as its header counts a pair outside the cutoff (the difference,
+#: L - |d|, the polynomial of sin(pi r / L) in r 12, the log2 and its
+#: weighted sum); the bound counts every pair so, inside the cutoff too,
+#: and leaves out the one-body terms and the exponential of each item.
+OBD_FLOPS_PER_PAIR = 17
+#: The production and variational examples' grid: 32 offsets over
+#: [0, L/2].
+OBD_NUM_POS = 32
+#: The OBDM kernel in f64 against the f64 plain version (the same
+#: formulas, the pair sums in another order); in f32, its largest gap
+#: from the f64 plain version at the same inputs is at most this many
+#: times the plain f32 version's own (the MUFU log2 and the sums' order
+#: against torch's log and reduction).
+OBD_F64_TOL, OBD_F32_GAP_FACTOR = 1e-12, 4
 F32_BYTES = 4
 
 #: Phase G's estimator loads.
@@ -541,12 +569,14 @@ COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K2": (prng.normal, "launch_count"),
             "K3": (pairwise.diffuse_energy_drift, "launch_count"),
             "K4": (histogram.walker_histogram, "launch_count"),
+            "OBDM": (pairwise.obd_grid, "launch_count"),
             # The row variants of a fused sweep.
             "K1 table": (pairwise.energy_and_drift, "table_launch_count"),
             "K1 log table": (pairwise.energy_and_drift,
                              "log_psi_table_launch_count"),
             "K2 rows": (prng.normal_rows, "launch_count"),
-            "K4 groups": (histogram.walker_histogram, "group_launch_count")}
+            "K4 groups": (histogram.walker_histogram, "group_launch_count"),
+            "OBDM table": (pairwise.obd_grid, "table_launch_count")}
 
 
 def reset_counts() -> None:
@@ -2281,9 +2311,10 @@ def time_pair(kernel, plain, single, reps=50):
 
 
 def check_sweep_kernels(device, card: str) -> dict:
-    """Phase S0: the row variants of K1 (forward and log), K2 and K4
-    against their plain versions and against one launch per row, and
-    timed beside their single-row forms at the same total width."""
+    """Phase S0: the row variants of K1 (forward and log), K2, K4 and
+    the OBDM grid (:func:`check_obd_rows`) against their plain versions
+    and against one launch per row, and timed beside their single-row
+    forms at the same total width."""
     rows, per_row = len(S0_ROWS), EOS_SLOTS
     out = {}
     for log_psi in (False, True):
@@ -2450,6 +2481,61 @@ def check_sweep_kernels(device, card: str) -> dict:
     phase("S0", check="K4 groups vs plain and single-group launches",
           card=card, shape=list(pos.shape), g2_shape=list(gpos.shape),
           **out["K4 groups"], ok=True)
+    out["OBDM table"] = check_obd_rows(device, card)
+    return out
+
+
+def check_obd_rows(device, card: str) -> dict:
+    """Phase S0's OBDM grid: four parameter rows and each row's own grid
+    over [0, L/2] in one launch, each row bit-equal to its launch alone;
+    f64 within 1e-12 of the plain version, f32 within 4 times the plain
+    f32 version's gap from the f64 one; timed beside the single-row
+    launch at the same total width."""
+    rows, per_row = len(S0_ROWS), EOS_SLOTS
+    specs = sweep_rows_specs()
+    funcs = mrbp.core_funcs(specs[0])
+    grids = np.stack([np.linspace(0.0, 0.5 * spec.supercell_size,
+                                  OBD_NUM_POS) for spec in specs], axis=1)
+    for dtype, walkers in ((torch.float64, 64), (torch.float32, per_row)):
+        pos, table, _ = table_inputs(dtype, device, walkers)
+        pos = pos.view(rows, walkers, EOS_NOP)
+        szs = torch.as_tensor(grids, dtype=dtype,
+                              device=device)[..., None, None]
+        cfc = dmc._rows_cfc(specs, dtype, device)
+        alone = [mrbp.cast_params(spec.cfc_params, dtype, device)
+                 for spec in specs]
+        got = funcs.one_body_density_grid(szs, pos, cfc, table)
+        for r in range(rows):
+            one = funcs.one_body_density_grid(
+                szs[:, r, 0, 0].contiguous(), pos[r], alone[r],
+                table[r].contiguous())
+            require(torch.equal(got[r], one), f"S0 OBDM table {dtype} row "
+                    f"{r} bit-equal to its single-row launch")
+        want = obd_oracle(funcs, szs, pos, cfc)
+        gap = float((got.double() - want).abs().max())
+        if dtype == torch.float64:
+            require(gap <= OBD_F64_TOL, f"S0 OBDM table f64 within "
+                    f"{OBD_F64_TOL} of plain: {gap}")
+            continue
+        plain = funcs.one_body_density_grid_plain(szs, pos, cfc)
+        plain_gap = float((plain.double() - want).abs().max())
+        require(gap <= OBD_F32_GAP_FACTOR * plain_gap,
+                f"S0 OBDM table f32: the kernel's gap from the f64 plain "
+                f"version at most {OBD_F32_GAP_FACTOR} times the plain f32 "
+                f"version's: {gap} against {plain_gap}")
+        del plain, want
+        flat = pos.reshape(-1, EOS_NOP).clone()
+        first = szs[:, 0, 0, 0].contiguous()
+        times = time_pair(
+            lambda: funcs.one_body_density_grid(szs, pos, cfc, table),
+            lambda: funcs.one_body_density_grid_plain(szs, pos, cfc),
+            lambda: funcs.one_body_density_grid(first, flat, alone[0],
+                                                table[0].contiguous()))
+    out = {**times, "max_abs_err": gap, "plain_max_abs_err": plain_gap,
+           **obd_bound(rows * per_row, EOS_NOP, OBD_NUM_POS, rows)}
+    phase("S0", check="OBDM table vs plain and single-row launches",
+          card=card, shape=[rows, per_row, EOS_NOP, OBD_NUM_POS],
+          f64_tol=OBD_F64_TOL, **out, ok=True)
     return out
 
 
@@ -3357,6 +3443,96 @@ def k4_bound(rows: int, row_len: int, num_bins: int) -> dict:
                  F32_BYTES * (rows * row_len + rows * num_bins + 1))
 
 
+def obd_bound(walkers: int, nop: int, num_pos: int, rows: int = 1) -> dict:
+    """The OBDM kernel's bound: every ordered pair at each offset and at
+    none; positions and each row's offsets and parameters in, the grid
+    out."""
+    pairs = walkers * nop * (nop - 1) * (num_pos + 1)
+    values = (walkers * nop + rows * (num_pos + pairwise.PARAMS_SIZE)
+              + walkers * num_pos)
+    return dict(bound(pairs * OBD_FLOPS_PER_PAIR, F32_BYTES * values),
+                pairs=pairs)
+
+
+def obd_oracle(funcs, szs, pos, cfc, chunk: int = 1024) -> torch.Tensor:
+    """The plain version in f64 at the inputs' own values, ``chunk``
+    walkers at a time along the walker axis (each walker's grid is its
+    own): the f64 (W, N, N) passes would not fit at once."""
+    cfc64 = mrbp.cast_params(cfc, torch.float64, pos.device)
+    return torch.cat([
+        funcs.one_body_density_grid_plain(
+            szs.double(), pos[..., a:a + chunk, :].double(), cfc64)
+        for a in range(0, pos.shape[-2], chunk)], dim=-2)
+
+
+#: What the OBDM kernel stands for in the JAX package.
+OBD_REPLACES = ("phd_qmclib_tpu/models/jastrow.py:375 (XLA's "
+                "one_body_density_grid; no pallas_call)")
+
+
+def check_obd(device, card: str) -> tuple:
+    """Phase O: the OBDM grid's kernel against its plain version at the
+    production and variational shapes.  Returns the f32 kernel's largest
+    gap from the f64 plain version at the production shape and the times
+    by shape."""
+    err, times = None, {}
+    for label, spec_kwargs, walkers in (
+            ("production", BENCH_SPEC, MAX_WALKERS),
+            ("variational", VMC_SPEC, VMC_CHAINS)):
+        spec = mrbp.Spec(**spec_kwargs)
+        nop, length = spec.boson_number, float(spec.supercell_size)
+        funcs = mrbp.core_funcs(spec)
+        pos = torch.as_tensor(np.random.default_rng(nop).uniform(
+            0, length, (walkers, nop)), dtype=torch.float32, device=device)
+        offsets = torch.as_tensor(np.linspace(0.0, 0.5 * length,
+                                              OBD_NUM_POS),
+                                  dtype=torch.float32, device=device)
+        cfc = mrbp.cast_params(spec.cfc_params, torch.float32, device)
+        want = obd_oracle(funcs, offsets, pos, cfc)
+        got64 = funcs.one_body_density_grid(
+            offsets.double(), pos.double(),
+            mrbp.cast_params(cfc, torch.float64, device))
+        f64_err = float((got64 - want).abs().max())
+        require(f64_err <= OBD_F64_TOL, f"O {label}: the f64 kernel within "
+                f"{OBD_F64_TOL} of the plain version: {f64_err}")
+        del got64
+        outs = {}
+
+        def kernel():
+            outs["kernel"] = funcs.one_body_density_grid(offsets, pos, cfc)
+
+        def plain():
+            outs["plain"] = funcs.one_body_density_grid_plain(offsets, pos,
+                                                              cfc)
+
+        p1 = cuda_ms(plain, 1)
+        k1 = cuda_ms(kernel, 20)
+        k2 = cuda_ms(kernel, 20)
+        p2 = cuda_ms(plain, 1)
+        gap, plain_gap = (float((outs[k].double() - want).abs().max())
+                          for k in ("kernel", "plain"))
+        require(gap <= OBD_F32_GAP_FACTOR * plain_gap,
+                f"O {label}: the f32 kernel's gap from the f64 plain version "
+                f"at most {OBD_F32_GAP_FACTOR} times the plain f32 "
+                f"version's: {gap} against {plain_gap}")
+        require(bool((outs["kernel"][:, 0] == 1).all()),
+                f"O {label}: n1(0) exactly 1 on every walker")
+        least = obd_bound(walkers, nop, OBD_NUM_POS)
+        times[label] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "device_ms": device_ms(kernel, 20),
+                        "max_abs_err": gap, "plain_max_abs_err": plain_gap,
+                        "f64_max_abs_err": f64_err, **least}
+        if err is None:
+            err = gap
+        phase("O", kernel="OBDM", card=card, label=label,
+              shape=[walkers, nop, OBD_NUM_POS], plain_ms_turns=[p1, p2],
+              kernel_ms_turns=[k1, k2], speedup=(p1 + p2) / (k1 + k2),
+              bound_share=least["bound_ms"] / times[label]["ms"],
+              **times[label], ok=True)
+        del outs, want
+    return err, times
+
+
 def time_kernels(device, card: str) -> dict:
     """Phase E: kernel vs plain at the main path's shapes, in turns, each
     beside its bound; K2 also beside ``torch.randn``."""
@@ -3603,6 +3779,7 @@ def main() -> None:
     runs["S3"] = run_dt_sweep(device, smi)
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
+    err_obd, obd_times = check_obd(device, smi)  # O
 
     # The main path's launches: each run of D, G1, G2, G3, V1, V2 and, through
     # the execution layer, R0, R1 and R2 counts from 0.  K3 lies on no path (the DMC step keeps its own sequence,
@@ -3614,25 +3791,30 @@ def main() -> None:
                        if counts[name]}
                 for name in COUNTERS}
     require(all(launches[name] > 0
-                for name in ("K1", "K1 log", "K1 vjp", "K2", "K4",
+                for name in ("K1", "K1 log", "K1 vjp", "K2", "K4", "OBDM",
                              "K1 table", "K1 log table", "K2 rows",
-                             "K4 groups")),
+                             "K4 groups", "OBDM table")),
             f"every kernel of the main path launched: {launches}")
     require(per_step["K1 table"].get("S1") == 1
             and per_step["K2 rows"].get("S1") == 1
-            and per_step["K1 log table"].get("S2", 0) >= 1,
+            and per_step["K1 log table"].get("S2", 0) >= 1
+            and per_step["OBDM table"].get("S2", 0) > 0,
             f"a fused DMC step launches K1's table and K2's rows once, a "
-            f"fused VMC step K1 log's table: {per_step}")
+            f"fused VMC step K1 log's table, S2's OBDM steps the OBDM "
+            f"kernel's table: {per_step}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
     dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc", "M0", "M1")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
             and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)
             and all(per_step["K4"].get(label, 0) > 0
                     for label in ("G3", "R1"))
+            and all(per_step["OBDM"].get(label, 0) > 0
+                    for label in ("G3", "R1", "V2", "R2"))
             and all(per_step["K1 log"].get(label, 0) >= 1
                     for label in ("V1", "V2", "R2", "W1", "W2", "M5")),
             f"K1 on every DMC step (K2 once, K4 on G3's and R1's density "
-            f"and g2 steps) and K1 log on every VMC step: {per_step}")
+            f"and g2 steps, the OBDM kernel on the OBDM steps of G3, R1, "
+            f"V2 and R2) and K1 log on every VMC step: {per_step}")
 
     def row(name, key, source, replaces, err, **extra):
         # No single PyTorch call computes K1, K3 or K4: library_ms null.
@@ -3648,6 +3830,8 @@ def main() -> None:
                 "library_ms": None, **times[key], **extra}
 
     times["K1 vjp"] = vjp_times["dmc shape"]
+    times["OBDM"] = obd_times["production"]
+    obd_vmc = obd_times["variational"]
     times.update(sweep_times)
     log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
     tiled = times["K4 tiled"]
@@ -3700,6 +3884,17 @@ def main() -> None:
              vmc_shape_forward_ms=vjp_times["vmc shape"]["forward_ms"],
              vmc_shape_f64_ms=vjp_times["vmc shape"]["f64_ms"],
              launches_per_optimization=w2_counts),
+        # No pallas_call either: the JAX package leaves the grid to XLA.
+        dict(row("obd_grid", "OBDM", "obd.cu", "", err_obd,
+                 variational_ms=obd_vmc["ms"],
+                 variational_plain_ms=obd_vmc["plain_ms"],
+                 variational_device_ms=obd_vmc["device_ms"],
+                 variational_bound_ms=obd_vmc["bound_ms"],
+                 variational_max_abs_err=obd_vmc["max_abs_err"]),
+             replaces=OBD_REPLACES),
+        dict(row("obd_grid_table", "OBDM table", "obd.cu", "",
+                 sweep_times["OBDM table"]["max_abs_err"]),
+             variant_of="obd_grid", replaces=OBD_REPLACES),
     ]
     print(smi, flush=True)  # again, next to the result lines
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,8 @@ The spec is a frozen host-side dataclass (NumPy/SciPy, copied from the
 JAX package); the functions are batched torch functions.  The fused
 energy and drift, and the fused log|psi| and energy, of :func:`core_funcs`
 run through :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift`,
-which launches the hand-written CUDA kernel on a CUDA tensor.
+which launches the hand-written CUDA kernel on a CUDA tensor, and the
+OBDM grid through :func:`phd_qmclib_torch.ops.pairwise.obd_grid` there.
 """
 import functools
 import math
@@ -30,6 +31,7 @@ from scipy.optimize import brentq
 from .. import ideal
 from ..ops import pairwise, trig
 from ..ops.pbc import recast_to_supercell
+from ..utils import tracing
 from . import jastrow
 from .jastrow import CFCParams, SysConfSlot
 
@@ -712,16 +714,23 @@ def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
     ``pair_dist_histogram`` through
     :func:`phd_qmclib_torch.ops.histogram.walker_histogram`: the CUDA
     kernels on a CUDA tensor, their plain torch versions on a CPU one.
+    ``one_body_density_grid`` launches
+    :func:`phd_qmclib_torch.ops.pairwise.obd_grid` on a CUDA tensor (one
+    launch an evaluation, a fused sweep's rows included) and runs
+    :mod:`.jastrow`'s plain version, kept as
+    ``one_body_density_grid_plain``, on a CPU tensor.
     Where a gradient with respect to the parameters is wanted (grad mode
     on and ``params`` requiring grad) on a CUDA tensor,
     ``log_psi_and_energy`` runs through
     :class:`phd_qmclib_torch.ops.pairwise.LogPsiAndEnergy` (the kernel
     forward, its parameter VJP kernel backward); on a CPU tensor autograd
     runs through the plain version.
-    The first two take an optional third argument, the kernel's
-    parameter vector ``pairwise.pack_params(cfc)`` in ``pos``' dtype on
-    its device: the samplers pack it once per run, since packing costs
-    more host time per call than the kernel's launch.
+    The first two take an optional third argument, and
+    ``one_body_density_grid`` an optional fourth, the kernel's parameter
+    vector ``pairwise.pack_params(cfc)`` (or a fused sweep's table of
+    rows) in ``pos``' dtype on its device: the samplers pack it once per
+    run, since packing costs more host time per call than the kernel's
+    launch.  The plain versions on a CPU tensor take no notice of it.
     """
     static = (spec_or_static.static_spec
               if isinstance(spec_or_static, Spec) else spec_or_static)
@@ -780,11 +789,47 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
                  "one_body_density_grid", "fourier_density_parts_harmonics",
                  "pair_dist_histogram"):
         setattr(funcs, name, with_cast(getattr(funcs, name)))
+    obd_plain = funcs.one_body_density_grid
+    obd_kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal)
+
+    @functools.wraps(obd_plain)
+    def one_body_density_grid(szs, pos, cfc, params=None):
+        if pos.device.type == "cpu":
+            return obd_plain(szs, pos, cfc)
+        with tracing.span(tracing.OBD):
+            if params is None:
+                params = pairwise.pack_params(
+                    cast_params(cfc, pos.dtype, pos.device), pos.dtype,
+                    pos.device)
+            params, offsets = _obd_tables(szs, params, pos.dtype, pos.device)
+            out = pairwise.obd_grid(offsets, pos.reshape(-1, nop).contiguous(),
+                                    params, **obd_kw)
+            return out.reshape(pos.shape[:-1] + out.shape[-1:])
+
+    funcs.one_body_density_grid = one_body_density_grid
+    funcs.one_body_density_grid_plain = obd_plain
     funcs.energy_and_drift = energy_and_drift
     funcs.log_psi_and_energy = log_psi_and_energy
     funcs.energy = lambda pos, cfc: energy_and_drift(pos, cfc)[0]
     funcs.static_spec = static
     return funcs
+
+
+def _obd_tables(szs, params: torch.Tensor, dtype: torch.dtype, device):
+    """The OBDM kernel's ``(params, offsets)`` for the grid ``szs``
+    (``(M,)``, or a fused sweep's ``(M, R, 1, 1)``) and the packed
+    parameters ``params`` (:func:`pairwise.pack_params`' vector, or a
+    sweep's ``(R, 1, 1, PARAMS_SIZE)`` or ``(R, PARAMS_SIZE)``): the
+    vector and ``(M,)`` for one row, else an ``(R, PARAMS_SIZE)`` table
+    and ``(R, M)``, a row shared by every row repeated."""
+    params = params.reshape(-1, pairwise.PARAMS_SIZE)
+    offsets = torch.as_tensor(szs, dtype=dtype, device=device)
+    offsets = offsets.reshape(offsets.shape[0], -1).T
+    rows = max(params.shape[0], offsets.shape[0])
+    if rows == 1:
+        return params[0].contiguous(), offsets[0].contiguous()
+    return (params.expand(rows, -1).contiguous(),
+            offsets.expand(rows, -1).contiguous())
 
 
 @dataclass(frozen=True)

@@ -18,12 +18,17 @@ Counterpart of ``phd_qmclib_tpu.ops.pairwise``:
 * :func:`diffuse_energy_drift` replaces ``diffuse_energy_drift_pallas``:
   noise, move, recast, the forward terms and the branching weight in one
   pass.  As in the JAX package, no sampler calls it.
+* :func:`obd_grid`, the one-body density matrix at a grid of offsets,
+  every offset of a walker in one CTA: the CUDA side of the OBDM
+  estimator, which the JAX package leaves to XLA.  Its plain version is
+  ``models/jastrow.py``'s ``one_body_density_grid``, which
+  ``models/mrbp.py`` runs on a CPU tensor.
 
-Each launches its hand-written CUDA kernel (``csrc/pairwise.cu``,
-``csrc/diffuse.cu``) on a CUDA tensor and runs its plain torch version
-on a CPU tensor.  Both sum the energy and log|psi| per particle first,
-``E_L = sum_i (kin_i - drift_i^2 + pot_i)``, in the order of the Pallas
-kernel.
+The first three launch their hand-written CUDA kernels
+(``csrc/pairwise.cu``, ``csrc/diffuse.cu``) on a CUDA tensor and run
+their plain torch versions on a CPU tensor.  Both sum the energy and
+log|psi| per particle first, ``E_L = sum_i (kin_i - drift_i^2 +
+pot_i)``, in the order of the Pallas kernel.
 """
 import math
 
@@ -35,7 +40,7 @@ from .pbc import min_image_bounded, recast_to_supercell, sign
 __all__ = ["PARAMS_SIZE", "LogPsiAndEnergy", "diffuse_energy_drift",
            "diffuse_energy_drift_plain", "energy_and_drift",
            "energy_and_drift_params_vjp", "energy_and_drift_params_vjp_plain",
-           "energy_and_drift_plain", "pack_params"]
+           "energy_and_drift_plain", "obd_grid", "pack_params"]
 
 #: Packed-parameter layout.  Slots 0-12 are those of the JAX package's
 #: ``pack_params``; slot 13 holds the Hamiltonian's lattice depth, which
@@ -446,3 +451,54 @@ def diffuse_energy_drift(cpos, cdrift, cenergy, params, dt: float,
 
 #: Kernel launches since the last reset (set it to 0 to reset).
 diffuse_energy_drift.launch_count = 0
+
+
+# -- the one-body density matrix on a grid of offsets --------------------------
+
+def obd_grid(offsets: torch.Tensor, pos: torch.Tensor, params: torch.Tensor,
+             *, nop: int, is_free: bool, is_ideal: bool) -> torch.Tensor:
+    """The OBDM ``(W, M)`` of walkers ``pos (W, N)`` at the offsets
+    ``(M,)``: for each walker and offset ``s``, the mean over particles
+    of the trial function's ratio with that particle moved by ``s``.
+
+    ``params`` is :func:`pack_params`' vector with ``offsets (M,)``, or
+    for the rows of a fused parameter sweep a ``(R, PARAMS_SIZE)`` table
+    with ``offsets (R, M)``: the ``W / R`` consecutive walkers of row
+    ``r`` take row ``r`` of both, with the arithmetic of a launch on that
+    row alone.  Launches the kernel of ``csrc/obd.cu`` (f32 or f64, any
+    ``N <= 1024``, free and ideal gases included); there is no CPU
+    version here: ``models/mrbp.py`` runs ``models/jastrow.py``'s plain
+    ``one_body_density_grid`` on a CPU tensor.  Each launch adds one to
+    ``obd_grid.launch_count``, or with a table to
+    ``obd_grid.table_launch_count``.
+    """
+    _check_params(pos, params, nop, 1, table=True)
+    want = params.shape[:-1] + (offsets.shape[-1],)
+    if offsets.dim() != params.dim() or tuple(offsets.shape) != want \
+            or offsets.shape[-1] == 0 or offsets.dtype != pos.dtype \
+            or offsets.device != pos.device or not offsets.is_contiguous():
+        raise ValueError("offsets must be a contiguous (M,) tensor, or (R, "
+                         "M) beside a table of R rows, M > 0, in pos' dtype "
+                         "on pos' device")
+    num_walkers, num_pos = pos.shape[0], offsets.shape[-1]
+    out = pos.new_empty((num_walkers, num_pos))
+    if num_walkers == 0:
+        return out
+    per_row = num_walkers // params.shape[0] if params.dim() == 2 \
+        else num_walkers
+    suffix = "f32" if pos.dtype == torch.float32 else "f64"
+    _build.call(_build.functions()[f"qmc_obd_grid_{suffix}"], pos.device,
+                pos.data_ptr(), params.data_ptr(), offsets.data_ptr(),
+                out.data_ptr(), num_walkers, per_row, nop, num_pos,
+                int(is_free), int(is_ideal))
+    if params.dim() == 2:
+        obd_grid.table_launch_count += 1
+    else:
+        obd_grid.launch_count += 1
+    return out
+
+
+#: Kernel launches since the last reset (set them to 0 to reset): with one
+#: parameter vector, and with a sweep's table of rows.
+obd_grid.launch_count = 0
+obd_grid.table_launch_count = 0

@@ -1166,7 +1166,8 @@ class Sampling:
         if spec is not None and due(spec):
             est["obd"] = measure("aux_obd", spec,
                                  funcs.one_body_density_grid(
-                                     consts.obd_offsets, cpos, cfc))
+                                     consts.obd_offsets, cpos, cfc,
+                                     consts.params))
         spec = self.pair_corr_est_spec
         if spec is not None and due(spec):
             est["g2"] = measure("aux_g2", spec,

@@ -296,7 +296,7 @@ class Sampling:
                 self.ssf_est_spec.num_modes, pos, consts.cfc)
         if consts.obd_offsets is not None and obd is None:
             obd = funcs.one_body_density_grid(consts.obd_offsets, pos,
-                                              consts.cfc)
+                                              consts.cfc, consts.params)
         return ssf, obd
 
     def build_state(self, sys_conf: np.ndarray, dtype=None,
@@ -357,7 +357,8 @@ class Sampling:
             new = new._replace(ssf_parts=torch.where(
                 accept[..., None, None], parts, state.ssf_parts))
         if with_est and self.obd_est_spec is not None:
-            grid = funcs.one_body_density_grid(consts.obd_offsets, prop, cfc)
+            grid = funcs.one_body_density_grid(consts.obd_offsets, prop, cfc,
+                                               consts.params)
             new = new._replace(obd_parts=torch.where(
                 accept[..., None], grid, state.obd_parts))
         return new
@@ -376,7 +377,7 @@ class Sampling:
         spec = self.obd_est_spec
         if spec is not None and (chunk + 1) % spec.est_every_mult == 0:
             rows["obd"] = _row_sums(funcs.one_body_density_grid(
-                consts.obd_offsets, pos, cfc))
+                consts.obd_offsets, pos, cfc, consts.params))
         spec = self.pair_corr_est_spec
         if spec is not None and (chunk + 1) % spec.est_every_mult == 0:
             rows["g2"] = _row_sums(funcs.pair_dist_histogram(

@@ -9,6 +9,9 @@ card with::
 (``tests/conftest.py`` imports the JAX package, which the GPU host need
 not have; this file imports only the port.)
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -1220,3 +1223,191 @@ def test_rows_that_differ_in_dt_equal_their_standalone_runs(cuda, dtype):
                          "accum_energy"):
                 assert torch.equal(getattr(block.iter_props, name)[:, r],
                                    getattr(one.iter_props, name)), name
+
+
+# -- the OBDM grid -------------------------------------------------------------
+
+def _obd_inputs(nop, kind, num_walkers, dtype, device, num_pos=32, seed=0,
+                span=(0.0, 1.0)):
+    """The spec of ``_logpsi_spec`` (defects do not enter the trial
+    function; "free ideal" is both), walkers uniform over ``span`` times
+    L and the estimator's grid of ``num_pos`` offsets over [0, L/2]."""
+    spec = _logpsi_spec(nop, kind) if kind != "free ideal" else mrbp.Spec(
+        **dict(BENCH, boson_number=nop, supercell_size=float(nop),
+               lattice_depth=0.0, interaction_strength=0.0))
+    length = spec.supercell_size
+    pos = np.random.default_rng(seed).uniform(
+        span[0] * length, span[1] * length, (num_walkers, nop))
+    offsets = np.linspace(0.0, 0.5 * length, num_pos)
+    funcs = mrbp.core_funcs(spec)
+    return (funcs, torch.as_tensor(offsets, dtype=dtype, device=device),
+            torch.as_tensor(pos, dtype=dtype, device=device),
+            mrbp.cast_params(spec.cfc_params, dtype, device))
+
+
+#: f64 kernel against the f64 plain version: the same formulas, the pair
+#: sums in another order.
+OBD_F64_TOL = 1e-12
+#: The JAX package's OBDM grid at fixed inputs, made on the CPU by
+#: ``fixtures/make_obd_grid_jax.py``.
+OBD_JAX_FIXTURE = (pathlib.Path(__file__).parent / "fixtures"
+                   / "obd_grid_jax.npz")
+
+
+@pytest.mark.parametrize("num_pos", [1, 5, 32, 37])
+@pytest.mark.parametrize("kind", ["bench", "free", "ideal", "free ideal"])
+@pytest.mark.parametrize("nop,num_walkers", [(1, 64), (2, 64), (33, 64),
+                                             (128, 96), (128, 1),
+                                             (1024, 4)])
+def test_obd_kernel_matches_plain_f64(cuda, nop, num_walkers, kind,
+                                      num_pos):
+    """Every N the kernel's schedule treats apart (one particle, a pair,
+    a warp and one, the production width, the largest CTA), one walker,
+    and offset counts below, at and past one warp's 32 lanes: within
+    1e-12 of the plain version, and exactly 1 at offset 0."""
+    funcs, offsets, pos, cfc = _obd_inputs(nop, kind, num_walkers,
+                                           torch.float64, cuda, num_pos)
+    count = pairwise.obd_grid.launch_count
+    got = funcs.one_body_density_grid(offsets, pos, cfc)
+    torch.cuda.synchronize()
+    assert pairwise.obd_grid.launch_count == count + 1
+    assert got.shape == (num_walkers, num_pos)
+    want = funcs.one_body_density_grid_plain(offsets, pos, cfc)
+    torch.testing.assert_close(got, want, rtol=OBD_F64_TOL, atol=OBD_F64_TOL)
+    # n1(0) = 1 per walker, so the column sums to the walker count.
+    assert torch.equal(got[:, 0], torch.ones_like(got[:, 0]))
+
+
+@pytest.mark.parametrize("name", ["bench", "defected", "free", "ideal"])
+def test_obd_kernel_matches_the_jax_package_f64(cuda, name):
+    """The dispatched grid on the card in f64 against the JAX package's
+    own on the CPU, at the same inputs: ``fixtures/obd_grid_jax.npz``
+    (N = 128, 8 walkers, the estimator's 32 offsets, the last exactly
+    L/2), which ``test_torch_estimators.py`` keeps equal to what the JAX
+    package computes there."""
+    with np.load(OBD_JAX_FIXTURE) as fixture:
+        kwargs = json.loads(str(fixture[f"{name}_spec"]))
+        pos, offsets, want = (fixture[f"{name}_{key}"]
+                              for key in ("pos", "offsets", "obd"))
+    spec = mrbp.Spec(**kwargs)
+    count = pairwise.obd_grid.launch_count
+    got = mrbp.core_funcs(spec).one_body_density_grid(
+        torch.as_tensor(offsets, device=cuda),
+        torch.as_tensor(pos, device=cuda),
+        mrbp.cast_params(spec.cfc_params, torch.float64, cuda))
+    torch.cuda.synchronize()
+    assert pairwise.obd_grid.launch_count == count + 1
+    torch.testing.assert_close(got.cpu(), torch.as_tensor(want),
+                               rtol=OBD_F64_TOL, atol=OBD_F64_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_obd_kernel_at_offsets_outside_and_on_the_edge(cuda, dtype):
+    """Positions across (-L, 2L) and the grid's last offset exactly L/2:
+    the kernel wraps them as the plain version's minimum image does."""
+    funcs, offsets, pos, cfc = _obd_inputs(64, "bench", 128, torch.float64,
+                                           cuda, span=(-1.0, 2.0))
+    assert float(offsets[-1]) == 32.0
+    if dtype == torch.float64:
+        torch.testing.assert_close(
+            funcs.one_body_density_grid(offsets, pos, cfc),
+            funcs.one_body_density_grid_plain(offsets, pos, cfc),
+            rtol=OBD_F64_TOL, atol=OBD_F64_TOL)
+        return
+    # The f64 version at the f32 positions is the oracle of both f32 ones.
+    pos32, off32 = pos.float(), offsets.float()
+    cfc32 = mrbp.cast_params(cfc, torch.float32, cuda)
+    want = funcs.one_body_density_grid_plain(off32.double(), pos32.double(),
+                                             cfc)
+    gap = _obd_gap(funcs.one_body_density_grid(off32, pos32, cfc32), want)
+    plain_gap = _obd_gap(funcs.one_body_density_grid_plain(off32, pos32,
+                                                           cfc32), want)
+    assert gap <= 4 * plain_gap, (gap, plain_gap)
+
+
+def _obd_gap(got, want) -> float:
+    return float((got.double() - want).abs().max())
+
+
+@pytest.mark.parametrize("kind", ["bench", "free"])
+@pytest.mark.parametrize("nop,num_walkers", [(64, 1024), (128, 512)])
+def test_obd_kernel_f32_against_the_f64_plain(cuda, nop, num_walkers, kind):
+    """f32 at the two cells' widths: the kernel's largest gap from the f64
+    plain version at the same (f32) inputs is at most 4 times the plain
+    f32 version's own (the approximate log2 and the pair sums' order
+    against torch's log and reduction)."""
+    funcs, offsets, pos, cfc = _obd_inputs(nop, kind, num_walkers,
+                                           torch.float32, cuda, seed=nop)
+    want = funcs.one_body_density_grid_plain(
+        offsets.double(), pos.double(),
+        mrbp.cast_params(cfc, torch.float64, cuda))
+    got = funcs.one_body_density_grid(offsets, pos, cfc)
+    plain = funcs.one_body_density_grid_plain(offsets, pos, cfc)
+    gap, plain_gap = _obd_gap(got, want), _obd_gap(plain, want)
+    assert 0 < gap <= 4 * plain_gap, (gap, plain_gap)
+    assert torch.equal(got[:, 0], torch.ones_like(got[:, 0]))
+
+
+@pytest.mark.parametrize("shared_grid", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_obd_kernel_rows_equal_their_single_row_launches(cuda, dtype,
+                                                         shared_grid):
+    """A fused sweep's three rows (coupling, cutoff and supercell differ;
+    the grid per row, or one grid shared) in one launch: each row bit for
+    bit its launch alone, and in f64 within 1e-12 of the plain version."""
+    specs = [mrbp.Spec(**dict(BENCH, interaction_strength=gn,
+                              tbf_contact_cutoff=rm, boson_number=64,
+                              supercell_size=sc / 2))
+             for gn, rm, sc in SWEEP_ROWS[:3]]
+    rng = np.random.default_rng(6)
+    pos = torch.as_tensor(np.stack([
+        rng.uniform(0, s.supercell_size, (40, 64)) for s in specs]),
+        dtype=dtype, device=cuda)
+    grids = [np.linspace(0.0, 30.0 if shared_grid else s.supercell_size / 2,
+                         32) for s in specs]
+    szs = torch.as_tensor(grids[0] if shared_grid else np.stack(
+        grids, axis=1)[..., None, None], dtype=dtype, device=cuda)
+    cfc = dmc._rows_cfc(specs, dtype, cuda)
+    funcs = mrbp.core_funcs(specs[0])
+    count = pairwise.obd_grid.table_launch_count
+    got = funcs.one_body_density_grid(szs, pos, cfc)
+    torch.cuda.synchronize()
+    assert pairwise.obd_grid.table_launch_count == count + 1
+    assert got.shape == (3, 40, 32)
+    # The samplers' table, packed row by row, gives the same rows.
+    table = torch.stack([pairwise.pack_params(
+        mrbp.cast_params(s.cfc_params, dtype, cuda), dtype, cuda)
+        for s in specs])
+    got_table = funcs.one_body_density_grid(szs, pos, cfc, table)
+    for r, spec in enumerate(specs):
+        alone = funcs.one_body_density_grid(
+            torch.as_tensor(grids[r], dtype=dtype, device=cuda), pos[r],
+            mrbp.cast_params(spec.cfc_params, dtype, cuda))
+        assert torch.equal(got[r], alone), r
+        assert torch.equal(got_table[r], alone), r
+    if dtype == torch.float64:
+        torch.testing.assert_close(
+            got, funcs.one_body_density_grid_plain(szs, pos, cfc),
+            rtol=OBD_F64_TOL, atol=OBD_F64_TOL)
+
+
+def test_obd_kernel_rejects_bad_inputs(cuda):
+    funcs, offsets, pos, cfc = _obd_inputs(64, "bench", 8, torch.float32,
+                                           cuda)
+    params = pairwise.pack_params(cfc, torch.float32, cuda)
+    kw = dict(nop=64, is_free=False, is_ideal=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise.obd_grid(offsets, pos.t().contiguous().t(), params, **kw)
+    with pytest.raises(ValueError, match="params"):
+        pairwise.obd_grid(offsets, pos, params.double(), **kw)
+    with pytest.raises(ValueError, match="offsets"):
+        pairwise.obd_grid(offsets.double(), pos, params, **kw)
+    with pytest.raises(ValueError, match="offsets"):
+        pairwise.obd_grid(offsets, pos, params[None].expand(2, -1)
+                          .contiguous(), **kw)
+    with pytest.raises(ValueError, match="params"):
+        pairwise.obd_grid(offsets[None].expand(3, -1).contiguous(), pos,
+                          params[None].expand(3, -1).contiguous(), **kw)
+    wide = torch.zeros((2, 1025), device=cuda)
+    with pytest.raises(ValueError, match="nop"):
+        pairwise.obd_grid(offsets, wide, params, **dict(kw, nop=1025))

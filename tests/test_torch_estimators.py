@@ -4,6 +4,9 @@ histogram (g2), on the free, ideal, bench and defected specs.
 
 Inputs are made with numpy from a seed and fed to both packages.
 """
+import json
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +76,33 @@ def test_obdm_grid_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=RTOL)
     # No displacement, no change: n1(0) = 1.
     np.testing.assert_allclose(got[:, 0].numpy(), 1.0, rtol=RTOL)
+
+
+OBD_JAX_FIXTURE = (pathlib.Path(__file__).parent / "fixtures"
+                   / "obd_grid_jax.npz")
+
+
+@pytest.mark.parametrize("name", ["bench", "defected", "free", "ideal"])
+def test_obdm_grid_fixture_is_the_jax_packages(name):
+    """``fixtures/obd_grid_jax.npz``, which the card's OBDM kernel is held
+    against (``test_torch_cuda_kernels.py``), is what the JAX package
+    computes at its inputs now, and the port's plain version agrees."""
+    with np.load(OBD_JAX_FIXTURE) as fixture:
+        kwargs = json.loads(str(fixture[f"{name}_spec"]))
+        pos, offsets, stored = (fixture[f"{name}_{key}"]
+                                for key in ("pos", "offsets", "obd"))
+    assert pos.shape == (8, 128) and stored.shape == (8, 32)
+    assert offsets[-1] == 0.5 * kwargs["supercell_size"]
+    jspec = jmrbp.Spec(**kwargs)
+    want = np.asarray(jmrbp.core_funcs(jspec).one_body_density_grid(
+        jnp.asarray(offsets), jnp.asarray(pos),
+        jax.tree.map(jnp.float64, jspec.cfc_params)))
+    np.testing.assert_allclose(want, stored, rtol=1e-14, atol=1e-14)
+    tspec = tmrbp.Spec(**kwargs)
+    got = tmrbp.core_funcs(tspec).one_body_density_grid(
+        torch.as_tensor(offsets), torch.as_tensor(pos),
+        tmrbp.cfc_params_from_numpy(jspec.cfc_params))
+    np.testing.assert_allclose(got.numpy(), stored, rtol=RTOL, atol=RTOL)
 
 
 @pytest.mark.parametrize("num_bins", [7, 16])

@@ -1,10 +1,11 @@
 """An older checkout's kernels against this tree's, in one process on one
-card: K1 log's parameter VJP, K2's rows kernel and K3.
+card: K1 log's parameter VJP, K2's rows kernel and K3; and the OBDM grid's
+kernel against the plain version that it replaced.
 
-    PYTHONPATH=. python tools/kernel_compare.py [vjp] [k2_rows] [k3] \
-        --parent build/parent [--out-dir build/compare]
+    PYTHONPATH=. python tools/kernel_compare.py [vjp] [k2_rows] [k3] [obd] \
+        [--parent build/parent] [--out-dir build/compare]
 
-(no kernel named: all three).
+(no kernel named: all four; ``--parent`` is needed by all but ``obd``).
 The older checkout (``git archive <commit>`` unpacked into a git-ignored
 directory) builds its kernel library with its own ``ops/_build.py``, in
 a subprocess, into its own ``build/``; this tree's builds as a launch
@@ -31,7 +32,19 @@ functions, so each kernel runs on the same inputs from both, in turns
   phase J's tolerances (f64 within 1e-10); the time of a launch (CUDA
   events), and in f32 the share of the bound under this tree's count
   (``chip_smoke.k3_bound``: each pair by its side of the cutoff in the
-  moved positions) and under the first design's.
+  moved positions) and under the first design's;
+* ``obd``: ``qmc_obd_grid_{f32,f64}`` (``pairwise.obd_grid``) at
+  17408 x 128 (the production cell's slots) and 16384 x 64 (the
+  variational cell's chains), 32 offsets over [0, L/2], positions uniform
+  in [0, L), against the plain version (``models/jastrow.py``'s
+  ``one_body_density_grid``, which a CUDA tensor ran before the kernel
+  and still runs as ``one_body_density_grid_plain``), in turns (plain,
+  kernel, kernel, plain): the gap of each from the f64 plain version at
+  the same inputs (f64 kernel within 1e-12; n1(0) exactly 1), the time
+  of a call (CUDA events; the plain version's some thousand launches are
+  back to back), and in f32 the kernel's share of its bound
+  (``chip_smoke.obd_bound``: ``OBD_FLOPS_PER_PAIR`` flops for each of
+  the N (N - 1) (M + 1) ordered pairs, ``csrc/obd.cu``).
 
 Prints the card's name and power limit, then one JSON line per
 measurement.  With ``--out-dir`` it writes both builds' ``-Xptxas -v``
@@ -50,6 +63,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
+from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, pairwise, prng
 
 VJP_SHAPES = (("dmc shape", cs.BENCH_SPEC, 4096),
@@ -58,7 +72,11 @@ VJP_REPS = {torch.float32: 50, torch.float64: 10}
 ROWS, ROW_WALKERS, ROW_NOP = 4, cs.EOS_SLOTS, cs.EOS_NOP
 K3_SHAPES = (("dmc shape", cs.BENCH_SPEC), ("eos width", cs.VMC_SPEC))
 K3_REPS = {torch.float32: 50, torch.float64: 10}
-COMPARES = ("vjp", "k2_rows", "k3")
+OBD_SHAPES = (("production", cs.BENCH_SPEC, cs.MAX_WALKERS),
+              ("variational", cs.VMC_SPEC, cs.VMC_CHAINS))
+#: Reps of one timing (kernel, plain) by dtype.
+OBD_REPS = {torch.float32: (20, 2), torch.float64: (5, 1)}
+COMPARES = ("vjp", "k2_rows", "k3", "obd")
 
 
 def build_parent(parent: Path) -> tuple:
@@ -293,11 +311,76 @@ def compare_k3(parent_fns, new_fns, device, card) -> None:
                 raise SystemExit(f"K3 {suffix} {label}: {check}")
 
 
+def compare_obd(device, card) -> None:
+    for label, spec_kwargs, walkers in OBD_SHAPES:
+        spec = mrbp.Spec(**spec_kwargs)
+        static = spec.static_spec
+        nop, length = static.boson_number, spec.supercell_size
+        funcs = mrbp.core_funcs(spec)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(nop)
+        pos64 = length * torch.rand((walkers, nop), generator=gen,
+                                    dtype=torch.float64, device=device)
+        kw = dict(nop=nop, is_free=static.is_free, is_ideal=static.is_ideal)
+        oracle = None
+        for dtype in (torch.float64, torch.float32):
+            suffix = "f32" if dtype == torch.float32 else "f64"
+            pos = pos64.to(dtype)
+            offsets = torch.linspace(0.0, 0.5 * length, cs.OBD_NUM_POS,
+                                     dtype=dtype, device=device)
+            cfc = mrbp.cast_params(spec.cfc_params, dtype, device)
+            params = pairwise.pack_params(cfc, dtype, device)
+            outs = {}
+
+            def kernel():
+                outs["kernel"] = pairwise.obd_grid(offsets, pos, params,
+                                                   **kw)
+
+            def plain():
+                outs["plain"] = funcs.one_body_density_grid_plain(
+                    offsets, pos, cfc)
+
+            kernel()
+            plain()
+            torch.cuda.synchronize()
+            if oracle is None:
+                oracle = outs["plain"]
+            want = funcs.one_body_density_grid_plain(
+                offsets.double(), pos.double(),
+                mrbp.cast_params(cfc, torch.float64, device)) \
+                if dtype == torch.float32 else oracle
+            gaps = {k: float((v.double() - want).abs().max())
+                    for k, v in outs.items()}
+            at_zero = bool((outs["kernel"][:, 0] == 1).all())
+            ok = at_zero and (gaps["kernel"] <= 1e-12
+                              if dtype == torch.float64
+                              else gaps["kernel"] <= 4 * gaps["plain"])
+            reps = OBD_REPS[dtype]
+            p1 = cs.cuda_ms(plain, reps[1])
+            k1 = cs.cuda_ms(kernel, reps[0])
+            k2 = cs.cuda_ms(kernel, reps[0])
+            p2 = cs.cuda_ms(plain, reps[1])
+            times = {"plain": [p1, p2], "kernel": [k1, k2]}
+            out = {"kernel": "OBDM grid", "dtype": suffix,
+                   "shape": [walkers, nop, cs.OBD_NUM_POS], "label": label,
+                   "card": card, "ms": times, "gap_vs_f64_plain": gaps,
+                   "n1_at_zero_exactly_1": at_zero, "ok": ok}
+            if dtype == torch.float32:
+                least = cs.obd_bound(walkers, nop, cs.OBD_NUM_POS)
+                out.update(least, share_of_bound={
+                    k: least["bound_ms"] / (sum(v) / 2)
+                    for k, v in times.items()})
+            print(json.dumps(out), flush=True)
+            del outs
+            if not ok:
+                raise SystemExit(f"OBDM grid {suffix} {label}: {gaps}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("compares", nargs="*", choices=COMPARES,
                         help="the kernels to compare (default: all)")
-    parser.add_argument("--parent", type=Path, required=True)
+    parser.add_argument("--parent", type=Path)
     parser.add_argument("--out-dir", type=Path)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -308,23 +391,30 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    parent_lib, parent_log = build_parent(args.parent.resolve())
-    new_log = _build.build()
     compares = args.compares or COMPARES
+    builds = [("new", _build.build(), _build.LIBRARY)]
+    if set(compares) - {"obd"}:
+        if args.parent is None:
+            raise SystemExit("--parent is needed by vjp, k2_rows and k3")
+        parent_lib, parent_log = build_parent(args.parent.resolve())
+        builds.insert(0, ("parent", parent_log, parent_lib))
+    if args.out_dir:
+        args.out_dir.mkdir(parents=True, exist_ok=True)
+        cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+        for label, log, lib in builds:
+            (args.out_dir / f"ptxas_{label}.txt").write_text(log)
+            with open(args.out_dir / f"sass_{label}.txt", "w") as out:
+                subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                               stdout=out, stderr=subprocess.STDOUT)
+    if "obd" in compares:
+        compare_obd(device, card)
+    if len(builds) == 1:
+        return
     names = ["qmc_pair_logpsi_params_vjp_f32",
              "qmc_pair_logpsi_params_vjp_f64", "qmc_philox_normals_rows_f32",
              "qmc_diffuse_energy_drift_f32", "qmc_diffuse_energy_drift_f64"]
     parent_fns = load(parent_lib, names)
     new_fns = {name: _build.functions()[name] for name in names}
-    if args.out_dir:
-        args.out_dir.mkdir(parents=True, exist_ok=True)
-        (args.out_dir / "ptxas_parent.txt").write_text(parent_log)
-        (args.out_dir / "ptxas_new.txt").write_text(new_log)
-        cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-        for label, lib in (("parent", parent_lib), ("new", _build.LIBRARY)):
-            with open(args.out_dir / f"sass_{label}.txt", "w") as out:
-                subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                               stdout=out, stderr=subprocess.STDOUT)
     if "k2_rows" in compares:
         compare_rows(parent_fns["qmc_philox_normals_rows_f32"], device, card)
     if "vjp" in compares:
