@@ -95,6 +95,17 @@ O. the OBDM grid's kernel (``funcs.one_body_density_grid`` on a CUDA
    largest gap at most 4 times the plain f32 version's; in f64 within
    1e-12 of the plain version; n1(0) exactly 1; each shape timed against
    the plain version in turns, beside its bound.
+K. the S(k) harmonics' kernel (``funcs.fourier_density_parts_harmonics``
+   on a CUDA tensor) against its plain recurrence at the sk, variational
+   and production shapes (16384 x 64 x 32, 16384 x 64 x 64, 17408 x 128 x
+   64; positions in [0, L)): f32 within the bound of the particle sums'
+   order (the elements are rounded alike), f64 within 1e-12 of each
+   slot's scale, the k = 0 mode exact; the ITC pair bit for bit its slots
+   1-2; each shape timed against the plain version in turns (the call
+   through the dispatch, launch included, and the kernel's device time),
+   beside its bound; and a 4-row table (four supercells at N=64, 64
+   modes, 4 x 4,352 walkers), each row bit-equal to its launch alone,
+   timed beside the single-row launch at the same width.
 
 R. the same paths through the execution layer (``qmc_exec``), from
    config dicts to an in-memory ``ProcResult`` (a GPU machine need not
@@ -175,9 +186,10 @@ S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
    events), a 64-step block of each profiled (device busy share, kernel
    launches per step), peak memory, each row's E/N and
    ``report.summarize``'s; S1b, a density scan at fixed N (the first EOS
-   row at L = 64, 60, 56, 52) with the production example's density and
-   g2, one measured block fused and row by row, bit-equal (K4's bin-size
-   groups on the path);
+   row at L = 64, 60, 56, 52) with the production example's density,
+   64-mode pure S(k) and g2, one measured block fused and row by row,
+   bit-equal (K4's bin-size groups and the S(k) kernel's table of 2 pi / L
+   on the path);
    S2, the variational example's model and estimators as four rows of
    4,096 chains at rm 0.3-0.6 (``VmcSweep``), one burn-in and one
    measured block, each row bit-equal to its standalone ``vmc.Sampling``
@@ -223,9 +235,10 @@ G3, V1, V2, R0, R1, R2, W1 (and its DMC stage), W2, S1, S1b, S2, S3, M0,
 and M1 and M5 (their rank 0, in this process), in
 all and per step of each run; K1 must run on every DMC step and K1 log
 on every VMC step, the OBDM kernel on the OBDM steps of G3, R1, V2 and
-R2, a fused DMC step must launch K1's table and K2's rows once, a fused
-VMC step K1 log's table, and S2's fused OBDM steps the OBDM kernel's
-table.  K3 lies on none of them (the DMC
+R2, the S(k) kernel in G1, G2, G3, R1, V1, V2, R2, S2 (whose rows share
+one L: one row a launch) and M5 and its table in S1b (four L), a fused
+DMC step must launch K1's table and K2's rows once, a fused VMC step K1 log's table, and S2's fused OBDM steps the
+OBDM kernel's table.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
 there must stay 0.
 
@@ -252,7 +265,7 @@ from torch.profiler import ProfilerActivity, profile
 from phd_qmclib_torch import (lieb_liniger, parallel, reference_replay,
                               wf_opt)
 from phd_qmclib_torch.models import mrbp
-from phd_qmclib_torch.ops import _build, histogram, pairwise, prng
+from phd_qmclib_torch.ops import _build, histogram, pairwise, prng, ssf
 from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec, report,
                                        sweep as sweep_exec, vmc as vmc_exec)
 from phd_qmclib_torch.samplers import dmc, vmc
@@ -377,6 +390,16 @@ OBD_NUM_POS = 32
 #: times the plain f32 version's own (the MUFU log2 and the sums' order
 #: against torch's log and reduction).
 OBD_F64_TOL, OBD_F32_GAP_FACTOR = 1e-12, 4
+#: The S(k) harmonics (``csrc/ssf.cu``) per particle and mode: the
+#: recurrence's two products and two differences, and the two sums.
+SSF_FLOPS_PER_ELEMENT = 6
+#: Phase K's shapes: the sk, variational and production cells' walkers,
+#: particles and modes.
+SSF_SHAPES = (("sk", 16384, 64, 32), ("variational", 16384, 64, 64),
+              ("production", 17408, 128, 64))
+#: The S(k) kernel in f64 against the f64 plain version, relative to each
+#: slot's scale (N^2 for |rho_k|^2, N for Re/Im rho_k).
+SSF_F64_RTOL = 1e-12
 F32_BYTES = 4
 
 #: Phase G's estimator loads.
@@ -576,7 +599,9 @@ COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
                              "log_psi_table_launch_count"),
             "K2 rows": (prng.normal_rows, "launch_count"),
             "K4 groups": (histogram.walker_histogram, "group_launch_count"),
-            "OBDM table": (pairwise.obd_grid, "table_launch_count")}
+            "OBDM table": (pairwise.obd_grid, "table_launch_count"),
+            "S(k)": (ssf.ssf_harmonics, "launch_count"),
+            "S(k) table": (ssf.ssf_harmonics, "table_launch_count")}
 
 
 def reset_counts() -> None:
@@ -2584,7 +2609,8 @@ def profile_steps(blocks, steps: int) -> dict:
 def run_eos_sweep(device, card: str) -> dict:
     """Phase S1: the EOS example at full width through ``SweepProc.exec``
     and, row by row, ``Proc.exec``; S1b: a density scan at fixed N with
-    the production example's density and g2 (K4's bin-size groups)."""
+    the production example's density, S(k) and g2 (K4's bin-size groups,
+    the S(k) kernel's table)."""
     procs = eos_procs(**S1_DEPTH)
     nts = procs[0].num_time_steps_block
     steps = (procs[0].burn_in_blocks + procs[0].num_blocks) * nts
@@ -2691,10 +2717,12 @@ def first_parting(procs, inputs, nts: int) -> list:
 
 def run_density_scan(device, card: str):
     """Phase S1b: the first EOS row at four supercells (a density scan at
-    fixed N), with the production example's density and g2, one measured
-    block fused and row by row: bit-equal rows, K4's groups launched."""
+    fixed N), with the production example's density, S(k) and g2, one
+    measured block fused and row by row: bit-equal rows, K4's groups and
+    the S(k) kernel's table launched."""
     base = dict(EOS_PROCS[0], est_every=8, num_blocks=1, burn_in_blocks=0,
                 density_spec=dict(num_bins=128, as_pure_est=True),
+                ssf_spec=dict(num_modes=64, as_pure_est=True),
                 pair_corr_spec=dict(num_bins=128, as_pure_est=True,
                                     est_every_mult=8))
     samplings = [dmc_exec.Proc.from_config(dict(base, rng_seed=21 + r,
@@ -2713,8 +2741,10 @@ def run_density_scan(device, card: str):
     torch.cuda.synchronize()
     fused_s = time.perf_counter() - t0
     counts = read_counts()
-    require(counts["K4 groups"] > 0 and counts["K4"] == 0,
-            f"S1b: K4's bin-size groups launched: {counts}")
+    require(counts["K4 groups"] > 0 and counts["K4"] == 0
+            and counts["S(k) table"] > 0 and counts["S(k)"] == 0,
+            f"S1b: K4's bin-size groups and the S(k) kernel's table "
+            f"launched: {counts}")
     alone_s = 0.0
     for r, s in enumerate(samplings):
         t0 = time.perf_counter()
@@ -2726,12 +2756,13 @@ def run_density_scan(device, card: str):
             require_equal(getattr(fused.iter_props, name)[:, r],
                           getattr(one.iter_props, name),
                           f"S1b row {r} {name}")
-        for name in ("iter_density", "iter_g2"):
+        for name in ("iter_density", "iter_ssf", "iter_g2"):
             require_equal(getattr(fused, name)[r], getattr(one, name),
                           f"S1b row {r} {name}")
+        for name in ("iter_density", "iter_g2"):
             total = getattr(one, name).sum(-1)
             require(bool(torch.all(total > 0)), f"S1b {name} counts")
-    phase("S1b", check="density scan at fixed N, density and g2 fused",
+    phase("S1b", check="density scan at fixed N, density, S(k) and g2 fused",
           card=card, supercells=list(S1B_SUPERCELLS), steps_run=nts,
           fused_wall_s=fused_s, sequential_wall_s=alone_s,
           rows_bit_equal=True, launches=counts, ok=True)
@@ -3533,6 +3564,166 @@ def check_obd(device, card: str) -> tuple:
     return err, times
 
 
+def ssf_bound(walkers: int, nop: int, num_modes: int, rows: int = 1) -> dict:
+    """The S(k) kernel's bound: ``SSF_FLOPS_PER_ELEMENT`` per particle
+    and mode; positions and each row's k_1 in, the triples out."""
+    values = walkers * nop + rows + 3 * walkers * num_modes
+    return bound(walkers * nop * num_modes * SSF_FLOPS_PER_ELEMENT,
+                 F32_BYTES * values)
+
+
+def ssf_reorder_gaps(got, want, nop: int) -> dict:
+    """How far the f32 kernel's parts lie from the plain f32 version's,
+    as a share of the bound of two orders of the same particle sums: each
+    within gamma_{N-1} sum_i |x_i| of the exact sum, every element within
+    1.01 of 0; |rho|^2 through the squares and three roundings a side.
+    At most 1 where only the order differs."""
+    u = 2.0 ** -24
+    gamma = (nop - 1) * u / (1 - (nop - 1) * u)
+    d = 2 * gamma * 1.01 * nop
+    re, im = want[..., 1].abs(), want[..., 2].abs()
+    d0 = 2 * (re + im) * d + 2 * d * d + 6 * u * (re ** 2 + im ** 2 + 4 * d)
+    gap = (got.double() - want.double()).abs()
+    return {"max_abs_err": float(gap.max()),
+            "share_of_reorder_bound": max(float((gap[..., 0] / d0).max()),
+                                          float(gap[..., 1:].max()) / d)}
+
+
+def ssf_f64_gap(got, want, nop: int) -> float:
+    """The f64 kernel's largest gap from the f64 plain version, relative
+    to each slot's scale (N^2, N)."""
+    gap = (got - want).abs()
+    return max(float(gap[..., 0].max()) / nop ** 2,
+               float(gap[..., 1:].max()) / nop)
+
+
+#: What the S(k) kernel stands for in the JAX package.
+SSF_REPLACES = ("phd_qmclib_tpu/models/jastrow.py:464 (the XLA scan "
+                "_fourier_harmonics_scan; no pallas_call)")
+
+
+def check_ssf(device, card: str) -> tuple:
+    """Phase K: the S(k) kernel against its plain recurrence at the sk,
+    variational and production shapes, and its 4-row table.  Returns the
+    f32 kernel's largest gap from the plain f32 version at the production
+    shape, the times by shape and the table's row."""
+    err, times = None, {}
+    for label, walkers, nop, num_modes in SSF_SHAPES:
+        spec = mrbp.Spec(**dict(BENCH_SPEC, boson_number=nop,
+                                supercell_size=float(nop)))
+        funcs = mrbp.core_funcs(spec)
+        rng = np.random.default_rng(nop + num_modes)
+        pos = torch.as_tensor(rng.uniform(0, float(nop), (walkers, nop)),
+                              dtype=torch.float32, device=device)
+        cfc = mrbp.cast_params(spec.cfc_params, torch.float32, device)
+        cfc64 = mrbp.cast_params(cfc, torch.float64, device)
+        got64 = funcs.fourier_density_parts_harmonics(num_modes,
+                                                      pos.double(), cfc64)
+        want64 = funcs.fourier_density_parts_harmonics_plain(
+            num_modes, pos.double(), cfc64)
+        f64_err = ssf_f64_gap(got64, want64, nop)
+        require(f64_err <= SSF_F64_RTOL, f"K {label}: the f64 kernel "
+                f"within {SSF_F64_RTOL} of each slot's scale: {f64_err}")
+        del got64, want64
+        outs = {}
+
+        def kernel():
+            outs["kernel"] = funcs.fourier_density_parts_harmonics(
+                num_modes, pos, cfc)
+
+        def plain():
+            outs["plain"] = funcs.fourier_density_parts_harmonics_plain(
+                num_modes, pos, cfc)
+
+        lengths = cfc.model_params.supercell_size.reshape(1)
+
+        def alone():
+            ssf.ssf_harmonics(pos, lengths, num_modes=num_modes)
+
+        p1 = cuda_ms(plain, 5)
+        c1 = cuda_ms(kernel, 200)
+        c2 = cuda_ms(kernel, 200)
+        p2 = cuda_ms(plain, 5)
+        gaps = ssf_reorder_gaps(outs["kernel"], outs["plain"], nop)
+        require(gaps["share_of_reorder_bound"] <= 1.0,
+                f"K {label}: the f32 kernel within the bound of the sums' "
+                f"order of the plain f32 version: {gaps}")
+        require(torch.equal(outs["kernel"][:, 0], outs["plain"][:, 0]),
+                f"K {label}: the k = 0 mode exact")
+        pair = funcs.fourier_density_reim_harmonics(num_modes, pos, cfc)
+        require(torch.equal(pair, outs["kernel"][..., 1:3]),
+                f"K {label}: the ITC pair bit for bit the parts' slots 1-2")
+        least = ssf_bound(walkers, nop, num_modes)
+        kernel_alone_ms = cuda_ms(alone, 200)
+        dev_ms = device_ms(alone, 200)
+        times[label] = {"ms": (c1 + c2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "kernel_alone_ms": kernel_alone_ms,
+                        "device_ms": dev_ms, **gaps,
+                        "f64_max_rel_err": f64_err, **least}
+        if label == "production":
+            err = gaps["max_abs_err"]
+        phase("K", kernel="S(k)", card=card, label=label,
+              shape=[walkers, nop, num_modes], plain_ms_turns=[p1, p2],
+              call_ms_turns=[c1, c2], speedup=(p1 + p2) / (c1 + c2),
+              bound_share=least["bound_ms"] / times[label]["ms"],
+              bound_share_of_device_time=(least["bound_ms"] / dev_ms
+                                          if dev_ms else None),
+              **times[label], ok=True)
+        del outs, pair
+    return err, times, check_ssf_rows(device, card)
+
+
+def check_ssf_rows(device, card: str) -> dict:
+    """Phase K's table: four supercells at N=64 (a density scan), 64
+    modes, 4 x 4,352 walkers in one launch: each row bit-equal to its
+    launch alone, f64 within 1e-12 of the plain version, f32 within the
+    bound of the sums' order; timed beside the single-row launch at the
+    same total width."""
+    rows, per_row, num_modes = 4, EOS_SLOTS, 64
+    specs = [mrbp.Spec(**dict(BENCH_SPEC, boson_number=EOS_NOP,
+                              supercell_size=sc)) for sc in S1B_SUPERCELLS]
+    funcs = mrbp.core_funcs(specs[0])
+    rng = np.random.default_rng(9)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        pos = torch.as_tensor(np.stack([
+            rng.uniform(0, s.supercell_size, (per_row, EOS_NOP))
+            for s in specs]), dtype=dtype, device=device)
+        cfc = dmc._rows_cfc(specs, dtype, device)
+        got = funcs.fourier_density_parts_harmonics(num_modes, pos, cfc)
+        for r, spec in enumerate(specs):
+            one = funcs.fourier_density_parts_harmonics(
+                num_modes, pos[r], mrbp.cast_params(spec.cfc_params, dtype,
+                                                    device))
+            require(torch.equal(got[r], one), f"K table {dtype} row {r} "
+                    f"bit-equal to its launch alone")
+        want = funcs.fourier_density_parts_harmonics_plain(num_modes, pos,
+                                                           cfc)
+        if dtype == torch.float64:
+            gap = ssf_f64_gap(got, want, EOS_NOP)
+            require(gap <= SSF_F64_RTOL, f"K table f64 within "
+                    f"{SSF_F64_RTOL} of the plain version: {gap}")
+            continue
+        gaps = ssf_reorder_gaps(got, want, EOS_NOP)
+        require(gaps["share_of_reorder_bound"] <= 1.0,
+                f"K table f32 within the bound of the sums' order: {gaps}")
+        single = pos.reshape(1, rows * per_row, EOS_NOP)
+        one_cfc = mrbp.cast_params(specs[0].cfc_params, dtype, device)
+        times = time_pair(
+            lambda: funcs.fourier_density_parts_harmonics(num_modes, pos,
+                                                          cfc),
+            lambda: funcs.fourier_density_parts_harmonics_plain(
+                num_modes, pos, cfc),
+            lambda: funcs.fourier_density_parts_harmonics(
+                num_modes, single, one_cfc))
+        out = {**times, **gaps,
+               **ssf_bound(rows * per_row, EOS_NOP, num_modes, rows)}
+    phase("K", check="S(k) table vs plain and single-row launches",
+          card=card, shape=[rows, per_row, EOS_NOP, num_modes],
+          f64_rtol=SSF_F64_RTOL, **out, ok=True)
+    return out
+
+
 def time_kernels(device, card: str) -> dict:
     """Phase E: kernel vs plain at the main path's shapes, in turns, each
     beside its bound; K2 also beside ``torch.randn``."""
@@ -3780,6 +3971,7 @@ def main() -> None:
     err_k3 = check_k3(device)  # J
     times = time_kernels(device, smi)  # E
     err_obd, obd_times = check_obd(device, smi)  # O
+    err_ssf, ssf_times, ssf_table = check_ssf(device, smi)  # K
 
     # The main path's launches: each run of D, G1, G2, G3, V1, V2 and, through
     # the execution layer, R0, R1 and R2 counts from 0.  K3 lies on no path (the DMC step keeps its own sequence,
@@ -3793,7 +3985,8 @@ def main() -> None:
     require(all(launches[name] > 0
                 for name in ("K1", "K1 log", "K1 vjp", "K2", "K4", "OBDM",
                              "K1 table", "K1 log table", "K2 rows",
-                             "K4 groups", "OBDM table")),
+                             "K4 groups", "OBDM table", "S(k)",
+                             "S(k) table")),
             f"every kernel of the main path launched: {launches}")
     require(per_step["K1 table"].get("S1") == 1
             and per_step["K2 rows"].get("S1") == 1
@@ -3803,6 +3996,12 @@ def main() -> None:
             f"fused VMC step K1 log's table, S2's OBDM steps the OBDM "
             f"kernel's table: {per_step}")
     require(launches["K3"] == 0, f"K3 off the main path: {launches}")
+    require(all(per_step["S(k)"].get(label, 0) > 0
+                for label in ("G1", "G2", "G3", "R1", "V1", "V2", "R2",
+                              "S2", "M5"))
+            and per_step["S(k) table"].get("S1b", 0) > 0,
+            f"the S(k) kernel on every run that measures S(k) (its table "
+            f"on S1b's rows of four supercells): {per_step}")
     dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc", "M0", "M1")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
             and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)
@@ -3831,6 +4030,8 @@ def main() -> None:
 
     times["K1 vjp"] = vjp_times["dmc shape"]
     times["OBDM"] = obd_times["production"]
+    times["S(k)"] = ssf_times["production"]
+    times["S(k) table"] = ssf_table
     obd_vmc = obd_times["variational"]
     times.update(sweep_times)
     log_dmc, g2 = times["K1 log dmc shape"], times["K4 g2"]
@@ -3895,6 +4096,17 @@ def main() -> None:
         dict(row("obd_grid_table", "OBDM table", "obd.cu", "",
                  sweep_times["OBDM table"]["max_abs_err"]),
              variant_of="obd_grid", replaces=OBD_REPLACES),
+        # Nor for S(k): the JAX package's harmonics are an XLA scan.
+        # Times at the production shape, the cells' others beside them.
+        dict(row("ssf_harmonics", "S(k)", "ssf.cu", "", err_ssf,
+                 **{f"{label}_{key}": ssf_times[label][key]
+                    for label in ("sk", "variational")
+                    for key in ("ms", "plain_ms", "device_ms", "bound_ms",
+                                "max_abs_err")}),
+             replaces=SSF_REPLACES),
+        dict(row("ssf_harmonics_table", "S(k) table", "ssf.cu", "",
+                 times["S(k) table"]["max_abs_err"]),
+             variant_of="ssf_harmonics", replaces=SSF_REPLACES),
     ]
     print(smi, flush=True)  # again, next to the result lines
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -355,7 +355,9 @@ def build_core_funcs(*,
         sin) for the other modes, with the JAX package's operation
         order.  The modes of cos and sin stack into one ``(M, 2, ...,
         N)`` buffer, two launches per mode, and reduce over the
-        particles in one sum.
+        particles in one sum.  The plain version: ``models/mrbp.py``
+        runs it on a CPU tensor and launches ``csrc/ssf.cu``, which
+        rounds every element alike, on a CUDA one.
         """
         sc = cfc.model_params.supercell_size
         theta = (torch.full_like(sc, 2 * math.pi) / sc) * pos

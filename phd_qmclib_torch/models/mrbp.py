@@ -14,8 +14,9 @@ The spec is a frozen host-side dataclass (NumPy/SciPy, copied from the
 JAX package); the functions are batched torch functions.  The fused
 energy and drift, and the fused log|psi| and energy, of :func:`core_funcs`
 run through :func:`phd_qmclib_torch.ops.pairwise.energy_and_drift`,
-which launches the hand-written CUDA kernel on a CUDA tensor, and the
-OBDM grid through :func:`phd_qmclib_torch.ops.pairwise.obd_grid` there.
+which launches the hand-written CUDA kernel on a CUDA tensor, the OBDM
+grid through :func:`phd_qmclib_torch.ops.pairwise.obd_grid` there, and
+the S(k) harmonics through :func:`phd_qmclib_torch.ops.ssf.ssf_harmonics`.
 """
 import functools
 import math
@@ -29,7 +30,7 @@ import torch
 from scipy.optimize import brentq
 
 from .. import ideal
-from ..ops import pairwise, trig
+from ..ops import pairwise, ssf, trig
 from ..ops.pbc import recast_to_supercell
 from ..utils import tracing
 from . import jastrow
@@ -719,6 +720,12 @@ def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
     launch an evaluation, a fused sweep's rows included) and runs
     :mod:`.jastrow`'s plain version, kept as
     ``one_body_density_grid_plain``, on a CPU tensor.
+    ``fourier_density_parts_harmonics`` and
+    ``fourier_density_reim_harmonics`` launch
+    :func:`phd_qmclib_torch.ops.ssf.ssf_harmonics` on a CUDA tensor (one
+    launch an evaluation, a fused sweep's rows included; the pair is
+    slots 1-2 of the parts) and run :mod:`.jastrow`'s plain recurrence,
+    kept as ``fourier_density_parts_harmonics_plain``, on a CPU tensor.
     Where a gradient with respect to the parameters is wanted (grad mode
     on and ``params`` requiring grad) on a CUDA tensor,
     ``log_psi_and_energy`` runs through
@@ -808,11 +815,50 @@ def _core_funcs_cached(static: StaticSpec) -> "jastrow.SimpleNamespace":
 
     funcs.one_body_density_grid = one_body_density_grid
     funcs.one_body_density_grid_plain = obd_plain
+
+    ssf_plain = funcs.fourier_density_parts_harmonics
+    reim_plain = funcs.fourier_density_reim_harmonics
+
+    def ssf_launch(num_modes, pos, cfc):
+        sc = torch.as_tensor(cfc.model_params.supercell_size,
+                             dtype=pos.dtype, device=pos.device)
+        out = ssf.ssf_harmonics(pos.reshape(-1, nop).contiguous(),
+                                _ssf_lengths(sc, pos), num_modes=num_modes)
+        return out.reshape(pos.shape[:-1] + out.shape[-2:])
+
+    @functools.wraps(ssf_plain)
+    def fourier_density_parts_harmonics(num_modes, pos, cfc):
+        if pos.device.type == "cpu":
+            return ssf_plain(num_modes, pos, cfc)
+        with tracing.span(tracing.SSF):
+            return ssf_launch(num_modes, pos, cfc)
+
+    @functools.wraps(reim_plain)
+    def fourier_density_reim_harmonics(num_modes, pos, cfc):
+        if pos.device.type == "cpu":
+            return reim_plain(num_modes, pos, cfc)
+        return ssf_launch(num_modes, pos, cfc)[..., 1:3]
+
+    funcs.fourier_density_parts_harmonics = fourier_density_parts_harmonics
+    funcs.fourier_density_parts_harmonics_plain = ssf_plain
+    funcs.fourier_density_reim_harmonics = fourier_density_reim_harmonics
     funcs.energy_and_drift = energy_and_drift
     funcs.log_psi_and_energy = log_psi_and_energy
     funcs.energy = lambda pos, cfc: energy_and_drift(pos, cfc)[0]
     funcs.static_spec = static
     return funcs
+
+
+def _ssf_lengths(sc: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The S(k) kernel's ``(R,)`` table of supercell sizes from ``sc``: a
+    0-d tensor (one row), or a fused sweep's ``(R, 1, ..., 1)`` beside
+    positions ``(R, ..., N)`` of as many axes (a view: no launch)."""
+    if sc.dim() and (sc.dim() != pos.dim() or sc.shape[0] != pos.shape[0]
+                     or sc.numel() != sc.shape[0]):
+        raise ValueError(f"a supercell table of shape {tuple(sc.shape)} "
+                         f"does not give rows to positions of shape "
+                         f"{tuple(pos.shape)}")
+    return sc.reshape(-1)
 
 
 def _obd_tables(szs, params: torch.Tensor, dtype: torch.dtype, device):

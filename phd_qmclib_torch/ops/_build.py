@@ -36,7 +36,7 @@ __all__ = ["build", "call", "functions", "library", "persistent_grid",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "pairwise.cu", CSRC / "prng.cu", CSRC / "histogram.cu",
-           CSRC / "diffuse.cu", CSRC / "obd.cu")
+           CSRC / "diffuse.cu", CSRC / "obd.cu", CSRC / "ssf.cu")
 #: Device code included by several sources.
 HEADERS = (CSRC / "pair_terms.cuh", CSRC / "pair_terms_grad.cuh",
            CSRC / "philox.cuh", CSRC / "trig.cuh")
@@ -57,6 +57,7 @@ _DIFFUSE = (_P, _P, _P, _P, _P, _P, _D, _D, _U64, _U64, _P, _P, _P, _P,
 _NORMALS = (_P, _I, _U64, _U64, _D, _I, _P)
 _HISTOGRAM = (_P, _P, _P, _L, _L, _I, _I, _I, _I, _P)
 _OBD = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_SSF = (_P, _P, _P, _I, _I, _I, _I, _P)
 #: Signatures of the exported launch functions (all return an int).
 SIGNATURES = {
     # pos, params (rows of PARAMS_SIZE), energy, drift, num_walkers,
@@ -86,6 +87,10 @@ SIGNATURES = {
     # num_walkers, walkers_per_row, nop, num_pos, is_free, is_ideal, stream
     "qmc_obd_grid_f32": _OBD,
     "qmc_obd_grid_f64": _OBD,
+    # pos, supercell lengths (R rows), out, num_walkers, walkers_per_row, nop, num_modes,
+    # stream
+    "qmc_ssf_harmonics_f32": _SSF,
+    "qmc_ssf_harmonics_f64": _SSF,
     # out, num_elements, key, step, scale, grid, stream
     "qmc_philox_normals_f32": _NORMALS,
     "qmc_philox_normals_f64": _NORMALS,

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from phd_qmclib_torch.models import mrbp
-from phd_qmclib_torch.ops import histogram, pairwise, prng
+from phd_qmclib_torch.ops import histogram, pairwise, prng, ssf
 from phd_qmclib_torch.samplers import dmc, vmc
 
 pytestmark = pytest.mark.cuda
@@ -1411,3 +1411,241 @@ def test_obd_kernel_rejects_bad_inputs(cuda):
     wide = torch.zeros((2, 1025), device=cuda)
     with pytest.raises(ValueError, match="nop"):
         pairwise.obd_grid(offsets, wide, params, **dict(kw, nop=1025))
+
+
+# -- the S(k) harmonics --------------------------------------------------------
+
+SSF_MODES = [1, 2, 3, 32, 64, 65]
+SSF_NOPS = [1, 2, 37, 64, 128]
+#: The f64 kernel against the f64 plain version, relative to each slot's
+#: scale (N^2 for |rho_k|^2, N for Re/Im rho_k): the same elements, the
+#: particle sums in another order.
+SSF_F64_RTOL = 1e-12
+#: The JAX package's S(k) parts at fixed inputs, made on the CPU by
+#: ``fixtures/make_ssf_harmonics_jax.py``.
+SSF_JAX_FIXTURE = (pathlib.Path(__file__).parent / "fixtures"
+                   / "ssf_harmonics_jax.npz")
+
+
+def _ssf_inputs(nop, num_walkers, dtype, device, seed=0, length=None,
+                span=(-1.0, 2.0)):
+    """Walkers uniform over ``span`` times L (the samplers' positions lie
+    in [0, L); the recurrence takes any)."""
+    length = float(nop) if length is None else length
+    spec = mrbp.Spec(**dict(BENCH, boson_number=nop, supercell_size=length))
+    pos = np.random.default_rng(seed).uniform(
+        span[0] * length, span[1] * length, (num_walkers, nop))
+    return (mrbp.core_funcs(spec),
+            torch.as_tensor(pos, dtype=dtype, device=device),
+            mrbp.cast_params(spec.cfc_params, dtype, device))
+
+
+def _ssf_close(got, want, nop, rtol):
+    torch.testing.assert_close(got[..., 0], want[..., 0], rtol=rtol,
+                               atol=rtol * nop ** 2)
+    torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=rtol,
+                               atol=rtol * nop)
+
+
+def _ssf_reorder_tol(want, nop):
+    """How far two sums of the same N float32 elements can lie apart, in
+    any two orders: each within gamma_{N-1} sum_i |x_i| of the exact sum,
+    every element within 1.01 of 0 (cos and sin, and the recurrence's
+    rounding, under 1e-2 at 65 modes); then |rho|^2 = re^2 + im^2 through
+    the squares, and its three roundings on each side."""
+    u = 2.0 ** -24
+    gamma = (nop - 1) * u / (1 - (nop - 1) * u)
+    d = 2 * gamma * 1.01 * nop
+    re, im = want[..., 1].abs(), want[..., 2].abs()
+    d0 = 2 * (re + im) * d + 2 * d * d + 6 * u * (re ** 2 + im ** 2 + 4 * d)
+    return d0, d
+
+
+@pytest.mark.parametrize("num_modes", SSF_MODES)
+@pytest.mark.parametrize("nop", SSF_NOPS)
+def test_ssf_kernel_matches_plain_f64(cuda, nop, num_modes):
+    """Each N the warp treats apart (one particle, a pair, a warp and
+    five, two and four particles a lane) and M below, at and past one and
+    two chunks of 32 modes: within 1e-12 of the plain version, the k = 0
+    mode exact; with one or two particles, where no order of the sum
+    differs, bit for bit."""
+    funcs, pos, cfc = _ssf_inputs(nop, 48, torch.float64, cuda, seed=nop)
+    count = ssf.ssf_harmonics.launch_count
+    got = funcs.fourier_density_parts_harmonics(num_modes, pos, cfc)
+    torch.cuda.synchronize()
+    assert ssf.ssf_harmonics.launch_count == count + 1
+    assert got.shape == (48, num_modes, 3)
+    want = funcs.fourier_density_parts_harmonics_plain(num_modes, pos, cfc)
+    _ssf_close(got, want, nop, SSF_F64_RTOL)
+    assert torch.equal(got[:, 0], want[:, 0])
+    if nop <= 2:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num_modes", SSF_MODES)
+@pytest.mark.parametrize("nop", SSF_NOPS)
+def test_ssf_kernel_f32_within_the_reordering_bound(cuda, nop, num_modes):
+    """f32: the kernel rounds each element as the plain version does, so
+    the two differ by the order of the particle sums alone
+    (``_ssf_reorder_tol``), and not at all with one or two particles."""
+    funcs, pos, cfc = _ssf_inputs(nop, 256, torch.float32, cuda, seed=nop)
+    got = funcs.fourier_density_parts_harmonics(num_modes, pos, cfc)
+    want = funcs.fourier_density_parts_harmonics_plain(num_modes, pos, cfc)
+    if nop <= 2:
+        assert torch.equal(got, want)
+        return
+    d0, d = _ssf_reorder_tol(want, nop)
+    assert bool(((got[..., 0] - want[..., 0]).abs() <= d0).all())
+    assert float((got[..., 1:] - want[..., 1:]).abs().max()) <= d
+    assert torch.equal(got[:, 0], want[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssf_kernel_at_the_cells_shapes(cuda, dtype):
+    """The sk, variational and production shapes' widths and modes (a
+    slice of their walkers): within the f32 reordering bound, or 1e-12
+    in f64, of the plain version; positions in [0, L), as the samplers
+    keep them."""
+    for nop, num_modes in ((64, 32), (64, 64), (128, 64)):
+        funcs, pos, cfc = _ssf_inputs(nop, 2048, dtype, cuda, seed=3,
+                                      span=(0.0, 1.0))
+        got = funcs.fourier_density_parts_harmonics(num_modes, pos, cfc)
+        want = funcs.fourier_density_parts_harmonics_plain(num_modes, pos,
+                                                           cfc)
+        if dtype == torch.float64:
+            _ssf_close(got, want, nop, SSF_F64_RTOL)
+            continue
+        d0, d = _ssf_reorder_tol(want, nop)
+        assert bool(((got[..., 0] - want[..., 0]).abs() <= d0).all())
+        assert float((got[..., 1:] - want[..., 1:]).abs().max()) <= d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssf_pair_is_the_parts_slots_bit_for_bit(cuda, dtype):
+    """The ITC amplitudes are slots 1-2 of the same kernel's output, one
+    launch each."""
+    funcs, pos, cfc = _ssf_inputs(64, 100, dtype, cuda)
+    count = ssf.ssf_harmonics.launch_count
+    parts = funcs.fourier_density_parts_harmonics(33, pos, cfc)
+    pair = funcs.fourier_density_reim_harmonics(33, pos, cfc)
+    torch.cuda.synchronize()
+    assert ssf.ssf_harmonics.launch_count == count + 2
+    assert pair.shape == (100, 33, 2)
+    assert torch.equal(pair, parts[..., 1:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssf_kernel_without_walkers(cuda, dtype):
+    funcs, pos, cfc = _ssf_inputs(16, 0, dtype, cuda)
+    counts = (ssf.ssf_harmonics.launch_count,
+              ssf.ssf_harmonics.table_launch_count)
+    got = funcs.fourier_density_parts_harmonics(5, pos, cfc)
+    assert got.shape == (0, 5, 3) and got.device.type == "cuda"
+    assert funcs.fourier_density_reim_harmonics(5, pos, cfc).shape \
+        == (0, 5, 2)
+    assert (ssf.ssf_harmonics.launch_count,
+            ssf.ssf_harmonics.table_launch_count) == counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssf_kernel_rows_equal_their_single_row_launches(cuda, dtype):
+    """A fused sweep's four rows at fixed N and four L (a density scan)
+    in one launch of the table: each row bit for bit its launch alone, and
+    within 1e-12 of the plain version in f64."""
+    lengths = (64.0, 60.5, 70.0, 48.0)
+    specs = [mrbp.Spec(**dict(BENCH, boson_number=64, supercell_size=sc))
+             for sc in lengths]
+    rng = np.random.default_rng(7)
+    pos = torch.as_tensor(np.stack([
+        rng.uniform(0, sc, (40, 64)) for sc in lengths]), dtype=dtype,
+        device=cuda)
+    cfc = dmc._rows_cfc(specs, dtype, cuda)
+    funcs = mrbp.core_funcs(specs[0])
+    count = ssf.ssf_harmonics.table_launch_count
+    got = funcs.fourier_density_parts_harmonics(40, pos, cfc)
+    torch.cuda.synchronize()
+    assert ssf.ssf_harmonics.table_launch_count == count + 1
+    assert got.shape == (4, 40, 40, 3)
+    for r, spec in enumerate(specs):
+        alone = funcs.fourier_density_parts_harmonics(
+            40, pos[r], mrbp.cast_params(spec.cfc_params, dtype, cuda))
+        assert torch.equal(got[r], alone), r
+    want = funcs.fourier_density_parts_harmonics_plain(40, pos, cfc)
+    if dtype == torch.float64:
+        _ssf_close(got, want, 64, SSF_F64_RTOL)
+    else:
+        d0, d = _ssf_reorder_tol(want, 64)
+        assert float((got[..., 1:] - want[..., 1:]).abs().max()) <= d
+
+
+@pytest.mark.parametrize("name", ["odd", "production", "sk"])
+def test_ssf_kernel_matches_the_jax_package_f64(cuda, name):
+    """The dispatched S(k) parts on the card in f64 against the JAX
+    package's own on the CPU, at the same inputs:
+    ``fixtures/ssf_harmonics_jax.npz`` (N = 128 at 64 modes, 64 at 32,
+    37 at 65 with L = 40.5 and positions across (-L, 2L)), which
+    ``test_torch_estimators.py`` keeps equal to what the JAX package
+    computes there."""
+    with np.load(SSF_JAX_FIXTURE) as fixture:
+        kwargs = json.loads(str(fixture[f"{name}_spec"]))
+        num_modes = int(fixture[f"{name}_modes"])
+        pos, want = fixture[f"{name}_pos"], fixture[f"{name}_parts"]
+    spec = mrbp.Spec(**kwargs)
+    count = ssf.ssf_harmonics.launch_count
+    got = mrbp.core_funcs(spec).fourier_density_parts_harmonics(
+        num_modes, torch.as_tensor(pos, device=cuda),
+        mrbp.cast_params(spec.cfc_params, torch.float64, cuda))
+    torch.cuda.synchronize()
+    assert ssf.ssf_harmonics.launch_count == count + 1
+    _ssf_close(got.cpu(), torch.as_tensor(want), kwargs["boson_number"],
+               SSF_F64_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("length", [1.0, 3.0, 40.5, 60.0, 127.3])
+@pytest.mark.parametrize("nop", [1, 2])
+def test_ssf_kernel_divides_as_the_plain_version(cuda, nop, length, dtype):
+    """With one or two particles no order of the sum differs, so every
+    mode is bit for bit the plain version's: the kernel's k_1 = 2 pi / L
+    is torch's division, and each element is rounded alike."""
+    funcs, pos, cfc = _ssf_inputs(nop, 64, dtype, cuda, length=length)
+    got = funcs.fourier_density_parts_harmonics(65, pos, cfc)
+    assert torch.equal(got, funcs.fourier_density_parts_harmonics_plain(
+        65, pos, cfc))
+
+
+def test_ssf_kernel_rejects_bad_inputs(cuda):
+    pos = torch.zeros((8, 64), device=cuda)
+    lengths = torch.full((1,), 64.0, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssf.ssf_harmonics(torch.zeros((64, 8), device=cuda).t(), lengths,
+                          num_modes=4)
+    with pytest.raises(ValueError, match="table"):
+        ssf.ssf_harmonics(pos, lengths.cpu(), num_modes=4)
+    with pytest.raises(ValueError, match="table"):
+        ssf.ssf_harmonics(pos, lengths.double(), num_modes=4)
+    with pytest.raises(ValueError, match="table"):
+        ssf.ssf_harmonics(pos, lengths.expand(3).contiguous(), num_modes=4)
+    with pytest.raises(ValueError, match="shape"):
+        ssf.ssf_harmonics(torch.zeros((2, 1025), device=cuda), lengths,
+                          num_modes=4)
+
+
+@pytest.mark.parametrize("est_every", [1, 4])
+def test_vmc_on_the_card_measures_s_k_through_the_kernel(cuda, est_every):
+    """Every S(k) evaluation of a VMC block on the card is one launch:
+    each step's proposal in the every-step mode, each measured chunk in
+    the chunked one, and the seed of the state's parts."""
+    spec = mrbp.Spec(**dict(BENCH, boson_number=64, supercell_size=64.0))
+    confs = np.random.default_rng(1).uniform(0, 64.0, (256, 64))
+    sampling = vmc.Sampling(spec, move_spread=0.3, num_walkers=256,
+                            rng_seed=3, est_every=est_every,
+                            ssf_est_spec=vmc.SSFEstSpec(num_modes=32))
+    count = ssf.ssf_harmonics.launch_count
+    state = sampling.build_state(confs.astype(np.float32), device=cuda)
+    assert ssf.ssf_harmonics.launch_count == count + 1
+    block = next(sampling.blocks(16, state))
+    torch.cuda.synchronize()
+    assert ssf.ssf_harmonics.launch_count == count + 1 + 16 // est_every
+    assert torch.equal(block.iter_ssf[:, 0, 1],
+                       torch.full_like(block.iter_ssf[:, 0, 1], 64 * 256))

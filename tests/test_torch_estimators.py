@@ -105,6 +105,36 @@ def test_obdm_grid_fixture_is_the_jax_packages(name):
     np.testing.assert_allclose(got.numpy(), stored, rtol=RTOL, atol=RTOL)
 
 
+SSF_JAX_FIXTURE = (pathlib.Path(__file__).parent / "fixtures"
+                   / "ssf_harmonics_jax.npz")
+
+
+@pytest.mark.parametrize("name", ["odd", "production", "sk"])
+def test_ssf_harmonics_fixture_is_the_jax_packages(name):
+    """``fixtures/ssf_harmonics_jax.npz``, which the card's S(k) kernel is
+    held against (``test_torch_cuda_kernels.py``), is what the JAX package
+    computes at its inputs now, and the port's plain version agrees."""
+    with np.load(SSF_JAX_FIXTURE) as fixture:
+        kwargs = json.loads(str(fixture[f"{name}_spec"]))
+        num_modes = int(fixture[f"{name}_modes"])
+        pos, stored = fixture[f"{name}_pos"], fixture[f"{name}_parts"]
+    nop = kwargs["boson_number"]
+    assert pos.shape == (8, nop) and stored.shape == (8, num_modes, 3)
+    jspec = jmrbp.Spec(**kwargs)
+    want = np.asarray(jmrbp.core_funcs(jspec).fourier_density_parts_harmonics(
+        num_modes, jnp.asarray(pos),
+        jax.tree.map(jnp.float64, jspec.cfc_params)))
+    np.testing.assert_allclose(want, stored, rtol=1e-14, atol=1e-14 * nop**2)
+    tfuncs = tmrbp.core_funcs(tmrbp.Spec(**kwargs))
+    got = tfuncs.fourier_density_parts_harmonics(
+        num_modes, torch.as_tensor(pos),
+        tmrbp.cfc_params_from_numpy(jspec.cfc_params)).numpy()
+    np.testing.assert_allclose(got[..., 0], stored[..., 0], rtol=RTOL,
+                               atol=RTOL * nop ** 2)
+    np.testing.assert_allclose(got[..., 1:], stored[..., 1:], rtol=RTOL,
+                               atol=RTOL * nop)
+
+
 @pytest.mark.parametrize("num_bins", [7, 16])
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_pair_dist_histogram_matches_jax(name, num_bins):

@@ -1,11 +1,13 @@
 """An older checkout's kernels against this tree's, in one process on one
 card: K1 log's parameter VJP, K2's rows kernel and K3; and the OBDM grid's
-kernel against the plain version that it replaced.
+and the S(k) harmonics' kernels against the plain versions that they
+replaced.
 
     PYTHONPATH=. python tools/kernel_compare.py [vjp] [k2_rows] [k3] [obd] \
-        [--parent build/parent] [--out-dir build/compare]
+        [ssf] [--parent build/parent] [--out-dir build/compare]
 
-(no kernel named: all four; ``--parent`` is needed by all but ``obd``).
+(no kernel named: all five; ``--parent`` is needed by all but ``obd`` and
+``ssf``).
 The older checkout (``git archive <commit>`` unpacked into a git-ignored
 directory) builds its kernel library with its own ``ops/_build.py``, in
 a subprocess, into its own ``build/``; this tree's builds as a launch
@@ -44,7 +46,21 @@ functions, so each kernel runs on the same inputs from both, in turns
   of a call (CUDA events; the plain version's some thousand launches are
   back to back), and in f32 the kernel's share of its bound
   (``chip_smoke.obd_bound``: ``OBD_FLOPS_PER_PAIR`` flops for each of
-  the N (N - 1) (M + 1) ordered pairs, ``csrc/obd.cu``).
+  the N (N - 1) (M + 1) ordered pairs, ``csrc/obd.cu``);
+* ``ssf``: ``qmc_ssf_harmonics_{f32,f64}`` (``ssf.ssf_harmonics``) at
+  ``chip_smoke.SSF_SHAPES``, the sk, variational and production cells'
+  16384 x 64 x 32, 16384 x 64 x 64 and 17408 x 128 x 64 (walkers,
+  particles, modes), positions uniform in [0, L), against the plain
+  recurrence (``models/jastrow.py``'s ``_harmonics_reim``, which a CUDA
+  tensor ran before the kernel and still runs as
+  ``fourier_density_parts_harmonics_plain``), in turns (plain, kernel,
+  kernel, plain): the f32 kernel's gap from the plain f32 version as a
+  share of the bound of the sums' order (``chip_smoke.ssf_reorder_gaps``:
+  at most 1), the f64 kernel within 1e-12 of each slot's scale; the time
+  of a call through the dispatch (CUDA events; launch included), of the
+  kernel's launch alone and its device time (profiler), and in f32 the share of the bound
+  (``chip_smoke.ssf_bound``: ``SSF_FLOPS_PER_ELEMENT`` flops for each
+  particle and mode, ``csrc/ssf.cu``).
 
 Prints the card's name and power limit, then one JSON line per
 measurement.  With ``--out-dir`` it writes both builds' ``-Xptxas -v``
@@ -64,7 +80,7 @@ import torch
 
 import chip_smoke as cs
 from phd_qmclib_torch.models import mrbp
-from phd_qmclib_torch.ops import _build, pairwise, prng
+from phd_qmclib_torch.ops import _build, pairwise, prng, ssf
 
 VJP_SHAPES = (("dmc shape", cs.BENCH_SPEC, 4096),
               ("vmc shape", cs.VMC_SPEC, cs.VMC_CHAINS))
@@ -76,7 +92,9 @@ OBD_SHAPES = (("production", cs.BENCH_SPEC, cs.MAX_WALKERS),
               ("variational", cs.VMC_SPEC, cs.VMC_CHAINS))
 #: Reps of one timing (kernel, plain) by dtype.
 OBD_REPS = {torch.float32: (20, 2), torch.float64: (5, 1)}
-COMPARES = ("vjp", "k2_rows", "k3", "obd")
+#: Reps of one timing (kernel, plain) by dtype.
+SSF_REPS = {torch.float32: (200, 5), torch.float64: (50, 2)}
+COMPARES = ("vjp", "k2_rows", "k3", "obd", "ssf")
 
 
 def build_parent(parent: Path) -> tuple:
@@ -376,6 +394,72 @@ def compare_obd(device, card) -> None:
                 raise SystemExit(f"OBDM grid {suffix} {label}: {gaps}")
 
 
+def compare_ssf(device, card) -> None:
+    for label, walkers, nop, num_modes in cs.SSF_SHAPES:
+        spec = mrbp.Spec(**dict(cs.BENCH_SPEC, boson_number=nop,
+                                supercell_size=float(nop)))
+        funcs = mrbp.core_funcs(spec)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(nop + num_modes)
+        pos64 = nop * torch.rand((walkers, nop), generator=gen,
+                                 dtype=torch.float64, device=device)
+        for dtype in (torch.float64, torch.float32):
+            suffix = "f32" if dtype == torch.float32 else "f64"
+            pos = pos64.to(dtype)
+            cfc = mrbp.cast_params(spec.cfc_params, dtype, device)
+            lengths = cfc.model_params.supercell_size.reshape(1)
+            outs = {}
+
+            def kernel():
+                outs["kernel"] = funcs.fourier_density_parts_harmonics(
+                    num_modes, pos, cfc)
+
+            def plain():
+                outs["plain"] = funcs.fourier_density_parts_harmonics_plain(
+                    num_modes, pos, cfc)
+
+            def alone():
+                ssf.ssf_harmonics(pos, lengths, num_modes=num_modes)
+
+            kernel()
+            plain()
+            torch.cuda.synchronize()
+            if dtype == torch.float64:
+                gap = cs.ssf_f64_gap(outs["kernel"], outs["plain"], nop)
+                check = {"f64_max_rel_err": gap}
+                ok = gap <= cs.SSF_F64_RTOL
+            else:
+                check = cs.ssf_reorder_gaps(outs["kernel"], outs["plain"],
+                                            nop)
+                ok = check["share_of_reorder_bound"] <= 1.0
+            ok = ok and torch.equal(outs["kernel"][:, 0],
+                                    outs["plain"][:, 0])
+            reps = SSF_REPS[dtype]
+            p1 = cs.cuda_ms(plain, reps[1])
+            k1_ms = cs.cuda_ms(kernel, reps[0])
+            k2_ms = cs.cuda_ms(kernel, reps[0])
+            p2 = cs.cuda_ms(plain, reps[1])
+            times = {"plain": [p1, p2], "call": [k1_ms, k2_ms]}
+            out = {"kernel": "S(k) harmonics", "dtype": suffix,
+                   "shape": [walkers, nop, num_modes], "label": label,
+                   "card": card, "ms": times,
+                   "kernel_alone_ms": cs.cuda_ms(alone, reps[0]),
+                   "device_ms": cs.device_ms(alone, reps[0]), **check,
+                   "ok": ok}
+            if dtype == torch.float32:
+                least = cs.ssf_bound(walkers, nop, num_modes)
+                out.update(least, share_of_bound={
+                    k: least["bound_ms"] / (sum(v) / 2)
+                    for k, v in times.items()},
+                    device_share_of_bound=(least["bound_ms"]
+                                           / out["device_ms"]
+                                           if out["device_ms"] else None))
+            print(json.dumps(out), flush=True)
+            del outs
+            if not ok:
+                raise SystemExit(f"S(k) {suffix} {label}: {check}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("compares", nargs="*", choices=COMPARES,
@@ -393,7 +477,7 @@ def main() -> None:
     print(card, flush=True)
     compares = args.compares or COMPARES
     builds = [("new", _build.build(), _build.LIBRARY)]
-    if set(compares) - {"obd"}:
+    if set(compares) - {"obd", "ssf"}:
         if args.parent is None:
             raise SystemExit("--parent is needed by vjp, k2_rows and k3")
         parent_lib, parent_log = build_parent(args.parent.resolve())
@@ -408,6 +492,8 @@ def main() -> None:
                                stdout=out, stderr=subprocess.STDOUT)
     if "obd" in compares:
         compare_obd(device, card)
+    if "ssf" in compares:
+        compare_ssf(device, card)
     if len(builds) == 1:
         return
     names = ["qmc_pair_logpsi_params_vjp_f32",
