@@ -22,7 +22,7 @@ C. the Philox normals kernel (K2) against its plain torch version: equal
    the accurate ``logf``/``sqrtf`` form over all 2^24 values of each
    uniform;
 D. a small f64 replay on the card against the same replay on the CPU,
-   then the DMC run: 6 burn blocks and 2 timed blocks of 512 steps;
+   then the DMC run: 6 burn blocks and 2 measured blocks of 512 steps;
    E/N must land within 0.02 of the stored 8.41614 and inside the
    physical bracket (8.0107, 8.5089), K1 must have been launched on
    every step and K2 exactly once per step (the noise comes scaled);
@@ -42,15 +42,14 @@ G. DMC with estimators from phase D's last state: small f64 replays of
    density, S(k) with a 512-step window, 32-point OBDM and 128-bin g2
    every 64th step; CM diffusion with an 8-block window), and G3, the
    production example whole, with its pure ITC estimator (32 modes, 64
-   lags, every 256th step), 2 timed blocks of 512 steps each: the E/N
-   band, the sum rules at every measured step, and the kernels' launch
-   counts.  G3 starts from G2's state on G2's random streams: its
+   lags, every 256th step), 2 blocks of 512 steps each: the E/N band,
+   the sum rules at every measured step, and the kernels' launch counts;
+   G1's rate, ms per step and peak memory (no benchmark cell runs its
+   load).  G3 starts from G2's state on G2's random streams: its
    per-step ensemble scalars and final positions must equal G2's bit for
    bit (the estimator must not touch the dynamics); at every ITC row
    the k = 0 column is N^2 times the counts, lags beyond the fill carry
-   zero sums and counts, and the fill counter ends at 4.  One ITC
-   measuring step is timed on its own (the buffer gather, the
-   amplitudes, the products and sums, the shift);
+   zero sums and counts, and the fill counter ends at 4;
 P. physics through the port's own statistics layer: the free ideal gas's
    F(k, tau) / F(k, 0) = exp(-k^2 tau), mixed and pure, at 16,384
    walkers, within 5 reblocked errors of its block-to-block spread (k = 0
@@ -65,14 +64,14 @@ I. a small f64 VMC replay on the card against the same replay on the
    CPU (injected moves and acceptance uniforms, uniform and Gaussian
    proposals): equal acceptance decisions, positions within 1e-12;
 V1. VMC at the bench VMC configuration (move_spread 0.4, 32-mode S(k)
-   every step, uniform random starts): 1 burn block and 2 timed blocks
-   of 512 steps; E/N and the acceptance must land in the band of the
-   JAX package's VMC run of the same protocol on a CPU; the S(k) sum
+   every step, uniform random starts): 1 burn block and 2 measured
+   blocks of 512 steps; E/N and the acceptance must land in the band of
+   the JAX package's VMC run of the same protocol on a CPU; the S(k) sum
    rules at every step;
 V2. the variational example (``examples/vmc_variational.yml``:
    move_spread 0.25, ``est_every`` 8, 64-mode S(k), 32-point OBDM every
    64th step, regular start) without its checkpoints and HDF5 output: 1
-   burn block and 1 timed block of 512 steps; the S(k) and OBDM sum
+   burn block and 1 measured block of 512 steps; the S(k) and OBDM sum
    rules at every measured step;
 J. the fused diffusion kernel (K3) against its plain version and the
    DMC step's own diffusion (``dmc.Sampling.diffuse`` on K2's noise: K2,
@@ -115,8 +114,7 @@ R. the same paths through the execution layer (``qmc_exec``), from
    R0, the entry from nothing: ``dmc.Proc.from_config`` at the bench
    configuration, ``ProcInput.from_model_sys_conf_spec(RANDOM)`` (16,384
    configurations), ``exec`` with D's depth; E/N from
-   ``result.data.blocks.energy`` within 0.02 of 8.41614; its ms/step and
-   walker-steps/s beside D's;
+   ``result.data.blocks.energy`` within 0.02 of 8.41614;
    R1, the production example through ``Proc.exec``: one block from the
    state G3 starts from, on G3's streams and with G3's sampling (the
    controller factor of ``bench.py``'s sampling, and a CM window of the
@@ -124,8 +122,7 @@ R. the same paths through the execution layer (``qmc_exec``), from
    ``ref_energy`` and ``accum_energy`` series and every estimator series
    must equal G3's first block bit for bit (after the same cast to f64),
    the pure ITC window sample G3's last ITC row; the sum rules read from
-   ``result.data``; its ms/step beside G3's; and the host time of a
-   block's conversions and ``_BlockAccumulator.add`` at these shapes;
+   ``result.data``;
    R2, the variational example through ``vmc.Proc.exec``: one burn block
    and one block from the example's regular start, series bit-equal to
    V2's block reduced the same way, the acceptance V2's;
@@ -202,7 +199,7 @@ S. fused parameter sweeps (``phd_qmclib_torch.parallel``,
 M. several ranks, a walker mesh (one process per rank,
    ``parallel.launch``): M0, the bench configuration through
    ``Proc.exec`` with ``num_mesh_devices: 1``, one rank over NCCL (its
-   collectives every step), E/N in the band, ms/step beside R0's; M1, 4
+   collectives every step), E/N in the band, its ms/step; M1, 4
    gloo ranks on the card (NCCL takes one rank per GPU), 4 x 4,352 slots
    from D's state with density and S(k) and a rebalance at every block:
    E/N in the band, the sum rules at every measured step, a rebalance
@@ -270,6 +267,12 @@ from phd_qmclib_torch.qmc_exec import (cli_app, dmc as dmc_exec, report,
                                        sweep as sweep_exec, vmc as vmc_exec)
 from phd_qmclib_torch.samplers import dmc, vmc
 from phd_qmclib_torch.stats import native, reblock
+# The peaks, K1's flop counts and the bound arithmetic: the benchmark's
+# frozen copy, read also as ``chip_smoke.<name>`` by
+# ``tools/kernel_compare.py`` and the tests.
+from portbench.yardstick import (F32_BYTES, K1_FLOPS_PER_PAIR,
+                                 K1_LOG_FLOPS_PER_PAIR, PEAK_FP32_FLOPS,
+                                 PEAK_HBM_BYTES_PER_S, bound, k1_bound)
 
 NOP = 128
 TARGET_WALKERS = 16384
@@ -330,21 +333,17 @@ VMC_ACCEPT_REF, VMC_ACCEPT_TOL = 0.23790, 0.0019
 #: and drift as for the forward variant.
 K1_LOG_F32_TOL = dict(K1_F32_TOL, log_psi_rtol=1e-5, log_psi_atol=1e-4)
 
-#: The least time of a kernel (``bound``): published peaks of one H100
-#: SXM at its 700 W limit (NVIDIA's data sheet): FP32 outside the tensor
-#: cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES_PER_S = 3.35e12
-#: Flops per unit of work, as the CUDA sources count them (fma = 2, a
-#: MUFU op = 1; compares, selects and integer ops not counted, so each
-#: bound stays a least time): K1 per unordered pair, forward and log|psi|
-#: (``csrc/pair_terms.cuh::walker_terms``; the O(N) one-body terms and
-#: reductions left out); one Box-Muller per pair of normals
+#: Flops per unit of work, counted as ``portbench/yardstick.py`` counts
+#: K1's (``K1_FLOPS_PER_PAIR``, ``K1_LOG_FLOPS_PER_PAIR``, per unordered
+#: pair in ``csrc/pair_terms.cuh::walker_terms``; fma = 2, a MUFU op = 1;
+#: compares, selects and integer ops not counted, so each bound stays a
+#: least time): one Box-Muller per pair of normals
 #: (``csrc/philox.cuh::box_muller``: ~40 flops, 20 per normal; the
 #: Philox rounds are integer ops); K4 per element (the exact floor of
 #: ``csrc/histogram.cu::FastBin``: the multiply by the reciprocal, the
 #: floor, the fma of the remainder and the one correction).
-K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
+K2_FLOPS_PER_NORMAL = 20
+K4_FLOPS_PER_ELEMENT = 5
 #: K1 log's parameter VJP per unordered pair as written
 #: (``csrc/pair_terms_grad.cuh::pair_vjp_terms``, counted the same way):
 #: 28 common to both branches (the difference, the image, the rational
@@ -360,8 +359,6 @@ K1_FLOPS_PER_PAIR, K1_LOG_FLOPS_PER_PAIR = 28, 40
 #: then 25 and 28.
 K1_VJP_FLOPS_IN_CUT, K1_VJP_FLOPS_OUTSIDE = 39, 35
 K1_VJP_FIRST_DESIGN_FLOPS = (57, 60)
-K2_FLOPS_PER_NORMAL = 20
-K4_FLOPS_PER_ELEMENT = 5
 #: K3 (``csrc/diffuse.cu``), counted the same way: per element its move
 #: (4) and its share of a Box-Muller (20); per unordered pair outside the
 #: cutoff the fast body of ``ring_pair`` (the difference 1, the image
@@ -400,7 +397,6 @@ SSF_SHAPES = (("sk", 16384, 64, 32), ("variational", 16384, 64, 64),
 #: The S(k) kernel in f64 against the f64 plain version, relative to each
 #: slot's scale (N^2 for |rho_k|^2, N for Re/Im rho_k).
 SSF_F64_RTOL = 1e-12
-F32_BYTES = 4
 
 #: Phase G's estimator loads.
 G1_ESTIMATORS = dict(
@@ -783,7 +779,7 @@ def bench_sampling(spec_kwargs=BENCH_SPEC, **estimators) -> dmc.Sampling:
 
 
 def check_energy(props_list, label: str) -> float:
-    """E/N of the timed blocks, held to the stored band."""
+    """E/N of the measured blocks, held to the stored band."""
     e_per_boson = float(np.mean([
         float(p.energy.double().sum() / p.weight.double().sum())
         for p in props_list])) / NOP
@@ -797,7 +793,7 @@ def check_energy(props_list, label: str) -> float:
 
 def run_dmc(device, card: str):
     """Phase D: the main path at the bench configuration.  Returns the
-    launch counts, the last state and the timings."""
+    launch counts and the last state."""
     spec = mrbp.Spec(**BENCH_SPEC)
     sampling = bench_sampling()
     rng = np.random.default_rng(0)
@@ -805,25 +801,16 @@ def run_dmc(device, card: str):
                       for _ in range(TARGET_WALKERS)]).astype(np.float32)
 
     reset_counts()
-    t_start = time.perf_counter()
     state = sampling.build_state(confs, dtype=np.float32, device=device)
     blocks = sampling.blocks(state, num_time_steps_block=NTS,
                              burn_in_blocks=BURN_BLOCKS)
     for _ in range(BURN_BLOCKS):
         block = next(blocks)
-    burn_s = time.perf_counter() - t_start
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
     props_list, walker_steps = [], 0
     for _ in range(TIMED_BLOCKS):
-        block = next(blocks)  # ends in a fetch of the block's props
+        block = next(blocks)
         props_list.append(block.iter_props)
         walker_steps += int(block.iter_props.num_walkers.sum())
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
     launches = read_counts()
 
     steps_run = (BURN_BLOCKS + TIMED_BLOCKS) * NTS
@@ -837,16 +824,11 @@ def run_dmc(device, card: str):
     require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
             f"kernel launches {launches}: K1 on each of {steps_run} steps, "
             f"K2 once per step")
-    step_ms = start.elapsed_time(end) / (TIMED_BLOCKS * NTS)
     phase("D", check="DMC bench config", card=card, steps_run=steps_run,
-          burn_s=burn_s, timed_wall_s=wall_s,
-          walker_steps_per_s=walker_steps / wall_s,
-          step_ms_cuda_events=step_ms,
           mean_num_walkers=walker_steps / (TIMED_BLOCKS * NTS),
           energy_per_boson=e_per_boson,
           energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
-    return launches, last, {"walker_steps_per_s": walker_steps / wall_s,
-                            "step_ms_cuda_events": step_ms}
+    return launches, last
 
 
 def check_k4(device) -> float:
@@ -1072,33 +1054,42 @@ def check_sum_rules(sampling: dmc.Sampling, block) -> dict:
 
 
 def run_estimators(device, card: str, state, label: str, estimators: dict,
-                   block_offset: int, baseline: dict) -> dict:
-    """Phase G1/G2/G3: 2 timed blocks with estimators from ``state``.
-    Returns the launch counts of the run, its per-step ensemble scalars
-    and its final state."""
+                   block_offset: int, timed: bool = False) -> dict:
+    """Phase G1/G2/G3: 2 blocks with estimators from ``state``, and with
+    ``timed`` (G1's load, which no benchmark cell runs) their rate,
+    CUDA-event ms per step and peak memory.  Returns the launch counts of
+    the run, its per-step ensemble scalars and its final state."""
     sampling = bench_sampling(**estimators)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
     blocks = sampling.blocks(state, num_time_steps_block=NTS,
                              block_offset=block_offset)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    done, walker_steps = [], 0
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+    done = []
     for _ in range(TIMED_BLOCKS):
         block = next(blocks)
         # Only the last block's state is kept: an earlier one would hold
-        # its ITC ring buffer alive and count in the peak.
+        # its ITC ring buffer alive.
         last = block.last_state
         done.append(block._replace(last_state=None))
-        walker_steps += int(block.iter_props.num_walkers.sum())
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    rate = {}
+    if timed:
+        end.record()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        walker_steps = sum(int(b.iter_props.num_walkers.sum()) for b in done)
+        rate = dict(
+            timed_wall_s=wall_s, walker_steps_per_s=walker_steps / wall_s,
+            step_ms_cuda_events=start.elapsed_time(end) / (TIMED_BLOCKS
+                                                           * NTS),
+            peak_device_memory_gb=torch.cuda.max_memory_allocated(device)
+            / 1e9)
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     steps_run = TIMED_BLOCKS * NTS
     e_per_boson = check_energy([b.iter_props for b in done], label)
     sum_rules = [check_sum_rules(sampling, b) for b in done]
@@ -1125,15 +1116,11 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
                 == steps_run // sampling._every(sampling.itc_est_spec),
                 f"ITC fill counter after {itc['itc_rows']} rows: "
                 f"{itc['itc_filled']}")
-    step_ms = start.elapsed_time(end) / steps_run
     phase(label, check="DMC with estimators", card=card,
           estimators=sorted(k for k, v in estimators.items()
                             if k.endswith("_spec") and v is not None)
           + (["cm_diffusion"] if sampling.cm_diffusion_est else []),
-          est_every=sampling.est_every, steps_run=steps_run,
-          timed_wall_s=wall_s, walker_steps_per_s=walker_steps / wall_s,
-          step_ms_cuda_events=step_ms,
-          estimators_off_D=baseline, peak_device_memory_gb=peak_gb,
+          est_every=sampling.est_every, steps_run=steps_run, **rate,
           energy_per_boson=e_per_boson,
           energy_dev=e_per_boson - ENERGY_REF,
           measured_rows={name: sum(len(getattr(b, f"iter_{name}"))
@@ -1145,8 +1132,7 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
                                 for k in sum_rules[0]}, **itc,
           launches=launches, ok=True)
     return {"launches": launches, "props": [b.iter_props for b in done],
-            "pos": last.pos, "step_ms": step_ms, "peak_gb": peak_gb,
-            "blocks": done}
+            "pos": last.pos, "blocks": done}
 
 
 def check_same_trajectory(with_itc: dict, without: dict) -> None:
@@ -1160,64 +1146,6 @@ def check_same_trajectory(with_itc: dict, without: dict) -> None:
             "G3 final positions equal to G2's")
     phase("G3", check="trajectory bit-equal to G2's",
           steps=sum(len(p.energy) for p in with_itc["props"]), ok=True)
-
-
-def time_itc_step(device, card: str, state, g2_step_ms: float,
-                  g3: dict) -> None:
-    """One ITC measuring step at G3's shape, timed on its own (CUDA
-    events): the whole step of an ITC-only sampling, which computes its
-    amplitudes itself (G3 slices them from the S(k) parts of the step),
-    and its items, the ring buffer's gather, the amplitudes, the shift."""
-    sampling = bench_sampling(est_every=8, itc_est_spec=G3_ITC)
-    dtype = state.pos.dtype
-    consts = sampling._consts(dtype, device)
-    aux = sampling._fresh_aux(dtype, device, 1)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(5)
-    buf = torch.randn(sampling._itc_buf_shape, generator=gen, dtype=dtype,
-                      device=device)
-    filled = torch.tensor(G3_ITC.num_lags, dtype=torch.int32, device=device)
-    # The step's estimators run on rows (a sampling is one).
-    full = dmc._as_rows(state._replace(itc_buf=buf, itc_filled=filled))
-    parent = torch.randint(0, int(state.num_walkers), (MAX_WALKERS,),
-                           generator=gen, device=device).sort().values
-    valid = torch.arange(MAX_WALKERS, device=device) < state.num_walkers
-    branch = dmc._Branch(parent[None], state.pos[None], valid[None])
-    period = sampling._every(G3_ITC)
-
-    def measure():
-        return sampling._estimate(consts, aux, None, parent[None], branch,
-                                  full, period - 1)[1]
-
-    require(measure()["itc"].shape == (1, G3_ITC.num_lags + 1,
-                                       G3_ITC.num_modes),
-            "the timed step measured the ITC rows")
-    funcs = sampling.core_funcs
-    reim = funcs.fourier_density_reim_harmonics(G3_ITC.num_modes, state.pos,
-                                                consts.cfc)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    before = torch.cuda.memory_allocated(device)
-    items = {
-        "itc_step_ms": cuda_ms(measure, 10),
-        "gather_ms": cuda_ms(lambda: buf[parent], 10),
-        "amplitudes_ms": cuda_ms(
-            lambda: funcs.fourier_density_reim_harmonics(
-                G3_ITC.num_modes, state.pos, consts.cfc), 10),
-        "shift_ms": cuda_ms(
-            lambda: torch.cat([reim[:, None], buf[:, :-1]], dim=1), 10),
-    }
-    items["products_and_sums_ms"] = items["itc_step_ms"] - sum(
-        items[name] for name in ("gather_ms", "amplitudes_ms", "shift_ms"))
-    extra_gb = (torch.cuda.max_memory_allocated(device) - before) / 1e9
-    phase("G3", check="one ITC measuring step", card=card,
-          shape=list(buf.shape), buffer_gb=buf.numel() * buf.element_size()
-          / 1e9, **items, step_extra_peak_memory_gb=extra_gb,
-          steps_between=period,
-          itc_ms_per_step_amortized=items["itc_step_ms"] / period,
-          g3_step_ms_cuda_events=g3["step_ms"],
-          g2_step_ms_cuda_events=g2_step_ms,
-          g3_peak_device_memory_gb=g3["peak_gb"], ok=True)
 
 
 def reblocked(series) -> tuple:
@@ -1445,29 +1373,17 @@ def vmc_rows_sum_rules(block, chains: int) -> dict:
 
 def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
             confs: np.ndarray, timed_blocks: int) -> dict:
-    """Phases V1/V2: 1 burn block and ``timed_blocks`` timed blocks of
-    ``NTS`` steps from ``confs``.  Returns E/N, the acceptance, the rate,
-    the launch counts and the protocol that was run."""
+    """Phases V1/V2: 1 burn block and ``timed_blocks`` measured blocks
+    of ``NTS`` steps from ``confs``.  Returns E/N, the acceptance, the
+    launch counts and the protocol that was run."""
     chains = sampling.num_walkers
     burn_blocks = 1
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    t_start = time.perf_counter()
     state = sampling.build_state(confs, dtype=torch.float32, device=device)
     blocks = sampling.blocks(NTS, state)
     burn = [next(blocks) for _ in range(burn_blocks)][-1]
-    burn_s = time.perf_counter() - t_start
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    done = [next(blocks) for _ in range(timed_blocks)]  # each ends in a fetch
-    end.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    done = [next(blocks) for _ in range(timed_blocks)]
     launches = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     steps_run = (burn_blocks + timed_blocks) * NTS
     require(launches["K1 log"] >= steps_run,
             f"{label}: K1 log launches {launches} cover {steps_run} steps")
@@ -1481,12 +1397,8 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
             and np.isfinite(e_per_n) and 0 < accept < 1,
             f"{label}: finite chains of the ensemble's shape")
     sum_rules = [vmc_rows_sum_rules(b, chains) for b in done]
-    step_ms = start.elapsed_time(end) / (timed_blocks * NTS)
-    rate = chains * timed_blocks * NTS / wall_s
     phase(label, check="VMC", card=card, chains=chains,
-          est_every=sampling.est_every, steps_run=steps_run, burn_s=burn_s,
-          timed_wall_s=wall_s, chain_steps_per_s=rate,
-          step_ms_cuda_events=step_ms, peak_device_memory_gb=peak_gb,
+          est_every=sampling.est_every, steps_run=steps_run,
           energy_per_boson=e_per_n, accept_rate=accept,
           burn_energy_per_boson=float(burn.iter_props.energy.double().mean())
           / VMC_NOP,
@@ -1498,8 +1410,7 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
                                 for k in sum_rules[0]},
           launches=launches, ok=True)
     return {"energy_per_boson": e_per_n, "accept_rate": accept,
-            "chain_steps_per_s": rate, "launches": launches,
-            "steps_run": steps_run, "blocks": done, "step_ms": step_ms,
+            "launches": launches, "steps_run": steps_run, "blocks": done,
             "protocol": dict(move_spread=sampling.move_spread,
                              ssf_modes=getattr(sampling.ssf_est_spec,
                                                "num_modes", None),
@@ -1536,7 +1447,7 @@ def run_vmc_bench(device, card: str):
 
 
 def run_vmc_example(device, card: str):
-    """Phase V2; returns :func:`run_vmc`'s record, the timed block
+    """Phase V2; returns :func:`run_vmc`'s record, the measured block
     included."""
     spec = mrbp.Spec(**VMC_SPEC)
     sampling = vmc.Sampling(
@@ -1580,19 +1491,15 @@ def require_equal(got, want, what: str) -> None:
             f"{what}: bit-equal")
 
 
-def run_proc_bench(device, card: str, baseline: dict):
+def run_proc_bench(device, card: str):
     """Phase R0: the bench configuration from nothing, through the
-    execution layer.  Returns the launch counts, the steps run and the
-    CUDA-event ms per step."""
+    execution layer.  Returns the launch counts and the steps run."""
     proc = dmc_exec.Proc.from_config(BENCH_PROC)
     reset_counts()
-    t0 = time.perf_counter()
     proc_input = dmc_exec.ProcInput.from_model_sys_conf_spec(
         dmc_exec.ModelSysConfSpec(dist_type="RANDOM"), proc, device=device)
-    torch.cuda.synchronize()
-    start_s = time.perf_counter() - t0
     build_launches = read_counts()
-    result, exec_ms, wall_s, launches = timed_exec(proc, proc_input)
+    result, _, _, launches = timed_exec(proc, proc_input)
     steps_run = (proc.burn_in_blocks + proc.num_blocks) * NTS
     state, blocks = result.state, result.data.blocks
     require(state.pos.device.type == "cuda"
@@ -1618,14 +1525,10 @@ def run_proc_bench(device, card: str, baseline: dict):
     mean_nw = float(blocks.num_walkers.totals.sum()) / (proc.num_blocks * NTS)
     phase("R0", check="bench configuration through Proc.exec", card=card,
           steps_run=steps_run, start_configurations=TARGET_WALKERS,
-          from_model_sys_conf_spec_s=start_s,
-          build_state_launches=build_launches, exec_wall_s=wall_s,
-          step_ms_cuda_events=exec_ms / steps_run,
-          walker_steps_per_s=mean_nw * steps_run / wall_s,
-          D_timed_blocks=baseline, mean_num_walkers=mean_nw,
+          build_state_launches=build_launches, mean_num_walkers=mean_nw,
           energy_per_boson=e_per_boson, energy_err_two_blocks=e_err,
           energy_dev=e_per_boson - ENERGY_REF, launches=launches, ok=True)
-    return launches, steps_run, exec_ms / steps_run
+    return launches, steps_run
 
 
 def proc_sum_rules(proc, data) -> dict:
@@ -1664,24 +1567,6 @@ def proc_sum_rules(proc, data) -> dict:
     return devs
 
 
-def accumulate_ms(proc, block, reps: int = 5) -> dict:
-    """Host ms of what ``Proc.exec`` adds to a block of
-    ``Sampling.blocks``: the f64 conversions of the fetched rows and
-    ``_BlockAccumulator.add``, for ``proc``'s way of keeping the data."""
-    times = []
-    for _ in range(reps):
-        accumulator = dmc_exec._BlockAccumulator(proc)
-        t0 = time.perf_counter()
-        props = [f64(x) for x in block.iter_props]
-        accumulator.add(
-            0, *props, iter_density=f64(block.iter_density),
-            iter_ssf=f64(block.iter_ssf), iter_obd=f64(block.iter_obd),
-            iter_cmd=f64(block.iter_cmd), iter_g2=f64(block.iter_g2),
-            iter_itc=f64(block.iter_itc), iter_itc_nw=f64(block.iter_itc_nw))
-        times.append((time.perf_counter() - t0) * 1e3)
-    return {"min": min(times), "mean": sum(times) / reps}
-
-
 def run_proc_production(device, card: str, state, g3: dict,
                         block_offset: int):
     """Phase R1: the production example through ``Proc.exec``, one block
@@ -1693,10 +1578,7 @@ def run_proc_production(device, card: str, state, g3: dict,
             num_blocks=1, burn_in_blocks=0, block_offset=block_offset,
             keep_iter_data=True, num_walkers_control_factor=0.125,
             cm_diffusion_spec=dmc_exec.CMDiffusionEstSpec(window_blocks=1)))
-    torch.cuda.reset_peak_memory_stats(device)
-    result, exec_ms, wall_s, launches = timed_exec(
-        proc, dmc_exec.ProcInput(state))
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    result, _, _, launches = timed_exec(proc, dmc_exec.ProcInput(state))
     want = g3["blocks"][0]
     series, blocks = result.data.series, result.data.blocks
     for name in want.iter_props._fields:
@@ -1737,18 +1619,10 @@ def run_proc_production(device, card: str, state, g3: dict,
             f"R1 kernel launches {launches}")
     e_per_boson = float(series.iter_props.energy.sum()
                         / series.iter_props.weight.sum()) / NOP
-    # The production way of keeping the data: reduced totals.
-    reduced = proc.evolve({"keep_iter_data": False})
     phase("R1", check="production example through Proc.exec", card=card,
           steps_run=NTS, block_offset=block_offset,
-          series_bit_equal_to_G3_block=0, exec_wall_s=wall_s,
-          step_ms_cuda_events=exec_ms / NTS, G3_step_ms=g3["step_ms"],
-          peak_device_memory_gb=peak_gb, energy_per_boson=e_per_boson,
-          sum_rule_max_rel_dev=devs,
-          convert_and_add_host_ms_per_block={
-              "keep_iter_data": accumulate_ms(proc, want),
-              "reduced": accumulate_ms(reduced, want)},
-          launches=launches, ok=True)
+          series_bit_equal_to_G3_block=0, energy_per_boson=e_per_boson,
+          sum_rule_max_rel_dev=devs, launches=launches, ok=True)
     return launches, NTS
 
 
@@ -1758,12 +1632,9 @@ def run_proc_vmc_example(device, card: str, v2: dict):
     launch counts, the steps run and E/N."""
     proc = vmc_exec.Proc.from_config(VARIATIONAL_PROC).evolve(dict(
         num_blocks=1, burn_in_blocks=1, keep_iter_data=True))
-    t0 = time.perf_counter()
     proc_input = vmc_exec.ProcInput.from_model_sys_conf_spec(
         vmc_exec.ModelSysConfSpec(dist_type="REGULAR"), proc, device=device)
-    torch.cuda.synchronize()
-    start_s = time.perf_counter() - t0
-    result, exec_ms, wall_s, launches = timed_exec(proc, proc_input)
+    result, _, _, launches = timed_exec(proc, proc_input)
     steps_run = 2 * NTS
     (want,) = v2["blocks"]
     series = result.data.series
@@ -1787,8 +1658,6 @@ def run_proc_vmc_example(device, card: str, v2: dict):
     e_per_n = float(result.data.blocks.energy.totals.mean()) / VMC_NOP
     phase("R2", check="variational example through vmc.Proc.exec", card=card,
           steps_run=steps_run, chains=VMC_CHAINS,
-          from_model_sys_conf_spec_s=start_s, exec_wall_s=wall_s,
-          step_ms_cuda_events=exec_ms / steps_run, V2_step_ms=v2["step_ms"],
           series_bit_equal_to_V2_block=0, energy_per_boson=e_per_n,
           accept_rate=accept, launches=launches, ok=True)
     return launches, steps_run, e_per_n
@@ -2914,7 +2783,7 @@ def steady_step_ms(mesh, sampling, state, burn: int, timed: int) -> float:
     return start.elapsed_time(end) / (timed * NTS)
 
 
-def run_mesh_bench(device, card: str, r0_step_ms: float, state):
+def run_mesh_bench(device, card: str, state):
     """Phase M0: the bench configuration through ``Proc.exec`` with
     ``num_mesh_devices: 1``, one rank over NCCL on the card (its
     collectives every step); then the steady step of the same sampling
@@ -2946,7 +2815,6 @@ def run_mesh_bench(device, card: str, r0_step_ms: float, state):
     phase("M0", check="bench configuration, num_mesh_devices 1 over NCCL",
           card=card, backend=spec.backend, steps_run=steps_run,
           exec_wall_s=wall_s, step_ms_cuda_events=exec_ms / steps_run,
-          R0_step_ms_cuda_events=r0_step_ms,
           steady_step_ms_cuda_events=steady,
           launches_per_step={k: v / steps_run for k, v in launches.items()
                              if v},
@@ -3430,29 +3298,6 @@ def run_dt_sweep(device, card: str):
     return counts, steps
 
 
-def bound(flops: float, num_bytes: float) -> dict:
-    """The least time the card could take: the larger of the flops over
-    the FP32 peak and the bytes (each input read once, each output
-    written once) over the HBM rate."""
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = num_bytes / PEAK_HBM_BYTES_PER_S * 1e3
-    if ops_ms >= bytes_ms:
-        return {"bound_ms": ops_ms, "bound_by": "operations",
-                "bound_resource": "fp32"}
-    return {"bound_ms": bytes_ms, "bound_by": "bytes",
-            "bound_resource": "hbm"}
-
-
-def k1_bound(walkers: int, nop: int, log_psi: bool) -> dict:
-    """K1's bound: its unordered pairs' flops; positions and parameters
-    in, drift, energy (and log|psi|) out."""
-    pairs = walkers * nop * (nop - 1) // 2
-    flops = pairs * (K1_LOG_FLOPS_PER_PAIR if log_psi else K1_FLOPS_PER_PAIR)
-    values = (2 * walkers * nop + (2 if log_psi else 1) * walkers
-              + pairwise.PARAMS_SIZE)
-    return bound(flops, F32_BYTES * values)
-
-
 def k3_bound(npos, params, flops_per_pair=(K3_FLOPS_IN_CUT,
                                            K3_FLOPS_OUTSIDE),
              per_element: int = K3_FLOPS_PER_ELEMENT) -> dict:
@@ -3918,10 +3763,10 @@ def main() -> None:
     err_k1 = check_k1(device)  # B
     err_k2 = check_k2(device)  # C
     check_replay(device)  # D
-    dmc_launches, state, baseline = run_dmc(device, smi)  # D
+    dmc_launches, state = run_dmc(device, smi)  # D
     # Each run's launch counts and the steps it ran.
-    runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS)}
-    *runs["R0"], r0_step_ms = run_proc_bench(device, smi, baseline)
+    runs = {"D": (dmc_launches, (BURN_BLOCKS + TIMED_BLOCKS) * NTS),
+            "R0": run_proc_bench(device, smi)}
     check_proc_resume(device, smi)  # R3
     err_k4 = check_k4(device)  # F
     sweep_times = check_sweep_kernels(device, smi)  # S0
@@ -3935,12 +3780,11 @@ def main() -> None:
             ("G2", G2_ESTIMATORS, BURN_BLOCKS + 2 * TIMED_BLOCKS),
             ("G3", G3_ESTIMATORS, BURN_BLOCKS + 2 * TIMED_BLOCKS)):
         done[label] = run_estimators(device, smi, state, label, estimators,
-                                     offset, baseline)
+                                     offset, timed=label == "G1")
         runs[label] = (done[label]["launches"], TIMED_BLOCKS * NTS)
     check_same_trajectory(done["G3"], done["G2"])
     runs["R1"] = run_proc_production(device, smi, state, done["G3"],
                                      BURN_BLOCKS + 2 * TIMED_BLOCKS)
-    time_itc_step(device, smi, state, done["G2"]["step_ms"], done["G3"])
     del done
     check_free_gas_itc(device, smi)  # P
     check_tonks_girardeau(device, smi)  # P
@@ -3958,7 +3802,7 @@ def main() -> None:
     runs["S2"] = run_vmc_sweep(device, smi)
     # M: several ranks.  M0 over NCCL at one rank; M1-M5 S gloo ranks on
     # the card (rank 0's launches, in this process, counted).
-    runs["M0"] = run_mesh_bench(device, smi, r0_step_ms, state)
+    runs["M0"] = run_mesh_bench(device, smi, state)
     runs["M1"] = run_mesh_estimators(device, smi, state,
                                      BURN_BLOCKS + 3 * TIMED_BLOCKS)
     check_mesh_replay(device)  # M2
