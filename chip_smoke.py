@@ -237,7 +237,11 @@ one L: one row a launch) and M5 and its table in S1b (four L), a fused
 DMC step must launch K1's table and K2's rows once, a fused VMC step K1 log's table, and S2's fused OBDM steps the
 OBDM kernel's table.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
-there must stay 0.
+there must stay 0.  Beside them the DMC step graph's captures and
+replays (``dmc.step_graph``): D, G1, G2, G3, R0 and R1, single-row runs
+on the card, must capture once and replay every step after the first
+(a replay counts its K1 launch); the fused sweeps S1, S1b and S3 and the
+meshes M0, M1 and M5 must replay none.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -581,7 +585,8 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-#: Each kernel's launch counter: the wrapper and its attribute.
+#: Each kernel's launch counter, and the DMC step graph's captures and
+#: replays: the function and its attribute.
 COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K1 log": (pairwise.energy_and_drift, "log_psi_launch_count"),
             "K1 vjp": (pairwise.energy_and_drift, "params_vjp_launch_count"),
@@ -597,7 +602,19 @@ COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K4 groups": (histogram.walker_histogram, "group_launch_count"),
             "OBDM table": (pairwise.obd_grid, "table_launch_count"),
             "S(k)": (ssf.ssf_harmonics, "launch_count"),
-            "S(k) table": (ssf.ssf_harmonics, "table_launch_count")}
+            "S(k) table": (ssf.ssf_harmonics, "table_launch_count"),
+            # The DMC step graph's (require_graphed).
+            "graph captures": (dmc.step_graph, "capture_count"),
+            "graph replays": (dmc.step_graph, "replay_count")}
+
+
+def require_graphed(launches: dict, steps_run: int, label: str) -> None:
+    """One run of one row on the card: one capture, and every step but
+    the first replayed."""
+    require(launches["graph captures"] == 1
+            and launches["graph replays"] == steps_run - 1,
+            f"{label}: one step graph capture and {steps_run - 1} replays "
+            f"in {steps_run} steps: {launches}")
 
 
 def reset_counts() -> None:
@@ -824,6 +841,7 @@ def run_dmc(device, card: str):
     require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
             f"kernel launches {launches}: K1 on each of {steps_run} steps, "
             f"K2 once per step")
+    require_graphed(launches, steps_run, "D")
     phase("D", check="DMC bench config", card=card, steps_run=steps_run,
           mean_num_walkers=walker_steps / (TIMED_BLOCKS * NTS),
           energy_per_boson=e_per_boson,
@@ -1103,6 +1121,7 @@ def run_estimators(device, card: str, state, label: str, estimators: dict,
     require(launches["K1"] >= steps_run and launches["K2"] == steps_run,
             f"kernel launches {launches}: K1 on each of {steps_run} steps, "
             f"K2 once per step")
+    require_graphed(launches, steps_run, label)
     require(bool(torch.isfinite(last.pos).all()), "final state finite")
     if sampling.cm_diffusion_est:
         cmd = torch.cat([b.iter_cmd for b in done])
@@ -3846,6 +3865,17 @@ def main() -> None:
             and per_step["S(k) table"].get("S1b", 0) > 0,
             f"the S(k) kernel on every run that measures S(k) (its table "
             f"on S1b's rows of four supercells): {per_step}")
+    # The runs of one row on the card replay their steps from graphs;
+    # the fused sweeps and the meshes step eagerly.
+    require(all(runs[label][0]["graph captures"] == 1
+                for label in ("D", "G1", "G2", "G3", "R0", "R1"))
+            and all(runs[label][0]["graph replays"] == 0
+                    for label in ("S1", "S1b", "S3", "M0", "M1", "M5")),
+            "a step graph in every single-row DMC run, none in the "
+            "sweeps' and meshes': " + str({
+                label: {name: counts[name] for name in
+                        ("graph captures", "graph replays")}
+                for label, (counts, _) in runs.items()}))
     dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc", "M0", "M1")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)
             and all(per_step["K2"].get(label, 0) == 1 for label in dmc_runs)

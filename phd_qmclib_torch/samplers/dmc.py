@@ -43,7 +43,11 @@ the measuring decisions use the step index the host already knows, and
 the per-step ensemble scalars and estimator rows are stacked and fetched
 once per block.  The comb uniforms come from a ``torch.Generator`` on
 the device, one stream per block; the diffusion noise from the Philox
-normals kernel keyed by ``(rng_seed, global step index)``.
+normals kernel keyed by ``(rng_seed, global step index)``.  On a CUDA
+device a run of one row without a walker mesh replays each step after
+its first from CUDA graphs (:func:`step_graph`): the host launches one
+graph a step in place of the step's few dozen operations, and the draws
+and the estimators stay eager around it.
 
 On a walker mesh (``mesh``, a ``phd_qmclib_torch.parallel.WalkerMesh``:
 one process per device) every rank steps its shard of the buffer, the
@@ -302,6 +306,9 @@ class _Consts(t.NamedTuple):
     offsets: t.Optional[torch.Tensor]  # (R, 1) row starts r Wm; None: R = 1
     #: The walker mesh whose shard this run steps; ``None`` unsharded.
     mesh: t.Any = None
+    #: The run's :class:`_StepGraph` (:func:`step_graph`); ``None``: the
+    #: steps run eagerly.
+    graph: t.Any = None
 
     @property
     def shard(self) -> t.Optional[int]:
@@ -350,10 +357,16 @@ def _rows_cfc(specs, dtype, device) -> mrbp.CFCParams:
     return mrbp.CFCParams(*(group(i) for i in range(3)))
 
 
-def _take(x: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+def _take(x: torch.Tensor, flat: torch.Tensor,
+          out: t.Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows ``(R, Wm, ...)`` gathered by flat walker indices ``(R,
-    Wm)`` (row ``r``'s walkers are ``r Wm .. r Wm + Wm - 1``)."""
-    return x.reshape((-1,) + x.shape[2:])[flat]
+    Wm)`` (row ``r``'s walkers are ``r Wm .. r Wm + Wm - 1``), into
+    ``out`` (``x``'s shape) where given."""
+    rows = x.reshape((-1,) + x.shape[2:])
+    if out is None:
+        return rows[flat]
+    torch.index_select(rows, 0, flat.reshape(-1), out=out.view(rows.shape))
+    return out
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
@@ -515,6 +528,206 @@ def aux_from_numpy(aux_carry: dict,
     :meth:`Sampling.replay_estimators` to continue a JAX window."""
     return {name: torch.tensor(np.asarray(value), device=device)
             for name, value in aux_carry.items()}
+
+
+# -- the step replayed from CUDA graphs ---------------------------------------
+
+#: The :class:`State` fields a step reads: one step's output, the next
+#: step's input.
+_CARRIED = ("pos", "drift", "energies", "weights", "num_walkers",
+            "ref_energy", "total_energy", "total_weight", "cmd_accum")
+#: The devices whose runs replay their steps from graphs.
+_GRAPH_DEVICES = ("cuda",)
+
+
+def step_graph(device, num_rows: int, mesh,
+               steps: int) -> t.Optional["_StepGraph"]:
+    """The replay of a run's steps from CUDA graphs, where it engages: a
+    run of one row on a CUDA device without a walker mesh, in blocks of
+    ``steps`` steps.  ``None`` (the steps run eagerly) on the CPU, for a
+    fused sweep's rows, and on a mesh, whose gloo collectives a graph
+    cannot capture.
+
+    ``step_graph.capture_count`` counts the runs whose step was
+    captured, ``step_graph.replay_count`` the steps replayed (set them
+    to 0 to reset)."""
+    if torch.device(device).type not in _GRAPH_DEVICES or num_rows != 1 \
+            or mesh is not None:
+        return None
+    return _StepGraph(steps)
+
+
+step_graph.capture_count = 0
+step_graph.replay_count = 0
+
+
+def _record_graph(fn):
+    """``fn()`` captured in a CUDA graph with a memory pool of its own:
+    ``(replay, outputs)``, where ``replay()`` runs the captured work
+    again into the same outputs, on the current stream.
+
+    Captured on a side stream (the default stream cannot be captured),
+    without the ``empty_cache`` of ``torch.cuda.graph``: the memory the
+    run's eager work has freed stays cached for it."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            outputs = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph.replay, outputs
+
+
+def _packed_props(state: State, branch: _Branch) -> torch.Tensor:
+    """A step's ensemble scalars, ``(energy, weight, num_walkers,
+    ref_energy, accum_energy)``, as one ``(5, R)`` float64 tensor (the
+    walker count exact)."""
+    return torch.stack([x.to(torch.float64) for x in (
+        state.energy, state.weight, branch.num_walkers, state.ref_energy,
+        state.accum_energy)])
+
+
+def _block_props(steps, dtype) -> PropsData:
+    """A block's per-step ensemble scalars ``(nts, R)`` on the host, from
+    each step's 5-tuple, or from a graphed run's ``(nts, 5, R)``
+    :func:`_packed_props` (:meth:`_StepGraph.block_props`)."""
+    if isinstance(steps, torch.Tensor):
+        columns = steps.unbind(1)
+        return PropsData(*(
+            column.to(torch.int64 if name == "num_walkers" else dtype)
+            for name, column in zip(PropsData._fields, columns)))
+    return PropsData(*(torch.stack(column).cpu() for column in zip(*steps)))
+
+
+class _StepGraph:
+    """The steps of one run, replayed from two CUDA graphs.
+
+    The first step runs eagerly (the kernels' first launches, a build
+    among them, stay out of the capture); the second captures the step's
+    body (:meth:`Sampling._step_body`) twice, each side reading one set
+    of input buffers and writing its carried outputs into the other's,
+    and from then on the sides replay in turn.  So a step never writes
+    the buffers of its own input, which the caller may read after the
+    step returns, nor the outputs of the step before (its branching
+    table, which the ancestry permutations read one step later).  An
+    input that is not the side's own buffer (the run's first state, a
+    CM accumulator reset at a window's start) is copied in first.  The
+    children's positions go to one buffer of both sides: only the step's
+    own estimators read them.  The same kernels run in the same order on
+    the same data as the eager step, so a replayed step is bit-equal to
+    it.  The ITC ring buffer is carried past the graph as it is.
+
+    What outlives the step after next is copied: each step writes its
+    packed scalars into the block's row ``count`` (:meth:`block_props`),
+    and the state a block yields is a copy (:meth:`owned`).  A replay
+    adds the K1 launches it makes to K1's launch counter."""
+
+    def __init__(self, steps: int):
+        self.steps = steps
+        self.warm = False
+        self.sides = None
+        self.turn = 0
+        self.launches = 0
+        self.props = self.count = None
+
+    def step(self, sampling: "Sampling", state: State, e_prev_slots,
+             comb_u: torch.Tensor, xi: torch.Tensor, consts: _Consts):
+        """:meth:`Sampling._step` of the run's next step."""
+        if not self.warm:
+            self.warm = True
+            out = new, _, branch = sampling._step_body(
+                state, e_prev_slots, comb_u, xi, consts)
+            packed = _packed_props(new, branch)
+            self.props = packed.new_empty((self.steps,) + packed.shape)
+            self.count = torch.zeros(1, dtype=torch.int64,
+                                     device=packed.device)
+            self._keep(packed)
+            return out
+        if self.sides is None:
+            self._capture(sampling, state, e_prev_slots, comb_u, xi, consts)
+        inputs, replay, out = self.sides[self.turn]
+        self.turn ^= 1
+        given = dict(state._asdict(), e_prev_slots=e_prev_slots,
+                     comb_u=comb_u, xi=xi)
+        for name, buf in inputs.items():
+            if given[name].data_ptr() != buf.data_ptr():
+                buf.copy_(given[name])
+        replay()
+        step_graph.replay_count += 1
+        pairwise.energy_and_drift.launch_count += self.launches
+        new_state = out["state"]._replace(itc_buf=state.itc_buf,
+                                          itc_filled=state.itc_filled)
+        return new_state, out["e_prev_slots"], out["branch"]
+
+    def _capture(self, sampling, state, e_prev_slots, comb_u, xi, consts):
+        given = dict(state._asdict(), e_prev_slots=e_prev_slots)
+        names = [name for name in _CARRIED + ("e_prev_slots",)
+                 if given[name] is not None]
+        sets = [{name: given[name].clone() for name in names}
+                for _ in range(2)]
+        cpos = torch.empty_like(state.pos)
+
+        def side(src, dst):
+            def body():
+                new, e_prev, branch = sampling._step_body(
+                    state._replace(**{name: src[name] for name in names
+                                      if name in _CARRIED}),
+                    src.get("e_prev_slots"), comb_u, xi, consts, cpos)
+                carried = dict(new._asdict(), e_prev_slots=e_prev)
+                floats = [name for name in names
+                          if dst[name].is_floating_point()]
+                torch._foreach_copy_([dst[name] for name in floats],
+                                     [carried[name] for name in floats])
+                for name in names:
+                    if name not in floats:
+                        dst[name].copy_(carried[name])
+                self._keep(_packed_props(new, branch))
+                return {"masks": new.masks, "energy": new.energy,
+                        "weight": new.weight,
+                        "accum_energy": new.accum_energy,
+                        "parent": branch.parent, "valid": branch.valid}
+
+            replay, out = _record_graph(body)
+            new_state = State(
+                **{name: dst.get(name) for name in _CARRIED},
+                masks=out["masks"], energy=out["energy"],
+                weight=out["weight"], accum_energy=out["accum_energy"])
+            branch = _Branch(out["parent"], cpos, out["valid"],
+                             dst["num_walkers"])
+            inputs = dict(src, comb_u=comb_u, xi=xi)
+            return inputs, replay, {
+                "state": new_state, "e_prev_slots": dst.get("e_prev_slots"),
+                "branch": branch}
+
+        # A capture records the launches without making them.
+        launches = pairwise.energy_and_drift.launch_count
+        self.sides = [side(sets[0], sets[1]), side(sets[1], sets[0])]
+        self.launches = (pairwise.energy_and_drift.launch_count
+                         - launches) // 2
+        pairwise.energy_and_drift.launch_count = launches
+        step_graph.capture_count += 1
+
+    def _keep(self, packed: torch.Tensor) -> None:
+        self.props.index_copy_(0, self.count, packed[None])
+        self.count += 1
+
+    def block_props(self) -> torch.Tensor:
+        """The block's ``(steps, 5, R)`` packed scalars on the host; the
+        next block writes from row 0 again."""
+        props = self.props.to("cpu", copy=True)
+        self.count.zero_()
+        return props
+
+    @staticmethod
+    def owned(state: State) -> State:
+        """``state`` with a copy of every tensor the graphs write."""
+        return state._replace(**{
+            name: value.clone() for name, value in state._asdict().items()
+            if value is not None and name not in ("itc_buf", "itc_filled")})
 
 
 @dataclass(frozen=True)
@@ -1010,7 +1223,23 @@ class Sampling:
         Returns ``(new_state, new_e_prev_slots, branch)``, where
         ``branch`` is the post-branching ensemble the estimators
         measure.
+
+        The step runs :meth:`_step_body`, or replays it from the run's
+        CUDA graphs (``consts.graph``, :func:`step_graph`): then the
+        returned tensors are the graphs' buffers, which the step after
+        next overwrites.
         """
+        if consts.graph is not None:
+            return consts.graph.step(self, state, e_prev_slots, comb_u, xi,
+                                     consts)
+        return self._step_body(state, e_prev_slots, comb_u, xi, consts)
+
+    def _step_body(self, state: State,
+                   e_prev_slots: t.Optional[torch.Tensor],
+                   comb_u: torch.Tensor, xi: torch.Tensor, consts: _Consts,
+                   cpos: t.Optional[torch.Tensor] = None):
+        """The work of :meth:`_step`, run eagerly or captured; ``cpos``
+        is a buffer for the children's positions."""
         # 1) Branching comb on the previous step's weights, row by row.
         parent, nw = branching_comb(state.weights, state.num_walkers,
                                     comb_u, consts.slots)
@@ -1020,7 +1249,7 @@ class Sampling:
 
         # 2) Children: cloned (pre-diffusion) parents with parent
         #    energies.
-        cpos = _take(state.pos, parent)
+        cpos = _take(state.pos, parent, cpos)
         cdrift = _take(state.drift, parent)
         cenergy = _take(state.energies, parent)
 
@@ -1252,9 +1481,11 @@ class Sampling:
         composes on every step and resets at the ITC-measured ones;
         without ``measuring`` the buffer is neither transported nor
         shifted.  Returns ``(state, aux, props, est, ensembles)``: the
-        per-step ensemble scalars and estimator rows and, with ``thin``,
-        every ``thin``-th step's ``(pos, energies, weights)``, as lists
-        of device tensors with the rows' leading axis.
+        per-step ensemble scalars (none where the steps replay from
+        graphs, which keep them: :meth:`_StepGraph.block_props`) and
+        estimator rows and, with ``thin``, every ``thin``-th step's
+        ``(pos, energies, weights)``, as lists of device tensors with the
+        rows' leading axis.
         """
         e_prev_slots = state.energies if self.ref_compat else None
         cadence = self.est_every
@@ -1265,8 +1496,10 @@ class Sampling:
             with tracing.span(tracing.STEP_DMC):
                 state, e_prev_slots, branch = self._step(
                     state, e_prev_slots, comb_u, xi, consts)
-            props.append((state.energy, state.weight, branch.num_walkers,
-                          state.ref_energy, state.accum_energy))
+            if consts.graph is None:
+                props.append((state.energy, state.weight,
+                              branch.num_walkers, state.ref_energy,
+                              state.accum_energy))
             if thin and (step + 1) % thin == 0:
                 ensembles.append((state.pos, state.energies, state.weights))
             if not measuring:
@@ -1291,7 +1524,7 @@ class Sampling:
 
     def _draws(self, consts: _Consts, block_index: int,
                num_time_steps_block: int, noise: torch.Tensor,
-               comb: t.Optional[torch.Tensor]):
+               comb: torch.Tensor):
         """The comb uniforms and diffusion noise of one block of R rows,
         drawn on the device as the steps consume them: each row's
         uniforms from its own ``torch.Generator``, seeded from
@@ -1299,13 +1532,12 @@ class Sampling:
         noise, already scaled by its sigma, keyed by ``(rng_seed, global
         step index)``.  The noise goes into the run's buffer ``noise (R,
         Wm, N)`` (one launch for all rows), the rows' uniforms into
-        ``comb (R, Wm)`` (a single sampling draws a fresh tensor):
-        each step consumes them before the next draw, in stream order.
+        the run's ``comb (R, Wm)``: each step consumes them before the
+        next draw, in stream order.
         A shard of a mesh draws its own streams: the comb's seeded from
         ``(rng_seed, block index, shard)``, the noise keyed by its
         ``consts.noise_keys``."""
         dtype, device = noise.dtype, noise.device
-        max_w = noise.shape[1]
         gens = []
         for seed in consts.seeds:
             gen = torch.Generator(device=device)
@@ -1313,19 +1545,16 @@ class Sampling:
             gens.append(gen)
         for step in range(num_time_steps_block):
             global_step = block_index * num_time_steps_block + step
-            if comb is None:
-                comb_u = torch.rand((max_w,), generator=gens[0], dtype=dtype,
-                                    device=device)[None]
+            for gen, row in zip(gens, comb):
+                row.uniform_(0, 1, generator=gen)
+            if consts.keys is None:
                 prng.normal(consts.noise_keys[0], global_step,
                             noise.shape[1:],
                             dtype, device, scale=consts.sigma, out=noise[0])
             else:
-                for gen, row in zip(gens, comb):
-                    torch.rand(row.shape, generator=gen, out=row)
-                comb_u = comb
                 prng.normal_rows(consts.keys, global_step, consts.sigmas,
                                  noise)
-            yield comb_u, noise
+            yield comb, noise
 
     def _row_blocks(self, consts: _Consts, ini_state: State,
                     num_time_steps_block: int, burn_in_blocks: int,
@@ -1363,8 +1592,9 @@ class Sampling:
         window = self.pfw_window_blocks(nts)
         cmd_window = self.cm_window_blocks
         noise = torch.empty(state.pos.shape, dtype=dtype, device=device)
-        comb = (torch.empty(state.weights.shape, dtype=dtype, device=device)
-                if num_rows > 1 else None)
+        comb = torch.empty(state.weights.shape, dtype=dtype, device=device)
+        consts = consts._replace(graph=step_graph(device, num_rows,
+                                                  consts.mesh, nts))
         aux = None
         if window > 1 and aux_init is not None:
             aux = self._fresh_aux(dtype, device, num_rows)
@@ -1407,12 +1637,15 @@ class Sampling:
             with tracing.span(tracing.RUN_DMC):
                 state, aux, steps, est, _ = self._run(
                     state, draws, consts, measuring, aux, step_offset)
-            props = PropsData(*(torch.stack(column).cpu()
-                                for column in zip(*steps)))
+            props = _block_props(
+                steps if consts.graph is None
+                else consts.graph.block_props(), dtype)
             # The shards' estimator sums, once per block.
             rows = {name: consts.psum(torch.stack(values, dim=1)).cpu()
                     for name, values in est.items()}
-            yield (props, rows, state,
+            yield (props, rows,
+                   state if consts.graph is None
+                   else consts.graph.owned(state),
                    aux if measuring and window > 1 else None)
             block += 1
 
@@ -1509,10 +1742,12 @@ class Sampling:
         consts = self._consts(state.pos.dtype, state.pos.device)
         noise = torch.empty(state.pos.shape, dtype=state.pos.dtype,
                             device=state.pos.device)
+        comb = torch.empty(state.weights.shape, dtype=state.pos.dtype,
+                           device=state.pos.device)
         block = int(block_offset)
         while True:
             draws = self._draws(consts, block, num_time_steps_block, noise,
-                                None)
+                                comb)
             state, _, steps, _, kept = self._run(
                 state, draws, consts, False, None, 0, thin)
             props = PropsData(*(torch.stack(column)[:, 0].cpu()

@@ -223,20 +223,26 @@ def _dmc_sampling():
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_dmc_draws_scaled_noise_into_one_buffer(dtype):
     """The DMC step's noise is ``sigma * normal_plain`` of its global
-    step, bit for bit, written into the one buffer of the run."""
+    step, bit for bit, written into the one buffer of the run; its comb
+    uniforms, the block's generator's ``torch.rand``, into another."""
     sampling = _dmc_sampling()
     confs = np.random.default_rng(0).uniform(0, 8.0, (6, 8))
     state = sampling.build_state(confs, dtype=dtype, device="cpu")
     noise = torch.empty((1,) + state.pos.shape, dtype=dtype)
+    comb = torch.empty((1,) + state.weights.shape, dtype=dtype)
     nts = 4
     consts = sampling._consts(dtype, "cpu")
+    gen = torch.Generator().manual_seed(
+        utils.block_seed(sampling.rng_seed, 2))
     for step, (comb_u, xi) in enumerate(
-            sampling._draws(consts, 2, nts, noise, None)):
-        assert xi is noise
+            sampling._draws(consts, 2, nts, noise, comb)):
+        assert xi is noise and comb_u is comb
         want = sampling.sigma_spread * prng.normal_plain(
             sampling.rng_seed, 2 * nts + step, state.pos.shape, dtype)
         assert torch.equal(xi[0], want)
         assert comb_u.shape == (1,) + state.weights.shape
+        assert torch.equal(comb_u[0], torch.rand(
+            state.weights.shape, generator=gen, dtype=dtype))
 
 
 def test_vmc_draws_scaled_gaussian_moves_into_one_buffer():
