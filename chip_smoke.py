@@ -237,11 +237,13 @@ one L: one row a launch) and M5 and its table in S1b (four L), a fused
 DMC step must launch K1's table and K2's rows once, a fused VMC step K1 log's table, and S2's fused OBDM steps the
 OBDM kernel's table.  K3 lies on none of them (the DMC
 step keeps its own sequence, as in the JAX package), and its count
-there must stay 0.  Beside them the DMC step graph's captures and
-replays (``dmc.step_graph``): D, G1, G2, G3, R0 and R1, single-row runs
-on the card, must capture once and replay every step after the first
-(a replay counts its K1 launch); the fused sweeps S1, S1b and S3 and the
-meshes M0, M1 and M5 must replay none.
+there must stay 0.  Beside them the step graphs' captures and replays
+(``dmc.step_graph``, ``vmc.step_graph``): the single-row runs on the
+card, DMC's D, G1, G2, G3, R0 and R1 and VMC's V1, V2, R2 and W1's VMC
+stage, must capture once and replay every step after the first (a
+replay counts its K1 or K1 log launch, and in V1 its S(k) launch); the
+fused sweeps S1, S1b, S2 and S3 and the meshes M0, M1 and M5 must replay
+none.
 
 The second-to-last line is the per-kernel JSON summary and the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -585,8 +587,8 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-#: Each kernel's launch counter, and the DMC step graph's captures and
-#: replays: the function and its attribute.
+#: Each kernel's launch counter, and the DMC and VMC step graphs'
+#: captures and replays: the function and its attribute.
 COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "K1 log": (pairwise.energy_and_drift, "log_psi_launch_count"),
             "K1 vjp": (pairwise.energy_and_drift, "params_vjp_launch_count"),
@@ -603,18 +605,21 @@ COUNTERS = {"K1": (pairwise.energy_and_drift, "launch_count"),
             "OBDM table": (pairwise.obd_grid, "table_launch_count"),
             "S(k)": (ssf.ssf_harmonics, "launch_count"),
             "S(k) table": (ssf.ssf_harmonics, "table_launch_count"),
-            # The DMC step graph's (require_graphed).
+            # The step graphs' (require_graphed).
             "graph captures": (dmc.step_graph, "capture_count"),
-            "graph replays": (dmc.step_graph, "replay_count")}
+            "graph replays": (dmc.step_graph, "replay_count"),
+            "VMC graph captures": (vmc.step_graph, "capture_count"),
+            "VMC graph replays": (vmc.step_graph, "replay_count")}
 
 
-def require_graphed(launches: dict, steps_run: int, label: str) -> None:
+def require_graphed(launches: dict, steps_run: int, label: str,
+                    sampler: str = "") -> None:
     """One run of one row on the card: one capture, and every step but
-    the first replayed."""
-    require(launches["graph captures"] == 1
-            and launches["graph replays"] == steps_run - 1,
-            f"{label}: one step graph capture and {steps_run - 1} replays "
-            f"in {steps_run} steps: {launches}")
+    the first replayed (``sampler`` ``"VMC "``: the VMC step graph's)."""
+    require(launches[f"{sampler}graph captures"] == 1
+            and launches[f"{sampler}graph replays"] == steps_run - 1,
+            f"{label}: one {sampler}step graph capture and "
+            f"{steps_run - 1} replays in {steps_run} steps: {launches}")
 
 
 def reset_counts() -> None:
@@ -1406,6 +1411,7 @@ def run_vmc(device, card: str, label: str, sampling: vmc.Sampling,
     steps_run = (burn_blocks + timed_blocks) * NTS
     require(launches["K1 log"] >= steps_run,
             f"{label}: K1 log launches {launches} cover {steps_run} steps")
+    require_graphed(launches, steps_run, label, "VMC ")
     e_per_n = float(np.mean([float(b.iter_props.energy.double().mean())
                              for b in done])) / VMC_NOP
     accept = float(np.mean([b.accept_rate for b in done]))
@@ -1674,6 +1680,7 @@ def run_proc_vmc_example(device, card: str, v2: dict):
             f"R2 acceptance {accept} is V2's {v2['accept_rate']}")
     require(launches["K1 log"] >= steps_run and launches["K3"] == 0,
             f"R2 kernel launches {launches}")
+    require_graphed(launches, steps_run, "R2", "VMC ")
     e_per_n = float(result.data.blocks.energy.totals.mean()) / VMC_NOP
     phase("R2", check="variational example through vmc.Proc.exec", card=card,
           steps_run=steps_run, chains=VMC_CHAINS,
@@ -1974,6 +1981,7 @@ def run_wf_opt_pipeline(device, card: str) -> dict:
         * vmc_proc.num_steps_block
     require(launches["K1 log"] - record["k1_log"] >= vmc_steps,
             f"W1: K1 log on each of the {vmc_steps} VMC steps: {launches}")
+    require_graphed(launches, vmc_steps, "W1's VMC stage", "VMC ")
 
     proc = dmc_exec.Proc.from_config(WF_OPT_DMC_PROC)
     proc = dataclasses.replace(proc, model_spec=proc.model_spec.evolve(
@@ -3869,12 +3877,16 @@ def main() -> None:
     # the fused sweeps and the meshes step eagerly.
     require(all(runs[label][0]["graph captures"] == 1
                 for label in ("D", "G1", "G2", "G3", "R0", "R1"))
-            and all(runs[label][0]["graph replays"] == 0
-                    for label in ("S1", "S1b", "S3", "M0", "M1", "M5")),
-            "a step graph in every single-row DMC run, none in the "
+            and all(runs[label][0]["VMC graph captures"] == 1
+                    for label in ("V1", "V2", "R2", "W1"))
+            and all(runs[label][0][f"{sampler}graph replays"] == 0
+                    for label in ("S1", "S1b", "S2", "S3", "M0", "M1", "M5")
+                    for sampler in ("", "VMC ")),
+            "a step graph in every single-row DMC and VMC run, none in the "
             "sweeps' and meshes': " + str({
                 label: {name: counts[name] for name in
-                        ("graph captures", "graph replays")}
+                        ("graph captures", "graph replays",
+                         "VMC graph captures", "VMC graph replays")}
                 for label, (counts, _) in runs.items()}))
     dmc_runs = ("D", "G1", "G2", "G3", "R0", "R1", "W1 dmc", "M0", "M1")
     require(all(per_step["K1"].get(label, 0) >= 1 for label in dmc_runs)

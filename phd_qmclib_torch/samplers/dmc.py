@@ -540,19 +540,25 @@ _CARRIED = ("pos", "drift", "energies", "weights", "num_walkers",
 _GRAPH_DEVICES = ("cuda",)
 
 
+def _graphs_engage(device, num_rows: int, mesh) -> bool:
+    """Whether a run replays its steps from CUDA graphs (DMC's and
+    VMC's): a run of one row on a CUDA device without a walker mesh.
+    Not on the CPU, for a fused sweep's rows, nor on a mesh, whose gloo
+    collectives a graph cannot capture."""
+    return (torch.device(device).type in _GRAPH_DEVICES and num_rows == 1
+            and mesh is None)
+
+
 def step_graph(device, num_rows: int, mesh,
                steps: int) -> t.Optional["_StepGraph"]:
-    """The replay of a run's steps from CUDA graphs, where it engages: a
-    run of one row on a CUDA device without a walker mesh, in blocks of
-    ``steps`` steps.  ``None`` (the steps run eagerly) on the CPU, for a
-    fused sweep's rows, and on a mesh, whose gloo collectives a graph
-    cannot capture.
+    """The replay of a run's steps from CUDA graphs, where it engages
+    (:func:`_graphs_engage`), in blocks of ``steps`` steps; ``None``
+    elsewhere: the steps run eagerly.
 
     ``step_graph.capture_count`` counts the runs whose step was
     captured, ``step_graph.replay_count`` the steps replayed (set them
     to 0 to reset)."""
-    if torch.device(device).type not in _GRAPH_DEVICES or num_rows != 1 \
-            or mesh is not None:
+    if not _graphs_engage(device, num_rows, mesh):
         return None
     return _StepGraph(steps)
 
@@ -582,6 +588,70 @@ def _record_graph(fn):
     return graph.replay, outputs
 
 
+class _Launches:
+    """The kernels' launch counters (``(function, attribute)`` pairs)
+    that a step captured on two sides advances.  A capture records the
+    launches without making them: :meth:`capture` takes back what the
+    capture of both sides counted, and :meth:`replayed` adds one side's
+    for each replay."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.per_replay = [0] * len(counters)
+
+    def capture(self, sides):
+        """``sides()``, the capture of both sides, with its counts taken
+        back."""
+        before = [getattr(fn, attr) for fn, attr in self.counters]
+        out = sides()
+        for i, ((fn, attr), count) in enumerate(zip(self.counters, before)):
+            self.per_replay[i] = (getattr(fn, attr) - count) // 2
+            setattr(fn, attr, count)
+        return out
+
+    def replayed(self) -> None:
+        for (fn, attr), count in zip(self.counters, self.per_replay):
+            setattr(fn, attr, getattr(fn, attr) + count)
+
+
+class _TwoSides:
+    """The flow of a step replayed from two CUDA graphs, DMC's and VMC's
+    ``_StepGraph``.  The run's first step runs eagerly (the kernels'
+    first launches, a build among them, stay out of the capture); the
+    second captures the step's body twice (``_capture``), each side
+    reading one set of input buffers and writing its carried outputs
+    into the other's, and from then on the sides replay in turn.  An
+    input that is not the side's own buffer is copied in first.
+
+    ``counters`` are the kernels' launch counters a step advances
+    (:class:`_Launches`); ``counts`` the function whose
+    ``capture_count`` and ``replay_count`` the graphs advance."""
+
+    def __init__(self, counters, counts):
+        self.warm = False
+        self.sides = None
+        self.turn = 0
+        self.launches = _Launches(counters)
+        self.counts = counts
+
+    def _replay(self, given: dict, capture):
+        """The outputs of the side whose turn it is, replayed on the
+        inputs ``given`` by name.  Before the first replay ``capture()``
+        sets ``sides``, each side ``(inputs, replay, outputs)``."""
+        if self.sides is None:
+            self.launches.capture(capture)
+            self.counts.capture_count += 1
+        inputs, replay, out = self.sides[self.turn]
+        self.turn ^= 1
+        for name, buf in inputs.items():
+            if given[name].data_ptr() != buf.data_ptr():
+                buf.copy_(given[name])
+        replay()
+        self.counts.replay_count += 1
+        self.launches.replayed()
+        return out
+
+
 def _packed_props(state: State, branch: _Branch) -> torch.Tensor:
     """A step's ensemble scalars, ``(energy, weight, num_walkers,
     ref_energy, accum_energy)``, as one ``(5, R)`` float64 tensor (the
@@ -603,23 +673,19 @@ def _block_props(steps, dtype) -> PropsData:
     return PropsData(*(torch.stack(column).cpu() for column in zip(*steps)))
 
 
-class _StepGraph:
-    """The steps of one run, replayed from two CUDA graphs.
+class _StepGraph(_TwoSides):
+    """The steps of one run, replayed from two CUDA graphs
+    (:class:`_TwoSides`) of the step's body (:meth:`Sampling._step_body`).
 
-    The first step runs eagerly (the kernels' first launches, a build
-    among them, stay out of the capture); the second captures the step's
-    body (:meth:`Sampling._step_body`) twice, each side reading one set
-    of input buffers and writing its carried outputs into the other's,
-    and from then on the sides replay in turn.  So a step never writes
-    the buffers of its own input, which the caller may read after the
-    step returns, nor the outputs of the step before (its branching
-    table, which the ancestry permutations read one step later).  An
-    input that is not the side's own buffer (the run's first state, a
-    CM accumulator reset at a window's start) is copied in first.  The
-    children's positions go to one buffer of both sides: only the step's
-    own estimators read them.  The same kernels run in the same order on
-    the same data as the eager step, so a replayed step is bit-equal to
-    it.  The ITC ring buffer is carried past the graph as it is.
+    A step never writes the buffers of its own input, which the caller
+    may read after the step returns, nor the outputs of the step before
+    (its branching table, which the ancestry permutations read one step
+    later).  The inputs copied in are the run's first state and a CM
+    accumulator reset at a window's start.  The children's positions go
+    to one buffer of both sides: only the step's own estimators read
+    them.  The same kernels run in the same order on the same data as
+    the eager step, so a replayed step is bit-equal to it.  The ITC ring
+    buffer is carried past the graph as it is.
 
     What outlives the step after next is copied: each step writes its
     packed scalars into the block's row ``count`` (:meth:`block_props`),
@@ -627,11 +693,9 @@ class _StepGraph:
     adds the K1 launches it makes to K1's launch counter."""
 
     def __init__(self, steps: int):
+        super().__init__(((pairwise.energy_and_drift, "launch_count"),),
+                         step_graph)
         self.steps = steps
-        self.warm = False
-        self.sides = None
-        self.turn = 0
-        self.launches = 0
         self.props = self.count = None
 
     def step(self, sampling: "Sampling", state: State, e_prev_slots,
@@ -647,18 +711,11 @@ class _StepGraph:
                                      device=packed.device)
             self._keep(packed)
             return out
-        if self.sides is None:
-            self._capture(sampling, state, e_prev_slots, comb_u, xi, consts)
-        inputs, replay, out = self.sides[self.turn]
-        self.turn ^= 1
-        given = dict(state._asdict(), e_prev_slots=e_prev_slots,
-                     comb_u=comb_u, xi=xi)
-        for name, buf in inputs.items():
-            if given[name].data_ptr() != buf.data_ptr():
-                buf.copy_(given[name])
-        replay()
-        step_graph.replay_count += 1
-        pairwise.energy_and_drift.launch_count += self.launches
+        out = self._replay(
+            dict(state._asdict(), e_prev_slots=e_prev_slots, comb_u=comb_u,
+                 xi=xi),
+            lambda: self._capture(sampling, state, e_prev_slots, comb_u, xi,
+                                  consts))
         new_state = out["state"]._replace(itc_buf=state.itc_buf,
                                           itc_filled=state.itc_filled)
         return new_state, out["e_prev_slots"], out["branch"]
@@ -703,13 +760,7 @@ class _StepGraph:
                 "state": new_state, "e_prev_slots": dst.get("e_prev_slots"),
                 "branch": branch}
 
-        # A capture records the launches without making them.
-        launches = pairwise.energy_and_drift.launch_count
         self.sides = [side(sets[0], sets[1]), side(sets[1], sets[0])]
-        self.launches = (pairwise.energy_and_drift.launch_count
-                         - launches) // 2
-        pairwise.energy_and_drift.launch_count = launches
-        step_graph.capture_count += 1
 
     def _keep(self, packed: torch.Tensor) -> None:
         self.props.index_copy_(0, self.count, packed[None])

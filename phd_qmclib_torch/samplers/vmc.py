@@ -21,12 +21,18 @@ equal the every-step mode's at the measured steps, and the chain
 dynamics are the same for any K.
 
 :meth:`Sampling.blocks` is a Python loop over steps that never waits on
-the device inside a block: the per-step properties and estimator rows
-stay on the device and are stacked once per block, and the acceptance
-rate is the one value fetched per block.  The uniform draws (moves and
-acceptance) come from a ``torch.Generator`` on the device, seeded per
-block from ``(rng_seed, block index)``; the Gaussian moves from the
-Philox normals kernel keyed by ``(rng_seed, global step index)``.
+the device inside a block: the per-step properties are written into the
+block's tables and the estimator rows stacked once per block, on the
+device, and the acceptance rate is the one value fetched per block.  The
+uniform draws (moves and acceptance) come from a ``torch.Generator`` on
+the device, seeded per block from ``(rng_seed, block index)``; the
+Gaussian moves from the Philox normals kernel keyed by ``(rng_seed,
+global step index)``.  Both go into buffers of the run.  On a CUDA
+device a run of one row without a walker mesh replays each step after
+its first from CUDA graphs (:func:`step_graph`): the host launches one
+graph a step in place of the step's dozen operations; the draws, the
+copies of each step's records into the block's tables and the chunked
+mode's estimators stay eager around it.
 
 On a walker mesh (``mesh``, one process per device) the chains split
 over the ranks, ``num_walkers / S`` each, with their own streams (seeded
@@ -48,8 +54,9 @@ import torch
 
 from .. import utils
 from ..models import mrbp
-from ..ops import prng
+from ..ops import pairwise, prng, ssf
 from ..utils import tracing
+from . import dmc as _dmc
 from .dmc import _as_rows, _row, _row_sums, _rows_model, _rows_value
 
 __all__ = [
@@ -137,6 +144,9 @@ class _Consts(t.NamedTuple):
     spreads: t.Optional[torch.Tensor]  # rows, gaussian: (R,) scales
     #: The walker mesh whose chains this run steps; ``None`` unsharded.
     mesh: t.Any = None
+    #: The run's :class:`_StepGraph` (:func:`step_graph`); ``None``: the
+    #: steps run eagerly.
+    graph: t.Any = None
 
 
 def _row_consts(samplings, dtype, device, mesh=None) -> _Consts:
@@ -167,6 +177,117 @@ def state_from_numpy(state, device="cuda") -> State:
 
 def _mult(spec) -> int:
     return spec.est_every_mult if spec is not None else 1
+
+
+def _step_records(state: State, with_est: bool) -> t.Dict[str, torch.Tensor]:
+    """What a block keeps of each step of R rows, ``(R, ...)`` tensors by
+    name: its ``wf_abs_log``, ``energy`` and ``move_stat`` and, in the
+    every-step mode (``with_est``), the sums of its S(k) parts
+    (``"ssf"``) and OBDM grids (``"obd"``) over each row's chains."""
+    records = dict(zip(PropsData._fields, (state.wf_abs_log, state.energy,
+                                           state.move_stat)))
+    if with_est:
+        for name, parts in (("ssf", state.ssf_parts),
+                            ("obd", state.obd_parts)):
+            if parts is not None:
+                records[name] = _row_sums(parts)
+    return records
+
+
+#: The most entries of a block's acceptance flags :func:`_accepted` sums
+#: at a time.
+_COUNT_ENTRIES = 1 << 19
+
+
+def _accepted(flags: torch.Tensor) -> torch.Tensor:
+    """Each row's count of accepted moves in a block's flags ``(R, nts,
+    W)``, int64 ``(R,)``: a torch sum widens a bool tensor to int64 (8
+    bytes an entry) before it sums, so the steps are summed a few at a
+    time, at most :data:`_COUNT_ENTRIES` entries."""
+    steps = max(1, _COUNT_ENTRIES // (flags.shape[0] * flags.shape[2]))
+    return sum(part.sum(dim=(1, 2)) for part in flags.split(steps, dim=1))
+
+
+# -- the step replayed from CUDA graphs ---------------------------------------
+
+#: The :class:`State` fields a step reads: one step's output, the next
+#: step's input.
+_CARRIED = ("pos", "wf_abs_log", "energy", "ssf_parts", "obd_parts")
+#: The kernels' launch counters a step advances: K1 log's, and in the
+#: every-step mode the S(k) and OBDM kernels'.
+_COUNTERS = ((pairwise.energy_and_drift, "log_psi_launch_count"),
+             (ssf.ssf_harmonics, "launch_count"),
+             (pairwise.obd_grid, "launch_count"))
+
+
+def step_graph(device, num_rows: int, mesh) -> t.Optional["_StepGraph"]:
+    """The replay of a run's steps from CUDA graphs where it engages, as
+    the DMC step's (``dmc._graphs_engage``: one row on a CUDA device
+    without a walker mesh); ``None`` elsewhere: the steps run eagerly.
+
+    ``step_graph.capture_count`` counts the runs whose step was
+    captured, ``step_graph.replay_count`` the steps replayed (set them
+    to 0 to reset)."""
+    if not _dmc._graphs_engage(device, num_rows, mesh):
+        return None
+    return _StepGraph()
+
+
+step_graph.capture_count = 0
+step_graph.replay_count = 0
+
+
+class _StepGraph(_dmc._TwoSides):
+    """The steps of one run, replayed from two CUDA graphs
+    (``dmc._TwoSides``) of the step's body (:meth:`Sampling._step_body`).
+
+    Each side reads one set of state buffers and writes the new state
+    into the other's, so a step never writes the buffers of its own
+    input, which the caller may read after the step returns.  The inputs
+    copied in are the run's first state and a resume; the draws are the
+    run's buffers, which both sides read.  The same kernels run in the
+    same order on the same data as the eager step, so a replayed step is
+    bit-equal to it.
+
+    A step's outputs are overwritten the step after next: what outlives
+    it is copied (each step's records into the block's tables by
+    :meth:`Sampling._run`, the state a block yields by :meth:`owned`).
+    A replay adds the launches it makes to the kernels' launch
+    counters."""
+
+    def __init__(self):
+        super().__init__(_COUNTERS, step_graph)
+
+    def step(self, sampling: "Sampling", state: State, moves: torch.Tensor,
+             u: torch.Tensor, consts: _Consts, with_est: bool) -> State:
+        """:meth:`Sampling._step` of the run's next step."""
+        if not self.warm:
+            self.warm = True
+            return sampling._step_body(state, moves, u, consts, with_est)
+        return self._replay(dict(state._asdict(), moves=moves, u=u),
+                            lambda: self._capture(sampling, state, moves, u,
+                                                  consts, with_est))
+
+    def _capture(self, sampling, state, moves, u, consts, with_est):
+        sets = [State(*(None if x is None else x.clone() for x in state))
+                for _ in range(2)]
+
+        def side(src: State, dst: State):
+            def body():
+                sampling._step_body(src, moves, u, consts, with_est, out=dst)
+                return {}
+
+            replay, _ = _dmc._record_graph(body)
+            inputs = {name: getattr(src, name) for name in _CARRIED
+                      if getattr(src, name) is not None}
+            return dict(inputs, moves=moves, u=u), replay, dst
+
+        self.sides = [side(sets[0], sets[1]), side(sets[1], sets[0])]
+
+    @staticmethod
+    def owned(state: State) -> State:
+        """``state`` with a copy of every tensor the graphs write."""
+        return State(*(None if x is None else x.clone() for x in state))
 
 
 @dataclass(frozen=True)
@@ -337,30 +458,55 @@ class Sampling:
 
     # -- the step -------------------------------------------------------------
 
-    def _step(self, state: State, disp: torch.Tensor, u: torch.Tensor,
+    def _step(self, state: State, moves: torch.Tensor, u: torch.Tensor,
               consts: _Consts, with_est: bool) -> State:
         """One Metropolis step of R rows (every field of ``state`` with
-        the rows' leading axis) on the displacements ``disp (R, W, N)``
-        and the acceptance uniforms ``u (R, W)``; ``with_est`` carries
-        the proposal's S(k) parts and OBDM grid through rejections."""
+        the rows' leading axis) on the move draws ``moves (R, W, N)``
+        (uniforms, or with ``gaussian`` the displacements) and the
+        acceptance uniforms ``u (R, W)``; ``with_est`` carries the
+        proposal's S(k) parts and OBDM grid through rejections.
+
+        The step runs :meth:`_step_body`, or replays it from the run's
+        CUDA graphs (``consts.graph``, :func:`step_graph`): then the
+        returned tensors are the graphs' buffers, which the step after
+        next overwrites."""
+        if consts.graph is not None:
+            return consts.graph.step(self, state, moves, u, consts, with_est)
+        return self._step_body(state, moves, u, consts, with_est)
+
+    def _step_body(self, state: State, moves: torch.Tensor, u: torch.Tensor,
+                   consts: _Consts, with_est: bool,
+                   out: t.Optional[State] = None) -> State:
+        """The work of :meth:`_step`, run eagerly or captured; ``out``
+        holds buffers for the new state (a graph's side)."""
         funcs, cfc = self.core_funcs, consts.cfc
+        if out is None:
+            out = State(*(None,) * len(State._fields))
+        disp = moves if self.gaussian \
+            else consts.move_spread * (moves - 0.5)
         prop = mrbp.recast(state.pos + disp, cfc)
         lp_prop, e_prop = funcs.log_psi_and_energy(prop, cfc, consts.params)
         # Metropolis condition of the reference (qmc_base/vmc.py:636).
-        accept = lp_prop > 0.5 * torch.log(u) + state.wf_abs_log
-        new = State(torch.where(accept[..., None], prop, state.pos),
-                    torch.where(accept, lp_prop, state.wf_abs_log),
-                    torch.where(accept, e_prop, state.energy), accept)
+        accept = torch.gt(lp_prop, 0.5 * torch.log(u) + state.wf_abs_log,
+                          out=out.move_stat)
+        new = State(
+            torch.where(accept[..., None], prop, state.pos, out=out.pos),
+            torch.where(accept, lp_prop, state.wf_abs_log,
+                        out=out.wf_abs_log),
+            torch.where(accept, e_prop, state.energy, out=out.energy),
+            accept)
         if with_est and self.ssf_est_spec is not None:
             parts = funcs.fourier_density_parts_harmonics(
                 self.ssf_est_spec.num_modes, prop, cfc)
             new = new._replace(ssf_parts=torch.where(
-                accept[..., None, None], parts, state.ssf_parts))
+                accept[..., None, None], parts, state.ssf_parts,
+                out=out.ssf_parts))
         if with_est and self.obd_est_spec is not None:
             grid = funcs.one_body_density_grid(consts.obd_offsets, prop, cfc,
                                                consts.params)
             new = new._replace(obd_parts=torch.where(
-                accept[..., None], grid, state.obd_parts))
+                accept[..., None], grid, state.obd_parts,
+                out=out.obd_parts))
         return new
 
     def _measure(self, consts: _Consts, pos: torch.Tensor,
@@ -384,50 +530,48 @@ class Sampling:
                 spec.num_bins, pos, cfc))
         return rows
 
-    def _run(self, state: State, draws, consts: _Consts, thin: int = 0):
-        """Step R rows through ``draws``, an iterable of ``(disp, u)``.
+    def _run(self, state: State, draws, consts: _Consts,
+             tables: t.Dict[str, torch.Tensor], thin: int = 0,
+             confs: t.Optional[torch.Tensor] = None):
+        """Step R rows through ``draws``, an iterable of ``(moves, u)``,
+        each step's records (:func:`_step_records`) copied into row
+        ``step`` of the block's ``tables`` (``(R, nts, ...)`` by name) and,
+        with ``thin``, every ``thin``-th step's positions into ``confs (R,
+        nts // thin, W, N)``.
 
-        Returns ``(state, props, rows, confs)``: the per-step
-        ``(wf_abs_log, energy, move_stat)``, the estimator rows by name
-        and, with ``thin``, every ``thin``-th step's positions, all as
-        lists of device tensors with the rows' leading axis.
+        Returns ``(state, rows)``: the chunked mode's estimator rows by
+        name, as lists of device tensors with the rows' leading axis.
         """
         chunked, cadence = self._chunked, self.est_every
         if chunked:
             # The chunked mode carries no parts.
             state = state._replace(ssf_parts=None, obd_parts=None)
-        props, rows, confs = [], {}, []
-        for step, (disp, u) in enumerate(draws):
+        rows = {}
+        for step, (moves, u) in enumerate(draws):
             with tracing.span(tracing.STEP_VMC):
-                state = self._step(state, disp, u, consts, not chunked)
-            props.append((state.wf_abs_log, state.energy, state.move_stat))
+                state = self._step(state, moves, u, consts, not chunked)
+            for name, value in _step_records(state, not chunked).items():
+                tables[name][:, step].copy_(value)
             if thin and (step + 1) % thin == 0:
-                confs.append(state.pos)
-            if not chunked:
-                step_rows = {"ssf": state.ssf_parts, "obd": state.obd_parts}
-                step_rows = {name: _row_sums(parts)
-                             for name, parts in step_rows.items()
-                             if parts is not None}
-            elif (step + 1) % cadence == 0:
-                step_rows = self._measure(consts, state.pos, step // cadence)
-            else:
-                continue
-            for name, row in step_rows.items():
-                rows.setdefault(name, []).append(row)
-        return state, props, rows, confs
+                confs[:, step // thin].copy_(state.pos)
+            if chunked and (step + 1) % cadence == 0:
+                for name, row in self._measure(
+                        consts, state.pos, step // cadence).items():
+                    rows.setdefault(name, []).append(row)
+        return state, rows
 
     def _draws(self, consts: _Consts, block_index: int,
                num_steps_block: int, shape, dtype, device,
                noise: t.Optional[torch.Tensor],
-               bufs: t.Optional[t.Tuple[torch.Tensor, torch.Tensor]]):
-        """The displacements and acceptance uniforms of one block of R
-        rows of ``shape (R, W, N)``, drawn on the device as the steps
-        consume them: each row's from its own ``torch.Generator``, seeded
-        from ``(rng_seed, block index)`` as its single sampling's.
-        Gaussian displacements, already scaled by each row's
-        ``move_spread``, are written into the run's buffer ``noise`` (one
-        launch for all rows); the rows' uniforms into ``bufs`` (a single
-        sampling draws fresh tensors): each step consumes them before
+               bufs: t.Tuple[t.Optional[torch.Tensor], torch.Tensor]):
+        """The move draws and acceptance uniforms of one block of R rows
+        of ``shape (R, W, N)``, drawn on the device as the steps consume
+        them: each row's from its own ``torch.Generator``, seeded from
+        ``(rng_seed, block index)`` as its single sampling's.  Gaussian
+        displacements, already scaled by each row's ``move_spread``, are
+        written into the run's buffer ``noise`` (one launch for all
+        rows); the rows' uniforms into the run's ``bufs``, ``(moves (R,
+        W, N) or None, accept (R, W))``: each step consumes them before
         the next draw, in stream order."""
         shard = None if consts.mesh is None else consts.mesh.rank
         gens = []
@@ -435,33 +579,31 @@ class Sampling:
             gen = torch.Generator(device=device)
             gen.manual_seed(utils.block_seed(seed, block_index, shard))
             gens.append(gen)
+        moves, accept = bufs
+        # Each row's generator and buffers, taken apart once a block.
+        rows = [(gen, None if self.gaussian else moves[r], accept[r])
+                for r, gen in enumerate(gens)]
         for step in range(num_steps_block):
             global_step = block_index * num_steps_block + step
-            if bufs is None:
-                gen = gens[0]
-                if self.gaussian:
-                    disp = prng.normal(
-                        consts.noise_keys[0], global_step, shape[1:], dtype,
-                        device, scale=self.move_spread, out=noise[0])
-                else:
-                    disp = self.move_spread * (torch.rand(
-                        shape[1:], generator=gen, dtype=dtype,
-                        device=device) - 0.5)
-                u = torch.rand(shape[1:2], generator=gen, dtype=dtype,
-                               device=device)
-                yield disp[None], u[None]
-                continue
-            moves, accept = bufs
-            if self.gaussian:
-                disp = prng.normal_rows(consts.keys, global_step,
-                                        consts.spreads, noise)
-            for r, gen in enumerate(gens):
-                if not self.gaussian:
-                    torch.rand(moves[r].shape, generator=gen, out=moves[r])
-                torch.rand(accept[r].shape, generator=gen, out=accept[r])
-            if not self.gaussian:
-                disp = consts.move_spread * (moves - 0.5)
-            yield disp, accept
+            if self.gaussian and consts.keys is None:
+                prng.normal(consts.noise_keys[0], global_step, shape[1:],
+                            dtype, device, scale=self.move_spread,
+                            out=noise[0])
+            elif self.gaussian:
+                prng.normal_rows(consts.keys, global_step, consts.spreads,
+                                 noise)
+            for gen, row_moves, row_accept in rows:
+                if row_moves is not None:
+                    torch.rand(row_moves.shape, generator=gen, out=row_moves)
+                torch.rand(row_accept.shape, generator=gen, out=row_accept)
+            yield (noise if self.gaussian else moves), accept
+
+    def _draw_buffers(self, shape, dtype, device):
+        """The uniforms' buffers of a run: ``(moves, accept)``, the
+        moves' ``None`` with ``gaussian``."""
+        return (None if self.gaussian else
+                torch.empty(shape, dtype=dtype, device=device),
+                torch.empty(shape[:2], dtype=dtype, device=device))
 
     # -- public sampling APIs -------------------------------------------------
 
@@ -474,9 +616,10 @@ class Sampling:
         step's positions ``(R, nts // thin, W, N)`` (with ``thin``), the
         per-step properties ``(R, nts, W)`` and estimator rows ``(R, n,
         ...)`` on the device, the rows' acceptance rates (floats, the
-        block's one host sync) and the last state.  On a mesh the
-        estimator rows are the shards' sums, the acceptance rates the
-        mean of theirs, the properties gathered over the chains."""
+        block's one host sync) and the last state, each the block's own:
+        later blocks leave them as they are.  On a mesh the estimator
+        rows are the shards' sums, the acceptance rates the mean of
+        theirs, the properties gathered over the chains."""
         if num_steps_block < 1:
             raise ValueError("num_steps_block must be nonzero and positive")
         self._check_block_length(thin or num_steps_block)
@@ -492,22 +635,34 @@ class Sampling:
         shape = state.pos.shape
         noise = (torch.empty(shape, dtype=dtype, device=device)
                  if self.gaussian else None)
-        bufs = None
-        if shape[0] > 1:
-            bufs = (None if self.gaussian else
-                    torch.empty(shape, dtype=dtype, device=device),
-                    torch.empty(shape[:2], dtype=dtype, device=device))
+        bufs = self._draw_buffers(shape, dtype, device)
+        consts = consts._replace(graph=step_graph(device, shape[0],
+                                                  consts.mesh))
+        # The layout of the block's tables: a row for each step's records.
+        layout = {name: ((shape[0], num_steps_block) + value.shape[1:],
+                         value.dtype)
+                  for name, value in _step_records(
+                      state, not self._chunked).items()}
         while True:
             draws = self._draws(consts, block_index, num_steps_block, shape,
                                 dtype, device, noise, bufs)
+            # The block's own tables, written step by step.
+            tables = {name: torch.empty(table_shape, dtype=table_dtype,
+                                        device=device)
+                      for name, (table_shape, table_dtype) in layout.items()}
+            confs = (torch.empty((shape[0], num_steps_block // thin)
+                                 + shape[1:], dtype=dtype, device=device)
+                     if thin else None)
             with tracing.span(tracing.RUN_VMC):
-                state, props, rows, confs = self._run(state, draws, consts,
-                                                      thin)
-            props = PropsData(*(torch.stack(column, dim=1)
-                                for column in zip(*props)))
+                state, rows = self._run(state, draws, consts, tables, thin,
+                                        confs)
+            props = PropsData(*(tables.pop(name)
+                                for name in PropsData._fields))
             rows = {name: torch.stack(values, dim=1)
                     for name, values in rows.items()}
-            rates = props.move_stat.double().mean(dim=(1, 2))
+            rows.update(tables)
+            rates = _accepted(props.move_stat).double() \
+                / props.move_stat[0].numel()
             if consts.mesh is not None:
                 mesh = consts.mesh
                 rows = {name: mesh.psum(value) for name, value in rows.items()}
@@ -516,8 +671,9 @@ class Sampling:
                                     for column in props))
             # The block's one host sync.
             rates = rates.tolist()
-            yield ((torch.stack(confs, dim=1) if thin else None), props,
-                   rows, rates, state)
+            yield (confs, props, rows, rates,
+                   state if consts.graph is None
+                   else consts.graph.owned(state))
             block_index += 1
 
     def _blocks(self, num_steps_block: int, ini_state: State,
@@ -590,9 +746,7 @@ class Sampling:
         rows' axis after the steps'."""
         out = []
         for mu, au in zip(moves, accept):
-            disp = mu if self.gaussian \
-                else consts.move_spread * (mu - 0.5)
-            state = self._step(state, disp, au, consts, with_est=False)
+            state = self._step(state, mu, au, consts, with_est=False)
             out.append((state.pos, state.wf_abs_log, state.move_stat))
         return tuple(torch.stack(column) for column in zip(*out))
 

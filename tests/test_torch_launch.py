@@ -252,13 +252,16 @@ def test_vmc_draws_scaled_gaussian_moves_into_one_buffer():
         np.random.default_rng(1).uniform(0, 8.0, (6, 8)), device="cpu")
     noise = torch.empty((1,) + state.pos.shape, dtype=state.pos.dtype)
     consts = sampling._consts(state.pos.dtype, "cpu")
+    bufs = sampling._draw_buffers(noise.shape, noise.dtype, noise.device)
+    assert bufs[0] is None
     for step, (disp, u) in enumerate(sampling._draws(
             consts, 1, 3, noise.shape, noise.dtype, noise.device, noise,
-            None)):
+            bufs)):
         assert disp.data_ptr() == noise.data_ptr()
         want = 0.15 * prng.normal_plain(3, 3 + step, state.pos.shape,
                                         state.pos.dtype)
         assert torch.equal(disp[0], want)
+        assert u.data_ptr() == bufs[1].data_ptr()
         assert u.shape == (1,) + state.pos.shape[:1]
 
 
