@@ -341,7 +341,7 @@ K1_LOG_F32_TOL = dict(K1_F32_TOL, log_psi_rtol=1e-5, log_psi_atol=1e-4)
 
 #: Flops per unit of work, counted as ``portbench/yardstick.py`` counts
 #: K1's (``K1_FLOPS_PER_PAIR``, ``K1_LOG_FLOPS_PER_PAIR``, per unordered
-#: pair in ``csrc/pair_terms.cuh::walker_terms``; fma = 2, a MUFU op = 1;
+#: pair of ``csrc/pair_terms.cuh::pair_terms``; fma = 2, a MUFU op = 1;
 #: compares, selects and integer ops not counted, so each bound stays a
 #: least time): one Box-Muller per pair of normals
 #: (``csrc/philox.cuh::box_muller``: ~40 flops, 20 per normal; the
@@ -3733,7 +3733,8 @@ def ptxas_report(log: str, kernels) -> list:
     """Registers, stack frame and spills of each instantiation of the
     kernels named in ``kernels``, from the build's ``-Xptxas -v`` report
     (empty when the library was up to date): its name, dtype and, for a
-    kernel templated on its block size, the block size."""
+    kernel templated on its block size, the block size; for K1, which
+    variant (``log_psi``)."""
     entries, mangled, own = [], None, False
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -3741,11 +3742,13 @@ def ptxas_report(log: str, kernels) -> list:
         if entry:
             mangled = entry[1]
             name = next((k for k in kernels if k in mangled), None)
-            kind = re.search(r"kernelI([fd])(?:Li(\d+)E)?", mangled)
+            kind = re.search(r"kernelI([fd])(?:Li(\d+)E|Lb([01])E)?",
+                             mangled)
             entries.append(None if name is None or kind is None else {
                 "instantiation": name, "dtype": "f32" if kind[1] == "f"
                 else "f64", "block_size": None if kind[2] is None
-                else int(kind[2])})
+                else int(kind[2]),
+                **({} if kind[3] is None else {"log_psi": kind[3] == "1"})})
         elif props:
             own = props[1] == mangled  # not a device function's
         elif entries and entries[-1] is not None:
@@ -3782,7 +3785,8 @@ def main() -> None:
     phase("A", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
           build_s=time.perf_counter() - t0, built=bool(log), ok=True)
     print(log if log else "kernel library up to date", flush=True)
-    for entry in ptxas_report(log, ("pair_logpsi_params_vjp_kernel",
+    for entry in ptxas_report(log, ("pair_energy_drift_kernel",
+                                    "pair_logpsi_params_vjp_kernel",
                                     "philox_normals_rows_kernel",
                                     "diffuse_kernel")):
         phase("A", **entry, ok=True)

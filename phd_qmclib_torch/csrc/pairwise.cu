@@ -9,10 +9,10 @@
 //   * log (with_log_psi=True, the VMC step): log|psi| (W,) as well.
 // For every walker it computes the one-body Kronig-Penney terms (orbital
 // log-derivative, kinetic, barrier/defect potential, and with kLogPsi
-// log|f1|) and the O(N^2) minimum-image phonon pair block, one
-// branch-selected tan/cot per unordered pair (and one log with kLogPsi).
-// The walker's body lives in pair_terms.cuh, which the fused diffusion
-// kernel (diffuse.cu) shares.  Both variants take a table of parameter
+// log|f1|) and the O(N^2) minimum-image phonon pair block, one tan or
+// cot per unordered pair (and one log with kLogPsi).  The walker's body
+// lives in pair_terms.cuh, which the fused diffusion kernel (diffuse.cu)
+// shares.  Both variants take a table of parameter
 // rows: walker w reads row w / walkers_per_row, so that one launch serves
 // the rows of a fused parameter sweep (a single sampling passes one row
 // and walkers_per_row = num_walkers).  Only the row's address differs, so
@@ -21,29 +21,41 @@
 // What bounds it on the H100: FP32 instruction issue.  The only memory
 // traffic is N positions in and N + 1 (N + 2 with kLogPsi) values out per
 // walker: 17.8 MB at 17408 x 128 against 141.5 M unordered pairs.
-// Counted in float as written (pair_terms.cuh; fma = 2, rcp and lg2 = 1),
-// an unordered pair costs 28 flops, 40 with kLogPsi: ~220 flops per byte,
-// ten times the card's 20 (67 TFLOP/s over 3.35 TB/s).  The real limit is
-// instruction issue: the f32 pair loop's SASS holds 44 instructions per
-// unordered pair (49.5 with kLogPsi; compares, selects, one LDS.128, one
-// STS.64, the barrier and the ring index besides the arithmetic), and an
-// issue slot retires at most one FMA, so the flops fill at most a third
-// of the slots.  The first design (one thread per particle over all
-// j != i) evaluated every pair twice, with an IEEE divide, a rintf on the
-// conversion pipe and, with kLogPsi, an accurate logf per ordered pair:
-// ~84 instructions per unordered pair in f32, ~154 with kLogPsi.
+// Counted in float as the half-ring design wrote it (fma = 2, rcp and lg2
+// = 1), an unordered pair costs 28 flops, 40 with kLogPsi: ~220 flops per
+// byte, ten times the card's 20 (67 TFLOP/s over 3.35 TB/s); the
+// benchmark's k1_roofline and k1_log_roofline keep that count.  The real
+// limit is instruction issue, as an issue slot retires at most one FMA.
 //
-// What the design does about it: one CTA per walker, one thread per
-// particle, the walker's positions in shared memory.  Each unordered pair
-// is evaluated once on a half ring (walker_terms): the odd drift term goes
-// to i and, negated, to j, the even kinetic term to both, the j side
-// through a shared-memory slot per particle, a barrier per step.  The
-// minimum image is two compares and a select (positions in [0, L)), the
-// tan/cot ratio one MUFU reciprocal, the pair log one MUFU log2; log|f2|
-// needs no j side, as only its walker sum is wanted.  The energy and
-// log|psi| terms are reduced in one pass (block_sums).  No pair value
-// ever leaves the registers.  Any N up to 1024, float and double; the
-// free-gas and ideal-gas branches are uniform flags read once per thread.
+// What held the earlier designs back, from their SASS.  The first (one
+// thread per particle over all j != i) evaluated every pair twice, with
+// an IEEE divide, a rintf on the conversion pipe and, with kLogPsi, an
+// accurate logf per ordered pair: ~84 instructions per unordered pair in
+// f32, ~154 with kLogPsi.  The second took each unordered pair once on a
+// half ring, the j side through a 16-byte shared-memory slot per particle
+// (position, drift and kinetic sums): 44 instructions a pair, 49.5 with
+// kLogPsi, of them both cutoff branches' selects on every pair, a ring
+// index with a wrap test, the read-modify-write of the partner's slot and
+// a block barrier on every ring step (63 a walker at N = 128); the log
+// variant evaluated the sin/cos polynomials and a lg2 on every pair.
+//
+// What this design does about it: one CTA per walker, one thread per
+// particle, the walker's positions in shared memory, and the pair loop
+// that the fused diffusion kernel had (pair_terms.cuh::walker_terms, one
+// copy for K1, K1 log and K3): the positions twice over, so that a
+// partner is an immediate offset; a warp vote per step, with a
+// select-free fast body unless a lane of the warp holds a pair inside the
+// contact cutoff; the kinetic terms counted on the taker's side, so only
+// the drift keeps a j side, an 8-byte slot; the j sides in 4 rings and a
+// barrier every 4 steps (2 or 1 rings at 1024 threads, chosen in the
+// kernel from the block size, so that both variants keep one name); with
+// kLogPsi the fast body's log sin from the cot already in hand,
+// -log(1 + cot^2) / 2, one fma and one MUFU log2.  The one-body terms come
+// after the pair loop.  The energy and log|psi| terms are reduced in one
+// pass (block_sums).  No pair value ever leaves the registers.  Any N up
+// to 1024, float and double; the free-gas and ideal-gas branches are
+// uniform flags read once per thread.
+// What was tried and dropped for the pair loop: pair_terms.cuh.
 //
 // Accuracy: built without --use_fast_math: the one-body tanf/tanhf/cosf/
 // coshf/logf are the accurate ones.  The approximate reciprocal and log2
@@ -112,8 +124,16 @@ pair_energy_drift_kernel(const T* __restrict__ pos,
                          T* __restrict__ log_psi, int walkers_per_row,
                          int nop, int is_free, int is_ideal,
                          int defects_sep) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  const qmc::WalkerSmem<T> smem(smem_raw);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // The ring count of the block size (ring_buffers): a uniform branch
+  // between two unrolled bodies, so that the kernel keeps one name.
+  constexpr int kSmall = qmc::ring_buffers<T>(256);
+  constexpr int kLarge = qmc::ring_buffers<T>(kMaxThreads);
+  // The sums reduced over the block: the energy, and log|psi|.
+  constexpr int kSums = kLogPsi ? 2 : 1;
+  const bool small = blockDim.x <= 256;
+  const qmc::WalkerSmem<T, kSums> smem(smem_raw, small ? kSmall : kLarge,
+                                       qmc::ring_len(nop));
 
   const size_t walker = blockIdx.x;
   const int i = threadIdx.x;
@@ -121,14 +141,17 @@ pair_energy_drift_kernel(const T* __restrict__ pos,
   // walkers_per_row walkers; one row for a single sampling).
   params += walker / static_cast<size_t>(walkers_per_row) * qmc::kParamsSize;
   const T zi = i < nop ? pos[walker * nop + i] : T(0);
-  smem.slots[i] = {qmc::into_supercell(zi, params[qmc::P_L]), T(0), T(0),
-                   T(0)};
-  __syncthreads();
 
   T drift_i, term, log_i;
-  qmc::walker_terms<T, kLogPsi>(smem.slots, nop, zi, params, is_free,
-                                is_ideal, defects_sep, &drift_i, &term,
-                                &log_i);
+  if (small) {
+    qmc::walker_terms<T, kLogPsi, kSmall, kSums>(smem, nop, zi, params, is_free,
+                                          is_ideal, defects_sep, &drift_i,
+                                          &term, &log_i);
+  } else {
+    qmc::walker_terms<T, kLogPsi, kLarge, kSums>(smem, nop, zi, params, is_free,
+                                          is_ideal, defects_sep, &drift_i,
+                                          &term, &log_i);
+  }
   if (i < nop) drift[walker * nop + i] = drift_i;
 
   // One reduction pass for the energy and, with kLogPsi, log|psi|.
@@ -156,9 +179,10 @@ int launch(const void* pos, const void* params, void* log_psi, void* energy,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = ((nop + 31) / 32) * 32;
+  const size_t smem = qmc::WalkerSmem<T, kLogPsi ? 2 : 1>::bytes(
+      qmc::ring_buffers<T>(threads), nop);
   pair_energy_drift_kernel<T, kLogPsi>
-      <<<num_walkers, threads, qmc::WalkerSmem<T>::bytes(threads),
-         static_cast<cudaStream_t>(stream)>>>(
+      <<<num_walkers, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(pos), static_cast<const T*>(params),
           static_cast<T*>(energy), static_cast<T*>(drift),
           static_cast<T*>(log_psi), walkers_per_row, nop, is_free, is_ideal,

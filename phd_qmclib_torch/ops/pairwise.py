@@ -18,6 +18,10 @@ Counterpart of ``phd_qmclib_tpu.ops.pairwise``:
 * :func:`diffuse_energy_drift` replaces ``diffuse_energy_drift_pallas``:
   noise, move, recast, the forward terms and the branching weight in one
   pass.  As in the JAX package, no sampler calls it.
+* :func:`vote_share`, how often the kernels' pair loop leaves its fast
+  body: the share of warp steps whose vote finds a pair inside the
+  contact cutoff, counted in plain torch over the loop's schedule.  No
+  sampler calls it.
 * :func:`obd_grid`, the one-body density matrix at a grid of offsets,
   every offset of a walker in one CTA: the CUDA side of the OBDM
   estimator, which the JAX package leaves to XLA.  Its plain version is
@@ -40,7 +44,8 @@ from .pbc import min_image_bounded, recast_to_supercell, sign
 __all__ = ["PARAMS_SIZE", "LogPsiAndEnergy", "diffuse_energy_drift",
            "diffuse_energy_drift_plain", "energy_and_drift",
            "energy_and_drift_params_vjp", "energy_and_drift_params_vjp_plain",
-           "energy_and_drift_plain", "obd_grid", "pack_params"]
+           "energy_and_drift_plain", "obd_grid", "pack_params",
+           "vote_share"]
 
 #: Packed-parameter layout.  Slots 0-12 are those of the JAX package's
 #: ``pack_params``; slot 13 holds the Hamiltonian's lattice depth, which
@@ -271,6 +276,58 @@ energy_and_drift.log_psi_launch_count = 0
 energy_and_drift.table_launch_count = 0
 energy_and_drift.log_psi_table_launch_count = 0
 energy_and_drift.params_vjp_launch_count = 0
+
+
+def vote_share(pos: torch.Tensor, params: torch.Tensor, nop: int) -> float:
+    """The share of the pair loop's ``(walker, warp, step)`` triples on
+    which some lane's pair is inside the contact cutoff (``r < rm``) or
+    coincident (``r = 0``): those on which the kernels
+    (``csrc/pair_terms.cuh::walker_terms``; K1, K1 log and K3) leave the
+    fast body for K1's full pair body.
+
+    The schedule is the kernels': warp ``t`` holds lanes ``32 t ..
+    32 t + 31``, lane ``i < nop`` particle ``i`` (the padding lanes past
+    ``nop`` never vote); at step ``k = 1 .. (nop - 1) // 2`` lane ``i``
+    takes particle ``(i + k) mod nop``; for an even ``nop`` a last step
+    pairs ``i < nop / 2`` with ``i + nop / 2``, and counts for the warps
+    that hold such a lane (that step takes the full body without a vote).
+    ``r`` is the minimum image of the positions wrapped into ``[0, L)``,
+    in ``pos``' dtype as the kernels compute it.  ``params`` is
+    :func:`pack_params`' vector or a ``(R, PARAMS_SIZE)`` table, row ``r``
+    for the ``W / R`` consecutive walkers of row ``r``.  0 where the
+    schedule has no step (``nop = 1``).  Plain torch on ``pos``' device.
+    """
+    num_walkers = pos.shape[0]
+    rows = (params.repeat_interleave(num_walkers // params.shape[0], dim=0)
+            if params.dim() == 2 else params.expand(num_walkers, -1))
+    length = rows[:, P_L:P_L + 1]
+    rm = rows[:, P_RM:P_RM + 1]
+    inside_supercell = (pos >= 0) & (pos < length)
+    z = torch.where(inside_supercell, pos,
+                    pos - length * torch.floor(pos / length))
+    num_warps = -(-nop // 32)
+    lanes = torch.arange(nop, device=pos.device)
+
+    def voting_warps(k: int, takers: int) -> torch.Tensor:
+        """(W, warps) votes of the step at offset k taken by lanes below
+        ``takers``."""
+        ad = (z[:, :takers] - z[:, (lanes[:takers] + k) % nop]).abs()
+        r = torch.where(ad > 0.5 * length, length - ad, ad)
+        inside = (r < rm) | (r == 0)
+        padded = inside.new_zeros((num_walkers, 32 * num_warps))
+        padded[:, :takers] = inside
+        return padded.view(num_walkers, num_warps, 32).any(dim=-1)
+
+    steps = (nop - 1) // 2
+    votes, triples = 0, 0
+    for k in range(1, steps + 1):
+        votes += int(voting_warps(k, nop).sum())
+        triples += num_walkers * num_warps
+    if nop % 2 == 0:
+        half = nop // 2
+        votes += int(voting_warps(half, half).sum())
+        triples += num_walkers * -(-half // 32)
+    return votes / triples if triples else 0.0
 
 
 # -- the parameter VJP of the log|psi| variant ---------------------------------

@@ -539,6 +539,131 @@ def test_pair_kernel_wraps_positions_outside_the_supercell(cuda):
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
 
 
+#: (rtol, atol) of log|psi|, the energy and the drift against the plain
+#: version: the single-row tests' tolerances.
+PLAIN_TOLS = {torch.float32: [(1e-5, 1e-5), (2e-5, 2e-5), (1e-3, 1e-4)],
+              torch.float64: [(1e-10, 1e-10)] * 3}
+
+
+def _check_both_variants(pos, params, kw, equal_nan=False, log_psi=True):
+    """The forward and the log variant against their plain versions
+    (log|psi| too unless ``log_psi`` is False); in f64 their energy and
+    drift bit for bit."""
+    tols = PLAIN_TOLS[pos.dtype]
+    outs = {}
+    for with_log_psi in (False, True):
+        got = pairwise.energy_and_drift(pos, params, **kw,
+                                        with_log_psi=with_log_psi)
+        want = pairwise.energy_and_drift_plain(pos, params, **kw,
+                                               with_log_psi=with_log_psi)
+        checked = list(zip(got, want, tols[-len(got):]))
+        if with_log_psi and not log_psi:
+            checked = checked[1:]
+        for g, w, (rtol, atol) in checked:
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                       equal_nan=equal_nan)
+        outs[with_log_psi] = got
+    if pos.dtype == torch.float64:
+        for a, b in zip(outs[False], outs[True][1:]):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def _bench_params(nop, length, dtype, device, rm=None):
+    """The bench model's packed vector at N = nop in a supercell of
+    ``length``; ``rm`` overrides the contact cutoff slot alone."""
+    spec = mrbp.Spec(**dict(BENCH, boson_number=nop,
+                            supercell_size=float(length)))
+    params = pairwise.pack_params(spec.cfc_params, dtype, device)
+    if rm is not None:
+        params[pairwise.P_RM] = rm
+    static = spec.static_spec
+    return params, dict(nop=nop, is_free=static.is_free,
+                        is_ideal=static.is_ideal,
+                        defects_sep=static.defects_sep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["bench", "free"])
+def test_pair_kernel_dense(cuda, kind, dtype):
+    """N = 128 in L = 16: ~6 particles within rm of each, so most warp
+    steps vote and take K1's pair body, both variants.  In the bench
+    model log|psi| is the difference of the one-body sum (~ +35) and the
+    pair sum (~ -34), ~0.2, which the plain f32 version itself misses by
+    1.7e-5, more than the relative tolerance allows at 0.2: there f32
+    holds the energy and the drift, and the free gas (the pair sum alone)
+    holds log|psi|."""
+    params, kw = _bench_params(128, 16.0, dtype, cuda)
+    kw["is_free"] = kind == "free"
+    pos = torch.as_tensor(np.random.default_rng(5).uniform(
+        0, 16.0, (64, 128)), dtype=dtype, device=cuda)
+    assert pairwise.vote_share(pos, params, 128) > 0.5
+    _check_both_variants(pos, params, kw, log_psi=(
+        kind == "free" or dtype == torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_kernel_one_lane_votes(cuda, dtype):
+    """Jittered lattices with every pair outside the cutoff, but for one
+    pair of one walker, which one lane of one warp takes at step 1: that
+    warp step alone takes K1's body."""
+    nop, walkers = 64, 8
+    params, kw = _bench_params(nop, nop, dtype, cuda)
+    rng = np.random.default_rng(9)
+    pos = np.arange(nop) + 0.5 + rng.uniform(-0.2, 0.2, (walkers, nop))
+    pos[3, 37] = pos[3, 38] - 0.1
+    pos = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    # Per walker 31 voted steps of 2 warps and the even N's last step.
+    assert pairwise.vote_share(pos, params, nop) == 1 / (walkers * 63)
+    _check_both_variants(pos, params, kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_kernel_rm_0_with_coincident_particles(cuda, dtype):
+    """With rm = 0 coincident particles still vote (the vote's cutoff is
+    the least positive value) and take K1's body, which gives both the
+    +ldz drift term, an infinite one, as the plain version does."""
+    nop = 33
+    params, kw = _bench_params(nop, nop, dtype, cuda, rm=0.0)
+    pos = np.random.default_rng(4).uniform(0, float(nop), (16, nop))
+    pos[:4, 7] = pos[:4, 20]
+    pos = torch.as_tensor(pos, dtype=dtype, device=cuda)
+    assert pairwise.vote_share(pos, params, nop) > 0.0
+    _check_both_variants(pos, params, kw, equal_nan=True)
+    _, drift = pairwise.energy_and_drift(pos, params, **kw)
+    assert bool((drift[:4, 7] == float("inf")).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", [1000, 1024])
+def test_pair_kernel_at_1024_threads(cuda, nop, dtype):
+    """The block size of 2 rings in float and 1 in double, at 4 particles
+    a unit length: ~10% of warp steps vote."""
+    params, kw = _bench_params(nop, nop / 4, dtype, cuda)
+    pos = torch.as_tensor(np.random.default_rng(nop).uniform(
+        0, nop / 4, (8, nop)), dtype=dtype, device=cuda)
+    assert 0.0 < pairwise.vote_share(pos, params, nop) < 1.0
+    _check_both_variants(pos, params, kw)
+
+
+@pytest.mark.parametrize("with_log_psi", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", [64, 128])
+def test_pair_kernel_table_rows_equal_single_row_launches(
+        cuda, nop, dtype, with_log_psi):
+    """A 4-row table at N = 64 and 128: each row bit-equal to a launch on
+    its rows alone."""
+    per_row = 48
+    pos, table, kw = _table_inputs(dtype, cuda, per_row, nop=nop)
+    kw["with_log_psi"] = with_log_psi
+    got = pairwise.energy_and_drift(pos, table, **kw)
+    for r in range(len(SWEEP_ROWS)):
+        rows = slice(r * per_row, (r + 1) * per_row)
+        want = pairwise.energy_and_drift(pos[rows].contiguous(),
+                                         table[r].contiguous(), **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g[rows], w)
+
+
 def _diffuse_spec(nop, spec_kwargs=None):
     """The bench model at N = L = nop, or ``spec_kwargs`` over it."""
     return mrbp.Spec(**{**BENCH, "boson_number": nop,
@@ -725,6 +850,18 @@ def test_diffuse_kernel_dense(cuda, dtype):
     r = torch.minimum(r, 16.0 - r)
     assert float((r < BENCH["tbf_contact_cutoff"]).double().mean()) > 0.04
     _check_diffuse(args, xi, kw, dense)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nop", [33, 64, 128, 1024])
+def test_diffuse_kernel_energy_and_drift_are_k1s(cuda, nop, dtype):
+    """K3 runs K1's pair loop at its moved positions: its energy and drift
+    equal K1's there bit for bit."""
+    args, _, kw = _diffuse_inputs(nop, 5 if nop == 1024 else 33, dtype, cuda,
+                                  seed=nop + 2)
+    npos, nenergy, ndrift, _ = pairwise.diffuse_energy_drift(**args, **kw)
+    energy, drift = pairwise.energy_and_drift(npos, args["params"], **kw)
+    assert torch.equal(nenergy, energy) and torch.equal(ndrift, drift)
 
 
 @pytest.mark.parametrize("gaussian", [False, True],

@@ -1,12 +1,12 @@
 """An older checkout's kernels against this tree's, in one process on one
-card: K1 log's parameter VJP, K2's rows kernel and K3; and the OBDM grid's
-and the S(k) harmonics' kernels against the plain versions that they
-replaced.
+card: K1 and K1 log, K1 log's parameter VJP, K2's rows kernel and K3; and
+the OBDM grid's and the S(k) harmonics' kernels against the plain
+versions that they replaced.
 
-    PYTHONPATH=. python tools/kernel_compare.py [vjp] [k2_rows] [k3] [obd] \
-        [ssf] [--parent build/parent] [--out-dir build/compare]
+    PYTHONPATH=. python tools/kernel_compare.py [k1] [vjp] [k2_rows] [k3] \
+        [obd] [ssf] [--parent build/parent] [--out-dir build/compare]
 
-(no kernel named: all five; ``--parent`` is needed by all but ``obd`` and
+(no kernel named: all six; ``--parent`` is needed by all but ``obd`` and
 ``ssf``).
 The older checkout (``git archive <commit>`` unpacked into a git-ignored
 directory) builds its kernel library with its own ``ops/_build.py``, in
@@ -15,6 +15,21 @@ would.  Both libraries are loaded with ctypes and export the same launch
 functions, so each kernel runs on the same inputs from both, in turns
 (parent, new, new, parent):
 
+* ``k1``: ``qmc_pair_energy_drift_{f32,f64}`` and
+  ``qmc_pair_logpsi_energy_drift_{f32,f64}`` at 17408 x 128 (the DMC
+  cells' slots) and 16384 x 64 (the VMC cells' chains), each on positions
+  uniform in [0, L) and on a state warmed by the port's own sampler (two
+  512-step blocks: DMC at the bench model from ``init_get_sys_conf``, VMC
+  at move_spread 0.4 from a uniform start), and on the 4 x 4352 x 64 table
+  of phase S0's rows (``chip_smoke.table_inputs``): each output of both
+  against the plain version in f64 at the same inputs (the largest
+  relative gap of the energy and log|psi|, the largest absolute gap of
+  the drift), this tree's within the card tests' tolerances of the plain
+  version in the kernel's dtype (f64 within ``K1_F64_RTOL``) and, in f64,
+  its forward and log variants' energy and drift equal; the time of a
+  launch (CUDA events), in f32 the share of the bound
+  (``yardstick.k1_bound``, the benchmark's count), and the share of warp
+  steps whose vote takes the full pair body (``pairwise.vote_share``);
 * ``vjp``: ``qmc_pair_logpsi_params_vjp_{f32,f64}`` at 4096 x 128 (the
   bench model) and 16384 x 64 (the bench VMC model), positions uniform
   in [0, L): the rows of both summed and compared (f32 within
@@ -76,11 +91,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
 from phd_qmclib_torch.models import mrbp
 from phd_qmclib_torch.ops import _build, pairwise, prng, ssf
+from phd_qmclib_torch.samplers import vmc
 
 VJP_SHAPES = (("dmc shape", cs.BENCH_SPEC, 4096),
               ("vmc shape", cs.VMC_SPEC, cs.VMC_CHAINS))
@@ -94,7 +111,12 @@ OBD_SHAPES = (("production", cs.BENCH_SPEC, cs.MAX_WALKERS),
 OBD_REPS = {torch.float32: (20, 2), torch.float64: (5, 1)}
 #: Reps of one timing (kernel, plain) by dtype.
 SSF_REPS = {torch.float32: (200, 5), torch.float64: (50, 2)}
-COMPARES = ("vjp", "k2_rows", "k3", "obd", "ssf")
+#: Reps of one K1 timing by dtype, and the walkers of one plain call.
+K1_REPS = {torch.float32: 50, torch.float64: 10}
+K1_PLAIN_CHUNK = 1024
+#: Blocks of NTS steps that warm the K1 compare's sampled states.
+K1_WARM_BLOCKS = 2
+COMPARES = ("k1", "vjp", "k2_rows", "k3", "obd", "ssf")
 
 
 def build_parent(parent: Path) -> tuple:
@@ -134,6 +156,158 @@ def in_turns(parent, new, timer) -> dict:
     p1, n1 = timer(parent), timer(new)
     n2, p2 = timer(new), timer(parent)
     return {"parent": [p1, p2], "new": [n1, n2]}
+
+
+def warmed_dmc_state(device) -> torch.Tensor:
+    """The DMC slots (17408 x 128, f32) after K1_WARM_BLOCKS blocks of
+    the bench model from ``init_get_sys_conf``'s configurations."""
+    spec = mrbp.Spec(**cs.BENCH_SPEC)
+    rng = np.random.default_rng(0)
+    confs = np.stack([spec.init_get_sys_conf(rng=rng)
+                      for _ in range(cs.TARGET_WALKERS)]).astype(np.float32)
+    sampling = cs.bench_sampling()
+    blocks = sampling.blocks(
+        sampling.build_state(confs, dtype=np.float32, device=device),
+        num_time_steps_block=cs.NTS, burn_in_blocks=K1_WARM_BLOCKS)
+    for _ in range(K1_WARM_BLOCKS):
+        block = next(blocks)
+    return block.last_state.pos.contiguous()
+
+
+def warmed_vmc_state(device) -> torch.Tensor:
+    """The VMC chains (16384 x 64, f32) after K1_WARM_BLOCKS blocks at
+    move_spread 0.4 from a uniform start (the sk cell's protocol)."""
+    sampling = vmc.Sampling(mrbp.Spec(**cs.VMC_SPEC), move_spread=0.4,
+                            rng_seed=1, num_walkers=cs.VMC_CHAINS)
+    confs = np.random.default_rng(0).uniform(
+        0.0, float(cs.VMC_NOP), (cs.VMC_CHAINS, cs.VMC_NOP))
+    blocks = sampling.blocks(cs.NTS, sampling.build_state(
+        confs.astype(np.float32), dtype=torch.float32, device=device))
+    for _ in range(K1_WARM_BLOCKS):
+        block = next(blocks)
+    return block.last_state.pos.contiguous()
+
+
+def k1_inputs(device) -> list:
+    """``(label, pos, params, kw)`` in f32: uniform and warmed positions
+    at the DMC and VMC shapes, and S0's four-row table."""
+    out = []
+    for label, spec_kwargs, walkers, warmed in (
+            ("dmc shape", cs.BENCH_SPEC, cs.MAX_WALKERS, warmed_dmc_state),
+            ("vmc shape", cs.VMC_SPEC, cs.VMC_CHAINS, warmed_vmc_state)):
+        pos, params, kw = cs.pair_inputs(spec_kwargs, walkers, torch.float32,
+                                         device)
+        out.append((f"{label}, uniform", pos, params, kw))
+        out.append((f"{label}, warmed", warmed(device), params, kw))
+    pos, table, kw = cs.table_inputs(torch.float32, device, cs.EOS_SLOTS)
+    out.append(("4-row table", pos, table, kw))
+    return out
+
+
+def k1_plain(pos, params, kw, with_log_psi: bool) -> tuple:
+    """The plain version, K1_PLAIN_CHUNK walkers of one row at a time."""
+    rows = params if params.dim() == 2 else params[None]
+    per_row = pos.shape[0] // rows.shape[0]
+    parts = []
+    for r, row in enumerate(rows):
+        for start in range(r * per_row, (r + 1) * per_row, K1_PLAIN_CHUNK):
+            stop = min(start + K1_PLAIN_CHUNK, (r + 1) * per_row)
+            parts.append(pairwise.energy_and_drift_plain(
+                pos[start:stop], row, with_log_psi=with_log_psi, **kw))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def k1_gaps(got, want) -> dict:
+    """The largest relative gaps of log|psi| and the energy and the
+    largest absolute gap of the drift, ``got`` against ``want``."""
+    names = ("log_psi", "energy", "drift")[-len(got):]
+    gaps = {}
+    for name, g, w in zip(names, got, want):
+        d = (g.double() - w.double()).abs()
+        gaps[name] = float(d.max() if name == "drift"
+                           else (d / w.double().abs().clamp_min(1e-300)).max())
+    return gaps
+
+
+def k1_within(got, want, dtype) -> bool:
+    """``got`` within the card tests' tolerances of the plain version
+    ``want`` in the same dtype."""
+    if dtype == torch.float64:
+        tols = [(cs.K1_F64_RTOL, cs.K1_F64_RTOL)] * 3
+    else:
+        tol = cs.K1_LOG_F32_TOL
+        tols = [(tol["log_psi_rtol"], tol["log_psi_rtol"]),
+                (tol["energy_rtol"], tol["energy_rtol"]),
+                (tol["drift_rtol"], tol["drift_atol"])]
+    return all(bool(torch.isclose(g, w, rtol=rtol, atol=atol).all())
+               for g, w, (rtol, atol) in zip(got, want, tols[-len(got):]))
+
+
+def compare_k1(parent_fns, new_fns, device, card) -> None:
+    for label, pos32, params32, kw in k1_inputs(device):
+        walkers, nop = pos32.shape
+        per_row = walkers // params32.shape[0] if params32.dim() == 2 \
+            else walkers
+        share = pairwise.vote_share(pos32, params32, nop)
+        oracle = {}
+        forward64 = None
+        for dtype in (torch.float64, torch.float32):
+            suffix = "f32" if dtype == torch.float32 else "f64"
+            pos, params = pos32.to(dtype), params32.to(dtype)
+            for log_psi in (False, True):
+                name = (f"qmc_pair_logpsi_energy_drift_{suffix}" if log_psi
+                        else f"qmc_pair_energy_drift_{suffix}")
+                outs = {}
+
+                def call(fns, key):
+                    out = ((pos.new_empty(walkers),) if log_psi else ()) + (
+                        pos.new_empty(walkers), torch.empty_like(pos))
+                    outs[key] = out
+                    return launcher(fns[name], pos.data_ptr(),
+                                    params.data_ptr(),
+                                    *(t.data_ptr() for t in out), walkers,
+                                    per_row, nop, int(kw["is_free"]),
+                                    int(kw["is_ideal"]), kw["defects_sep"])
+
+                runs = {k: call(fns, k) for k, fns in (("parent", parent_fns),
+                                                       ("new", new_fns))}
+                for run in runs.values():
+                    run()
+                torch.cuda.synchronize()
+                if log_psi not in oracle:
+                    oracle[log_psi] = k1_plain(pos.double(), params.double(),
+                                               kw, log_psi)
+                want = oracle[log_psi] if dtype == torch.float64 \
+                    else k1_plain(pos, params, kw, log_psi)
+                check = {
+                    "gap_vs_f64_plain": {k: k1_gaps(o, oracle[log_psi])
+                                         for k, o in outs.items()},
+                    "within_plain_tol": {k: k1_within(o, want, dtype)
+                                         for k, o in outs.items()}}
+                ok = check["within_plain_tol"]["new"]
+                if dtype == torch.float64:
+                    if log_psi:
+                        equal = all(torch.equal(a, b) for a, b in
+                                    zip(forward64, outs["new"][1:]))
+                        check["f64_variants_equal"] = equal
+                        ok = ok and equal
+                    else:
+                        forward64 = outs["new"]
+                times = in_turns(runs["parent"], runs["new"],
+                                 lambda fn: cs.cuda_ms(fn, K1_REPS[dtype]))
+                out = {"kernel": "K1 log" if log_psi else "K1",
+                       "dtype": suffix, "shape": [walkers, nop],
+                       "rows": params.shape[0] if params.dim() == 2 else 1,
+                       "label": label, "card": card, "ms": times,
+                       "vote_share": share, **check, "ok": ok}
+                if dtype == torch.float32:
+                    bound_ms = cs.k1_bound(walkers, nop, log_psi)["bound_ms"]
+                    out.update(bound_ms=bound_ms, share_of_bound={
+                        k: bound_ms / (sum(v) / 2) for k, v in times.items()})
+                print(json.dumps(out), flush=True)
+                if not ok:
+                    raise SystemExit(f"{out['kernel']} {suffix} {label}: "
+                                     f"{check}")
 
 
 def compare_vjp(parent_fns, new_fns, device, card) -> None:
@@ -479,7 +653,8 @@ def main() -> None:
     builds = [("new", _build.build(), _build.LIBRARY)]
     if set(compares) - {"obd", "ssf"}:
         if args.parent is None:
-            raise SystemExit("--parent is needed by vjp, k2_rows and k3")
+            raise SystemExit("--parent is needed by k1, vjp, k2_rows and "
+                             "k3")
         parent_lib, parent_log = build_parent(args.parent.resolve())
         builds.insert(0, ("parent", parent_log, parent_lib))
     if args.out_dir:
@@ -496,11 +671,16 @@ def main() -> None:
         compare_ssf(device, card)
     if len(builds) == 1:
         return
-    names = ["qmc_pair_logpsi_params_vjp_f32",
+    names = ["qmc_pair_energy_drift_f32", "qmc_pair_energy_drift_f64",
+             "qmc_pair_logpsi_energy_drift_f32",
+             "qmc_pair_logpsi_energy_drift_f64",
+             "qmc_pair_logpsi_params_vjp_f32",
              "qmc_pair_logpsi_params_vjp_f64", "qmc_philox_normals_rows_f32",
              "qmc_diffuse_energy_drift_f32", "qmc_diffuse_energy_drift_f64"]
     parent_fns = load(parent_lib, names)
     new_fns = {name: _build.functions()[name] for name in names}
+    if "k1" in compares:
+        compare_k1(parent_fns, new_fns, device, card)
     if "k2_rows" in compares:
         compare_rows(parent_fns["qmc_philox_normals_rows_f32"], device, card)
     if "vjp" in compares:
